@@ -1,0 +1,46 @@
+"""Core of the port: slab layout, hashing, key rounding, routing, the
+one-round op-engine, the DHT wrappers and the surrogate cache."""
+from .dht import dht_read, dht_write
+from .layout import (
+    DHTConfig,
+    DHTState,
+    dht_create,
+    dht_occupancy,
+    occupancy,
+    pack_floats,
+    shard_watermark,
+    unpack_floats,
+)
+from .op_engine import (
+    OP_MIGRATE,
+    OP_READ,
+    OP_WRITE,
+    W_DROPPED,
+    W_EVICT,
+    W_INSERT,
+    W_SKIP,
+    W_UPDATE,
+    OpBatch,
+    dht_execute,
+    migrate_ops,
+    mixed_ops,
+    read_ops,
+    write_ops,
+)
+from .surrogate import (
+    SurrogateConfig,
+    lookup,
+    lookup_or_compute,
+    make_keys,
+    store,
+    surrogate_create,
+)
+
+__all__ = [
+    "DHTConfig", "DHTState", "OP_MIGRATE", "OP_READ", "OP_WRITE", "OpBatch",
+    "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP",
+    "W_UPDATE", "dht_create", "dht_execute", "dht_occupancy", "dht_read",
+    "dht_write", "lookup", "lookup_or_compute", "make_keys", "migrate_ops",
+    "mixed_ops", "occupancy", "pack_floats", "read_ops", "shard_watermark",
+    "store", "surrogate_create", "unpack_floats", "write_ops",
+]

@@ -1,0 +1,197 @@
+"""Bucket slab layout for the sharded DHT (PyTorch port of ``repro.core.layout``).
+
+Struct-of-arrays layout, one dense tensor per field:
+
+  keys : (S, B, KW) int32    key words        (POET: 80 B  -> KW = 20)
+  vals : (S, B, VW) int32    value words      (POET: 104 B -> VW = 26)
+  meta : (S, B)     int32    bit0 OCCUPIED, bit1 INVALID, bits8+ generation
+  csum : (S, B)     int32    lock-free checksum over key||value
+
+Words are int32 *bit-views* of the reference's uint32 words: torch's
+uint32 is storage-only (no ``+ >> << %`` or ``argmax``), so every
+arithmetic step that needs unsigned semantics widens to int64 and masks to
+32 bits (:func:`u32`, :func:`to_i32`).
+
+Each field lives in a flat buffer with ONE extra trailing row, the dump
+row: index writes that must skip an item (the reference's
+``mode="drop"`` scatters) aim it there instead.  ``state.keys`` & co. are
+(S, B, ...) views that exclude it.  The engine updates the buffers in
+place, so a state passed to ``dht_execute`` is the state it returns;
+clone it (:meth:`DHTState.clone`) to keep a snapshot.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+OCCUPIED = 1
+INVALID = 2
+GEN_SHIFT = 8
+
+MODE_LOCKFREE = "lockfree"
+MODE_FINE = "fine"
+MODE_COARSE = "coarse"
+MODES = (MODE_LOCKFREE, MODE_FINE, MODE_COARSE)
+
+MASK32 = 0xFFFFFFFF
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit-view -> int64 holding the unsigned value in [0, 2^32)."""
+    return x.to(torch.int64) & MASK32
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 (any value) -> int32 bit-view of its low 32 bits."""
+    return (((x + 0x80000000) & MASK32) - 0x80000000).to(torch.int32)
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The port runs on the card unless the caller names another device.
+    Asking for CUDA where there is none raises: nothing falls back to the
+    CPU silently."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class DHTConfig:
+    """Static configuration (same fields and defaults as the reference)."""
+
+    key_words: int = 20          # 80-byte keys (paper / POET)
+    val_words: int = 26          # 104-byte values
+    n_shards: int = 1            # S
+    buckets_per_shard: int = 1024  # B
+    n_probe: int = 6             # candidate window size
+    mode: str = MODE_LOCKFREE
+    capacity: int = 0            # routing capacity per destination; 0 = auto
+    max_read_retries: int = 2
+    n_replicas: int = 1
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.n_probe < 1 or self.buckets_per_shard < self.n_probe:
+            raise ValueError("need 1 <= n_probe <= buckets_per_shard")
+        if not 1 <= self.n_replicas <= min(self.n_shards, 4):
+            raise ValueError(f"n_replicas {self.n_replicas} out of range")
+
+    @property
+    def bucket_bytes(self) -> int:
+        return 4 * (self.key_words + self.val_words + 2)
+
+    @property
+    def shard_bytes(self) -> int:
+        return self.bucket_bytes * self.buckets_per_shard
+
+
+@dataclasses.dataclass(eq=False)
+class DHTState:
+    """The table: flat field buffers of S*B rows plus the dump row."""
+
+    cfg: DHTConfig
+    flat_keys: torch.Tensor   # (S*B + 1, KW) int32
+    flat_vals: torch.Tensor   # (S*B + 1, VW) int32
+    flat_meta: torch.Tensor   # (S*B + 1,) int32
+    flat_csum: torch.Tensor   # (S*B + 1,) int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.flat_keys.device
+
+    @property
+    def keys(self) -> torch.Tensor:
+        c = self.cfg
+        return self.flat_keys[:-1].view(c.n_shards, c.buckets_per_shard,
+                                        c.key_words)
+
+    @property
+    def vals(self) -> torch.Tensor:
+        c = self.cfg
+        return self.flat_vals[:-1].view(c.n_shards, c.buckets_per_shard,
+                                        c.val_words)
+
+    @property
+    def meta(self) -> torch.Tensor:
+        c = self.cfg
+        return self.flat_meta[:-1].view(c.n_shards, c.buckets_per_shard)
+
+    @property
+    def csum(self) -> torch.Tensor:
+        c = self.cfg
+        return self.flat_csum[:-1].view(c.n_shards, c.buckets_per_shard)
+
+    def clone(self) -> "DHTState":
+        return DHTState(self.cfg, self.flat_keys.clone(),
+                        self.flat_vals.clone(), self.flat_meta.clone(),
+                        self.flat_csum.clone())
+
+
+def dht_create(cfg: DHTConfig, *, device: str | torch.device | None = None
+               ) -> DHTState:
+    """DHT_create: allocate the empty table on ``device`` (CUDA unless
+    the caller asks for another)."""
+    dev = resolve_device(device)
+    rows = cfg.n_shards * cfg.buckets_per_shard + 1
+    z = dict(dtype=torch.int32, device=dev)
+    return DHTState(
+        cfg=cfg,
+        flat_keys=torch.zeros((rows, cfg.key_words), **z),
+        flat_vals=torch.zeros((rows, cfg.val_words), **z),
+        flat_meta=torch.zeros((rows,), **z),
+        flat_csum=torch.zeros((rows,), **z),
+    )
+
+
+def live_mask(meta: torch.Tensor) -> torch.Tensor:
+    """Bucket liveness: occupied and not INVALID."""
+    return ((meta & OCCUPIED) != 0) & ((meta & INVALID) == 0)
+
+
+def shard_watermark(meta: torch.Tensor) -> torch.Tensor:
+    """uint32 sum of a slab's meta words over the bucket axis, wrapped
+    explicitly: ((B,) -> (), (S, B) -> (S,)), as an int64 in [0, 2^32)."""
+    return u32(meta).sum(dim=-1) & MASK32
+
+
+def occupancy(state: DHTState) -> torch.Tensor:
+    """Fraction of occupied (and valid) buckets, per shard."""
+    return live_mask(state.meta).to(torch.float32).mean(dim=-1)
+
+
+def dht_occupancy(state: DHTState) -> dict[str, torch.Tensor]:
+    """Per-shard OCCUPIED/INVALID/live counts and load factor."""
+    m = state.meta
+    occ = (m & OCCUPIED) != 0
+    inv = (m & INVALID) != 0
+    live = live_mask(m)
+    return {
+        "occupied_per_shard": occ.sum(dim=-1).to(torch.int32),
+        "invalid_per_shard": inv.sum(dim=-1).to(torch.int32),
+        "live_per_shard": live.sum(dim=-1).to(torch.int32),
+        "load_factor_per_shard": live.to(torch.float32).mean(dim=-1),
+        "load_factor": live.to(torch.float32).mean(),
+        "buckets_per_shard": state.cfg.buckets_per_shard,
+    }
+
+
+def pack_floats(x: torch.Tensor, n_words: int) -> torch.Tensor:
+    """Bitcast (..., k) float32 into (..., n_words) int32 words, zero
+    padded: each float takes an even word slot (value word + zero word),
+    the paper's 80-byte key layout for 10 values."""
+    u = x.to(torch.float32).contiguous().view(torch.int32)
+    out = torch.zeros(x.shape[:-1] + (n_words,), dtype=torch.int32,
+                      device=x.device)
+    take = min(n_words, 2 * u.shape[-1])
+    n_vals = (take + 1) // 2
+    out[..., 0:take:2] = u[..., :n_vals]
+    return out
+
+
+def unpack_floats(w: torch.Tensor, n_floats: int) -> torch.Tensor:
+    """Inverse of :func:`pack_floats`."""
+    return w[..., 0:2 * n_floats:2].contiguous().view(torch.float32)

@@ -1,0 +1,297 @@
+"""Capacity-binned routing on the virtual-shard backend (PyTorch port of
+``repro.core.routing``).
+
+A round bins its requests by destination shard into fixed-capacity send
+bins, moves every payload through ONE fused (n, L) int32 lane matrix, and
+returns the replies the same way:
+
+- sort-based binning (:func:`bin_by_dest`): the within-bin position comes
+  from one sort of a packed int64 key (group << index_bits | index), the
+  same order as the reference's packed uint32 key, with
+  :func:`bin_by_dest_onehot` kept as the parity oracle;
+- count-driven capacity (:func:`plan_capacity`): the per-destination
+  histogram's max, rounded up the power-of-two lattice.  It reads one
+  number back to the host per round;
+- fused pack/unpack: ``dispatch``/``collect`` run the route kernels
+  (``kernels/ops.route_pack``/``route_unpack``; plain torch on the CPU).
+
+Only the single-device backend (``axis_name=None``), where the S shards
+are virtual and the exchange is a reshape, is ported in this slice.
+Overflow beyond capacity is dropped and reported, exactly as in the
+reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+
+from ..kernels import ops as kops
+from ..obs import metrics as obs_metrics
+from .layout import MASK32
+
+
+@dataclasses.dataclass
+class Binned:
+    """A request batch binned by destination."""
+
+    pos: torch.Tensor        # (n,) int32 position within the dest bin
+    kept: torch.Tensor       # (n,) bool, False = overflowed or invalid
+    dest: torch.Tensor       # (n,) int32 destination shard
+    capacity: int
+    n_dest: int
+    n_dropped: torch.Tensor  # () int32
+    epoch: int = 0           # membership epoch (0: static modulo placement)
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a caller gets for a feature of a later slice."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+
+
+def stable_rank_by_group(group: torch.Tensor, valid=None,
+                         n_groups: int | None = None) -> torch.Tensor:
+    """Rank of each item among items of the same group, stable in item
+    order, from one sort.  Invalid items sort to a sentinel group and
+    report rank 0.  With ``n_groups`` (ids in [0, n_groups)) group and
+    item index pack into one int64 key; otherwise a stable argsort."""
+    n = group.shape[0]
+    dev = group.device
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    ibits = max(n - 1, 1).bit_length()
+    g = group.to(torch.int64)
+    if n_groups and int(n_groups).bit_length() + ibits <= 62:
+        if valid is not None:
+            g = torch.where(valid, g, int(n_groups))     # sentinel group
+        ks = torch.sort((g << ibits) | iota).values
+        order = ks & ((1 << ibits) - 1)
+        gs = ks >> ibits
+    else:
+        if valid is not None:
+            g = torch.where(valid, g, 2**30)
+        order = torch.argsort(g, stable=True)
+        gs = g[order]
+    new_run = torch.ones(n, dtype=torch.bool, device=dev)
+    new_run[1:] = gs[1:] != gs[:-1]
+    run_start = torch.cummax(torch.where(new_run, iota, 0), dim=0).values
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[order] = iota - run_start
+    if valid is not None:
+        rank = torch.where(valid, rank, 0)
+    return rank.to(torch.int32)
+
+
+def _binned(pos, dest, n_dest, capacity, epoch, valid) -> Binned:
+    in_cap = pos < capacity
+    kept = in_cap if valid is None else valid & in_cap
+    dropped = ~kept if valid is None else valid & ~in_cap
+    return Binned(pos=pos, kept=kept, dest=dest.to(torch.int32),
+                  capacity=capacity, n_dest=n_dest,
+                  n_dropped=dropped.sum().to(torch.int32),
+                  epoch=0 if epoch is None else int(epoch))
+
+
+def bin_by_dest(dest: torch.Tensor, n_dest: int, capacity: int, epoch=None,
+                valid=None) -> Binned:
+    """Within-bin positions in stable item order.  ``valid`` False items
+    take no bin slot and come back ``kept=False`` (not counted dropped)."""
+    pos = stable_rank_by_group(dest, valid, n_groups=n_dest)
+    return _binned(pos, dest, n_dest, capacity, epoch, valid)
+
+
+def bin_by_dest_onehot(dest: torch.Tensor, n_dest: int, capacity: int,
+                       epoch=None, valid=None) -> Binned:
+    """O(n x n_dest) one-hot/cumsum binning: the parity oracle."""
+    onehot = dest[:, None] == torch.arange(n_dest, dtype=dest.dtype,
+                                           device=dest.device)[None, :]
+    if valid is not None:
+        onehot = onehot & valid[:, None]
+    oh = onehot.to(torch.int32)
+    pos = ((torch.cumsum(oh, dim=0) - 1) * oh).sum(dim=1).to(torch.int32)
+    return _binned(pos, dest, n_dest, capacity, epoch, valid)
+
+
+def bin_counts(b: Binned) -> torch.Tensor:
+    """Per-destination count of kept items, (n_dest,) int32."""
+    idx = torch.where(b.kept, b.dest, b.n_dest).to(torch.int64)
+    return torch.bincount(idx, minlength=b.n_dest + 1)[:b.n_dest].to(
+        torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# count-driven capacity
+# ---------------------------------------------------------------------------
+
+def capacity_bucket(max_load: int, floor: int = 16,
+                    limit: int | None = None) -> int:
+    """Round a max bin load up the power-of-two lattice."""
+    c = max(int(max_load), 1)
+    b = max(floor, 1 << (c - 1).bit_length())
+    if limit is not None:
+        b = min(b, max(int(limit), 1))
+    return b
+
+
+def plan_capacity(dest: torch.Tensor, n_dest: int, *, n_src: int = 1,
+                  floor: int = 16, valid=None) -> int:
+    """Count-exchange prologue: per-destination histogram -> max bin load
+    -> power-of-two capacity.  ``dest`` viewed as ``n_src`` rows, one per
+    source; ``valid`` False items are left out.  Reads one integer back
+    to the host."""
+    d = dest.reshape(n_src, -1).to(torch.int64)
+    if valid is not None:
+        d = torch.where(valid.reshape(n_src, -1), d, n_dest)
+    width = n_dest + 1
+    off = torch.arange(n_src, dtype=torch.int64, device=d.device)[:, None]
+    counts = torch.bincount((d + off * width).reshape(-1),
+                            minlength=n_src * width).reshape(n_src, width)
+    max_load = max(int(counts[:, :n_dest].max()) if d.numel() else 0, 1)
+    return capacity_bucket(max_load, floor=floor, limit=d.shape[1])
+
+
+def auto_capacity(n_local: int, n_dest: int, factor: float = 4.0,
+                  floor: int = 16) -> int:
+    """Static heuristic: expected n/S load x safety factor."""
+    c = int(math.ceil(n_local / max(n_dest, 1) * factor))
+    return min(max(c, floor), max(n_local, 1))
+
+
+# ---------------------------------------------------------------------------
+# fused multi-lane pack/unpack
+# ---------------------------------------------------------------------------
+
+def _to_lanes(p: torch.Tensor) -> torch.Tensor:
+    """(n, *tail) payload -> (n, w) int32 lane view (bit-exact)."""
+    q = p.reshape(p.shape[0], -1)
+    if q.dtype == torch.bool:
+        return q.to(torch.int32)
+    if q.element_size() != 4:
+        raise TypeError(f"need 4-byte or bool lanes, got {q.dtype}")
+    return q.contiguous().view(torch.int32)
+
+
+def _from_lanes(lanes: torch.Tensor, dtype, tail: tuple) -> torch.Tensor:
+    out = lanes != 0 if dtype == torch.bool else lanes.view(dtype)
+    return out.reshape((lanes.shape[0],) + tuple(tail))
+
+
+def _fill_word(fill, dtype) -> int:
+    """One payload's fill value as a signed int32 lane word, cast through
+    the payload dtype first (the one definition shared by both legs)."""
+    if dtype == torch.bool:
+        return int(bool(fill))
+    if dtype.is_floating_point:
+        return int(torch.tensor(fill, dtype=dtype).view(torch.int32))
+    v = int(fill) & MASK32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _pad_fills(fills, n: int) -> list:
+    fills = list(fills) if fills is not None else []
+    return fills + [0] * (n - len(fills))
+
+
+def _encode(payloads: Sequence[torch.Tensor], tail_from: int, fills):
+    """Bit-pack payloads into one (rows, L) int32 matrix + lane specs +
+    the (L,) fill row.  ``tail_from`` is where the per-item tail starts
+    (1 for flat (n, *tail) payloads, 2 for (n_dest, cap, *tail))."""
+    mats, specs, fill_parts = [], [], []
+    for p, fill in zip(payloads, _pad_fills(fills, len(payloads))):
+        tail = tuple(p.shape[tail_from:])
+        lanes = _to_lanes(p.reshape((-1,) + tail))
+        mats.append(lanes)
+        specs.append((p.dtype, tail, lanes.shape[1]))
+        fill_parts.append(torch.full((lanes.shape[1],),
+                                     _fill_word(fill, p.dtype),
+                                     dtype=torch.int32, device=p.device))
+    return torch.cat(mats, dim=1), specs, torch.cat(fill_parts)
+
+
+def _decode(mat: torch.Tensor, specs) -> list[torch.Tensor]:
+    out, off = [], 0
+    for dtype, tail, w in specs:
+        out.append(_from_lanes(mat[:, off:off + w], dtype, tail))
+        off += w
+    return out
+
+
+def lane_width(payloads: Sequence[torch.Tensor]) -> int:
+    """Total int32 lanes a payload list occupies on the wire."""
+    return sum(math.prod(p.shape[1:]) or 1 for p in payloads)
+
+
+def _slots(b: Binned) -> tuple[torch.Tensor, int]:
+    """Per-item send-buffer row; dropped items get the out-of-range row
+    ``rows`` (the dump row of the inverse-permutation scatter)."""
+    rows = b.n_dest * b.capacity
+    slot = b.dest * b.capacity + torch.clamp(b.pos, max=b.capacity - 1)
+    return torch.where(b.kept, slot, rows), rows
+
+
+def _scatter_to_bins(b: Binned, mat: torch.Tensor,
+                     fill_row: torch.Tensor) -> torch.Tensor:
+    """(n, L) lane matrix -> (n_dest * capacity, L) send buffer: a scatter
+    of one int32 per item into the inverse permutation, then the pack
+    kernel's row gather."""
+    n = mat.shape[0]
+    slot, rows = _slots(b)
+    inv = torch.full((rows + 1,), -1, dtype=torch.int32, device=mat.device)
+    inv.scatter_(0, slot.to(torch.int64),
+                 torch.arange(n, dtype=torch.int32, device=mat.device))
+    return kops.route_pack(mat, inv[:rows], fill_row)
+
+
+def _gather_from_bins(b: Binned, buf: torch.Tensor,
+                      fill_row: torch.Tensor) -> torch.Tensor:
+    """(n_dest * capacity, L) -> (n, L) in original item order."""
+    slot, rows = _slots(b)
+    slot = torch.clamp(slot, max=rows - 1).to(torch.int32)
+    return kops.route_unpack(buf, slot, b.kept.to(torch.int32), fill_row)
+
+
+def dispatch(b: Binned, payloads: Sequence[torch.Tensor], axis_name=None,
+             fills: Sequence = ()) -> list[torch.Tensor]:
+    """Send payloads to their destination shards through one fused lane
+    matrix.  Returns each payload as an (n_dest, capacity, *tail) buffer
+    (the virtual shards' incoming bins); empty slots hold ``fills``."""
+    if axis_name is not None:
+        raise not_ported("the multi-rank backend (axis_name)", "7")
+    obs_metrics.inc("routing.dispatches")
+    mat, specs, fill_row = _encode(payloads, 1, fills)
+    buf = _scatter_to_bins(b, mat, fill_row)
+    return [p.reshape((b.n_dest, b.capacity) + tuple(p.shape[1:]))
+            for p in _decode(buf, specs)]
+
+
+def collect(b: Binned, replies: Sequence[torch.Tensor], axis_name=None,
+            fills: Sequence = (0,), block_rows: bool = False
+            ) -> list[torch.Tensor]:
+    """Inverse of :func:`dispatch`: replies shaped (n_dest, capacity,
+    *tail) return to item order; overflowed items get ``fills``."""
+    if axis_name is not None:
+        raise not_ported("the multi-rank backend (axis_name)", "7")
+    if block_rows:
+        raise not_ported("block_rows (the L1 coherence piggyback)", "9")
+    obs_metrics.inc("routing.collects")
+    mat, specs, fill_row = _encode(replies, 2, fills)
+    return _decode(_gather_from_bins(b, mat, fill_row), specs)
+
+
+def wire_stats(b: Binned, send_lanes: int, reply_lanes: int, *,
+               prologue_words: int = 0) -> dict:
+    """Per-round wire accounting: buffer words on both legs (plus the
+    count-exchange histogram words) and the padding fraction of the
+    buffer rows."""
+    rows = b.n_dest * b.capacity
+    kept = b.kept.sum().to(torch.float32)
+    denom = torch.full((), float(max(rows, 1)), dtype=torch.float32,
+                       device=kept.device)
+    return {
+        "wire_words": rows * (send_lanes + reply_lanes) + prologue_words,
+        "wire_send_words": rows * send_lanes + prologue_words,
+        "wire_reply_words": rows * reply_lanes,
+        "fill_frac": 1.0 - kept / denom,
+    }

@@ -1,0 +1,55 @@
+"""The kernel switch: a CUDA tensor launches the hand-written kernel, a CPU
+tensor takes the plain version in ``kernels/ref.py``.
+
+There is no fallback: on the card a kernel that fails to build or launch
+raises.  Mixed devices raise.  ``launches()`` reads the per-kernel launch
+counts (incremented only where a kernel is launched, ``build.launch``).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import apply_kernel, build, hash_kernel, ref, route_kernel
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    cuda = [t.is_cuda for t in tensors]
+    if all(cuda):
+        return True
+    if any(cuda):
+        raise ValueError("kernel inputs lie on different devices")
+    return False
+
+
+def launches() -> dict[str, int]:
+    return dict(build.LAUNCHES)
+
+
+def reset_launches() -> None:
+    build.reset_launches()
+
+
+def route_pack(mat, inv, fill_row):
+    if _on_cuda(mat, inv, fill_row):
+        return route_kernel.route_pack(mat, inv, fill_row)
+    return ref.route_pack(mat, inv, fill_row)
+
+
+def route_unpack(buf, slot, kept, fill_row):
+    if _on_cuda(buf, slot, kept, fill_row):
+        return route_kernel.route_unpack(buf, slot, kept, fill_row)
+    return ref.route_unpack(buf, slot, kept, fill_row)
+
+
+def hash64(keys):
+    if _on_cuda(keys):
+        return hash_kernel.hash64(keys)
+    return ref.hash64(keys)
+
+
+def shard_apply(slab_keys, slab_vals, slab_meta, slab_csum, qkeys, base,
+                n_probe: int):
+    args = (slab_keys, slab_vals, slab_meta, slab_csum, qkeys, base)
+    if _on_cuda(*args):
+        return apply_kernel.shard_apply(*args, n_probe)
+    return ref.shard_apply(*args, n_probe)

@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function here computes exactly what its CUDA kernel computes, on
+int32 bit-views of the words.  The CPU path runs them (``kernels/ops.py``
+picks them for CPU tensors only), the tests hold them against the JAX
+package's Pallas kernels, and ``chip_smoke.py`` holds each kernel against
+them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.hashing import CHECKSUM_SEED, hash64 as _hash64, murmur32_words
+from ..core.layout import INVALID, OCCUPIED
+
+
+def route_pack(mat: torch.Tensor, inv: torch.Tensor,
+               fill_row: torch.Tensor) -> torch.Tensor:
+    """(n, L) item lanes -> (rows, L) send buffer: row i is
+    ``mat[inv[i]]``, or the fill row where ``inv[i] == -1``."""
+    picked = mat[inv.clamp(min=0).long()]
+    return torch.where((inv >= 0)[:, None], picked, fill_row[None, :])
+
+
+def route_unpack(buf: torch.Tensor, slot: torch.Tensor, kept: torch.Tensor,
+                 fill_row: torch.Tensor) -> torch.Tensor:
+    """(rows, L) reply buffer -> (n, L) item order: item i gets
+    ``buf[slot[i]]``, or the fill row where ``kept[i] == 0``."""
+    return torch.where((kept != 0)[:, None], buf[slot.long()],
+                       fill_row[None, :])
+
+
+def hash64(keys: torch.Tensor) -> torch.Tensor:
+    """(N, KW) int32 -> (N, 2) int32 ``[hi, lo]``."""
+    hi, lo = _hash64(keys)
+    return torch.stack([hi, lo], dim=-1)
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 where none)."""
+    return torch.argmax(mask.to(torch.int32), dim=-1).to(torch.int32)
+
+
+def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
+                slab_meta: torch.Tensor, slab_csum: torch.Tensor,
+                qkeys: torch.Tensor, base: torch.Tensor, n_probe: int):
+    """One pass over each query's window ``base .. base + n_probe - 1``
+    (indices clamped into the slab):
+
+    - read lane: the first occupied, non-INVALID, key-equal candidate is
+      selected (``rsel``, 0 where none); only it is checksum-validated,
+      with no fall-through to a later candidate.  ``found`` is 1 (valid),
+      -1 (selected but its checksum failed) or 0 (no candidate); ``vals``
+      is the selected value where ``found == 1``, else zeros.
+    - write lane (paper §3.1): same key (INVALID included) -> W_UPDATE at
+      the first match; else the first empty or INVALID bucket -> W_INSERT;
+      else the last candidate -> W_EVICT.
+
+    Returns ``(vals (C, VW), found (C,), rsel (C,), wsel (C,), wkind (C,))``,
+    all int32."""
+    from ..core.op_engine import W_EVICT, W_INSERT, W_UPDATE
+
+    nb = slab_meta.shape[0]
+    off = torch.arange(n_probe, dtype=torch.int64, device=base.device)
+    idx = (base.long()[:, None] + off[None, :]).clamp(0, nb - 1)   # (C, P)
+    meta = slab_meta[idx]
+    occupied = (meta & OCCUPIED) != 0
+    invalid = (meta & INVALID) != 0
+    keys_eq = (slab_keys[idx] == qkeys[:, None, :]).all(dim=-1)
+
+    rmatch = keys_eq & occupied & ~invalid
+    has = rmatch.any(dim=-1)
+    rsel = _first_true(rmatch)
+    ridx = idx.gather(1, rsel.long()[:, None])[:, 0]
+    val = slab_vals[ridx]
+    ok = murmur32_words(torch.cat([qkeys, val], dim=-1),
+                        CHECKSUM_SEED) == slab_csum[ridx]
+    found = torch.where(has, torch.where(ok, 1, -1), 0).to(torch.int32)
+    val = torch.where((found == 1)[:, None], val, torch.zeros_like(val))
+
+    wmatch = keys_eq & occupied
+    writable = ~occupied | invalid
+    has_match = wmatch.any(dim=-1)
+    has_empty = writable.any(dim=-1)
+    wsel = torch.where(
+        has_match, _first_true(wmatch),
+        torch.where(has_empty, _first_true(writable), n_probe - 1),
+    ).to(torch.int32)
+    wkind = torch.where(
+        has_match, W_UPDATE, torch.where(has_empty, W_INSERT, W_EVICT),
+    ).to(torch.int32)
+    return val, found, rsel, wsel, wkind
