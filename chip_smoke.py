@@ -5,34 +5,51 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each kernel against its
-plain PyTorch version on the card, drives the main path (the lock-free
-DHT at full size, then the POET surrogate twin), checks the results, and
-times every kernel.  One JSON line per phase:
+plain PyTorch version on the card, drives the main paths (the lock-free
+DHT at full size, key rounding, the POET surrogate twin, and the
+neighbourhood-interpolation query), checks the results, and times every
+kernel.  One JSON line per phase:
 
 1. env     - card name and power limit (nvidia-smi), CUDA, device count;
 2. build   - nvcc for sm_90a, one process per source, with ptxas reports;
 3. kernels - every kernel against its plain version, bit for bit, on the
-             inputs of a real full-size round plus small edge cases;
+             inputs of a real full-size write and read round plus small
+             edge cases (the rounding and stencil kernels are also held
+             against their plain versions in phases 5 and 7, on the
+             inputs those paths give them);
 4. dht     - S=8 x B=2^21 buckets of 192 B (3.2 GB): seeded 2^16-key
              write, read, 95/5 mixed and migrate rounds; dropped must be 0,
-             every read must hit; then the same stream at B=2^16 on the
-             card and on the CPU must leave identical slab words;
-5. keys    - make_keys on the card against the CPU on 2 M values spanning
-             1e-30..1e30; a mismatch is allowed only within 64 ulps of a
-             power of ten (F1 in ROADMAP.md);
+             every read must hit, the checksum kernel must launch once per
+             write pass; then the same stream at B=2^16 on the card and on
+             the CPU must leave identical slab words;
+5. keys    - make_keys (the round_sig kernel) on 2 M values spanning
+             1e-30..1e30: kernel against plain on the card bit for bit,
+             and the card against the CPU, where a mismatch is allowed
+             only within 64 ulps of a power of ten (F1 in ROADMAP.md);
 6. poet    - the POET twin at its default 50 x 150 grid with and without
              the DHT (steps cut to fit the time limit, the cut printed);
-7. timing  - each kernel, its plain version and the nearest single
+7. interp  - the neighbourhood query: (a) a bracketed round on the full
+             table, 2,978 query centres whose +-1-step neighbours along
+             dim 0 are stored, D = 10, radius 1 + coarse tier, so 65,516
+             stencil probes in one round: every row must interpolate,
+             within 5% of the stored function; (b) the same construction
+             at B=2^16 on the card and on the CPU through both forms of
+             lookup_interpolate_or_compute: keys, found flags, provenance
+             and slab words equal, outputs at rtol 1e-5; (c) the POET twin
+             with --interp beside phase 6's plain run;
+8. timing  - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound.
 
-Then the ``kernels`` line (launch counts from phases 4 and 6, each must be
-> 0), the card's name and power limit, and the result line.  Any failure
-raises and exits non-zero before the result line; without a CUDA device,
-or without the repository around this file, it exits non-zero at once.
+Then the ``kernels`` line (launch counts per phase; every kernel must
+launch in every phase whose path calls it), the card's name and power
+limit, and the result line.  Any failure raises and exits non-zero
+before the result line; without a CUDA device, or without the
+repository around this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import re
 import statistics
@@ -53,6 +70,8 @@ N_KEYS = 1 << 16               # requests per round
 KEY_VALUES = 2_000_000         # values rounded on the card and the CPU
 POET_STEPS = 20                # of the example's 50
 DHT_REPS = 5                   # timed repeats of the 4-round stream
+INTERP_CENTRES = 2978          # x 22 stencil entries = 65,516 probes
+INTERP_REPS = 3                # timed repeats of the bracketed round
 TIMING_REPS = 20
 KERNEL_SOURCES = {
     "route_pack": ("src/repro_torch/kernels/csrc/route.cu",
@@ -63,6 +82,20 @@ KERNEL_SOURCES = {
                "src/repro/kernels/hash_kernel.py:35"),
     "shard_apply": ("src/repro_torch/kernels/csrc/apply.cu",
                     "src/repro/kernels/apply_kernel.py:123"),
+    "checksum": ("src/repro_torch/kernels/csrc/checksum.cu",
+                 "src/repro/kernels/checksum_kernel.py:29"),
+    "round_sig": ("src/repro_torch/kernels/csrc/round.cu",
+                  "src/repro/kernels/round_kernel.py:29"),
+    "stencil_keys": ("src/repro_torch/kernels/csrc/stencil.cu",
+                     "src/repro/kernels/stencil_kernel.py:78"),
+}
+# the phases whose path calls each kernel: each must launch it
+ENGINE_PHASES = ("dht", "poet", "interp")
+KERNEL_PHASES = {
+    "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
+    "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
+    "checksum": ENGINE_PHASES, "round_sig": ("keys", "poet", "interp"),
+    "stencil_keys": ("interp",),
 }
 
 
@@ -94,10 +127,12 @@ def words(gen, n: int, w: int, device):
 
 
 class Capture:
-    """Records the arguments of every kernel call the engine makes while
-    active (the kernels still run)."""
+    """Records the arguments of every kernel call the port makes while
+    active (the kernels still run), bound to positional order with the
+    defaults filled in."""
 
-    NAMES = ("route_pack", "route_unpack", "hash64", "shard_apply")
+    NAMES = ("route_pack", "route_unpack", "hash64", "shard_apply",
+             "checksum", "round_sig", "stencil_keys")
 
     def __init__(self, ops):
         self.ops = ops
@@ -111,10 +146,13 @@ class Capture:
 
     def _wrap(self, name):
         fn = self.orig[name]
+        sig = inspect.signature(fn)
 
-        def recorded(*args):
-            self.calls[name].append(args)
-            return fn(*args)
+        def recorded(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            self.calls[name].append(bound.args)
+            return fn(*args, **kwargs)
         return recorded
 
     def __exit__(self, *exc):
@@ -124,7 +162,9 @@ class Capture:
 
 
 def max_abs_err(a, b) -> float:
-    """Largest |a - b| over the outputs' values (0.0 = bit for bit)."""
+    """Largest |a - b| over the outputs' values; 0.0 only where every
+    output is equal bit for bit (float outputs are compared by their
+    bits first, so -0 against +0 or two nan payloads count)."""
     import torch
 
     outs_a = a if isinstance(a, tuple) else (a,)
@@ -132,7 +172,14 @@ def max_abs_err(a, b) -> float:
     err = 0.0
     for x, y in zip(outs_a, outs_b):
         check(x.shape == y.shape and x.dtype == y.dtype, "output shape/type")
-        if x.numel():
+        if not x.numel():
+            continue
+        if x.dtype.is_floating_point:
+            if torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                continue
+            d = (x.double() - y.double()).abs().nan_to_num(float("inf"))
+            err = max(err, float(d.max()) or float("inf"))
+        else:
             d = (x.to(torch.int64) - y.to(torch.int64)).abs().max()
             err = max(err, float(d))
     return err
@@ -218,6 +265,26 @@ def bound_shard_apply(skeys, svals, smeta, scsum, q, base, n_probe, res):
     return nbytes, ops
 
 
+def bound_checksum(keys, vals):
+    n, kw = keys.shape
+    vw = vals.shape[1]
+    return 4 * (n * (kw + vw) + n), n * (kw + vw) * 11
+
+
+def bound_round_sig(x, sig_digits):
+    # a logf (~20 operations), floor, two table reads, three products
+    return 8 * x.numel(), x.numel() * 30
+
+
+def bound_stencil_keys(x, sig_digits, key_words, radius, coarse_tier,
+                       n_buckets, n_probe):
+    n, d = x.shape
+    m = 1 + 2 * radius * d + int(coarse_tier)
+    nbytes = 4 * (n * d + 2 * m + n * m * key_words + n * m)
+    # per entry: D roundings, one lattice step, the KW-word chain
+    return nbytes, n * m * (d * 30 + 40 + key_words * 11)
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
@@ -286,9 +353,25 @@ def edge_cases(gen):
     from repro_torch.core.hashing import base_bucket, hash64
 
     cases = {"hash64": [], "route_pack": [], "route_unpack": [],
-             "shard_apply": []}
+             "shard_apply": [], "checksum": [], "round_sig": [],
+             "stencil_keys": []}
     for n, kw in ((1, 20), (7, 4), (300, 33), (1000, 20)):
         cases["hash64"].append((words(gen, n, kw, DEVICE),))
+    for n, kw, vw in ((1, 20, 26), (7, 4, 1), (300, 33, 17)):
+        wide = words(gen, n, kw + vw + 3, DEVICE)
+        cases["checksum"].append((words(gen, n, kw, DEVICE),
+                                  words(gen, n, vw, DEVICE)))
+        cases["checksum"].append((wide[:, :kw], wide[:, kw:kw + vw]))
+    edges = torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
+                          -float("inf"), float("nan"), 9.995, 0.0999, 1.0],
+                         device=DEVICE)
+    for sig in (1, 3, 4):
+        cases["round_sig"].append((edges, sig))
+    x = (10.0 ** (torch.rand((64, 10), generator=gen) * 6 - 3)).to(DEVICE)
+    x[0, :3] = torch.tensor([9.99, 0.0999, 0.0])
+    for radius, coarse, kw in ((1, True, 20), (2, False, 20), (3, True, 23),
+                               (1, True, 7)):
+        cases["stencil_keys"].append((x, 3, kw, radius, coarse, 1 << 16, 6))
     for n, rows, width in ((1, 16, 1), (80, 64, 22), (37, 96, 48),
                            (61, 32, 28)):
         mat = words(gen, n, width, DEVICE)
@@ -322,32 +405,68 @@ def edge_cases(gen):
     return cases
 
 
-def phase_kernels(cfg_big, gen):
-    from repro_torch.kernels import (apply_kernel, hash_kernel, ref,
-                                     route_kernel)
+def kernel_pairs():
+    """name -> (kernel wrapper, plain version), each taking the arguments
+    ``kernels/ops.py`` receives (the rounding wrappers take the float32
+    contiguous input that ``ops`` hands them)."""
+    from repro_torch.kernels import (apply_kernel, checksum_kernel,
+                                     hash_kernel, ref, round_kernel,
+                                     route_kernel, stencil_kernel)
 
-    pairs = {
+    def f32(x):
+        return x.float().contiguous()
+
+    return {
         "route_pack": (route_kernel.route_pack, ref.route_pack),
         "route_unpack": (route_kernel.route_unpack, ref.route_unpack),
         "hash64": (hash_kernel.hash64, ref.hash64),
         "shard_apply": (apply_kernel.shard_apply, ref.shard_apply),
+        "checksum": (checksum_kernel.checksum, ref.checksum),
+        "round_sig": (lambda x, *a: round_kernel.round_sig(f32(x), *a),
+                      ref.round_sig),
+        "stencil_keys": (
+            lambda x, *a: stencil_kernel.stencil_keys(f32(x), *a),
+            ref.stencil_keys),
     }
+
+
+def compare_calls(calls: dict, errs: dict, where: str) -> dict:
+    """Hold every captured kernel call against the plain version; fold
+    the largest error per kernel into ``errs``."""
+    pairs = kernel_pairs()
+    out = {}
+    for name, arg_list in calls.items():
+        if not arg_list:
+            continue
+        kern, plain = pairs[name]
+        err = max(kernel_vs_plain(name, kern, plain, args)
+                  for args in arg_list)
+        errs[name] = max(errs.get(name, 0.0), err)
+        out[name] = {"calls": len(arg_list), "max_abs_err": err}
+    emit("kernel_parity", where=where, result=out,
+         tolerance="bit for bit (max_abs_err 0)")
+    return out
+
+
+def phase_kernels(cfg_big, gen, errs):
     st, wcalls, rcalls = main_path_capture(cfg_big, gen)
     edges = edge_cases(gen)
     result = {}
-    for name, (kern, plain) in pairs.items():
+    for name, (kern, plain) in kernel_pairs().items():
         main = wcalls[name] + rcalls[name]
-        check(len(main) > 0, f"{name}: the main path made no call")
+        check(len(main) > 0 or name in ("round_sig", "stencil_keys"),
+              f"{name}: the main path made no call")
         err = 0.0
         for args in main + edges[name]:
             err = max(err, kernel_vs_plain(name, kern, plain, args))
+        errs[name] = max(errs.get(name, 0.0), err)
         result[name] = {"main_path_calls": len(main),
                         "edge_cases": len(edges[name]), "max_abs_err": err,
                         "shapes": sorted({str([tuple(a.shape) for a in args
                                                if hasattr(a, "shape")])
                                           for args in main})}
     emit("kernels", result=result, tolerance="bit for bit (max_abs_err 0)")
-    return st, wcalls, rcalls, {k: v["max_abs_err"] for k, v in result.items()}
+    return st, wcalls, rcalls
 
 
 def _stream(cfg, device, seed):
@@ -427,6 +546,14 @@ def phase_dht(cfg_big):
               "dht read: not every written key was found")
         check(torch.equal(outs["read"][2], vals), "dht read: wrong values")
     launches = ops.launches()
+    # every write pass launches shard_apply (slot choice) and checksum
+    # once; the read, mixed and migrate rounds add one probe pass each
+    passes = sum(sum(r["write_passes"] for r in runs)
+                 for runs in samples.values())
+    check(launches["checksum"] == passes
+          == launches["shard_apply"] - 3 * DHT_REPS,
+          f"dht: checksum launches {launches['checksum']}, write passes "
+          f"{passes}, shard_apply launches {launches['shard_apply']}")
     rounds = []
     for kind, runs in samples.items():
         ms = [r["ms"] for r in runs]
@@ -445,7 +572,7 @@ def phase_dht(cfg_big):
          key_words=cfg_big.key_words, val_words=cfg_big.val_words,
          n_probe=cfg_big.n_probe, mode=cfg_big.mode, table_gb=table_gb,
          reps=DHT_REPS, rounds=rounds, max_memory_allocated_gb=peak / 1e9,
-         launches=launches)
+         write_passes=passes, launches=launches)
     del st
 
     # the same stream at B=2^16: card and CPU must agree word for word
@@ -469,11 +596,12 @@ def phase_dht(cfg_big):
     return launches
 
 
-def phase_keys():
+def phase_keys(errs):
     import numpy as np
     import torch
 
     from repro_torch.core import SurrogateConfig, make_keys
+    from repro_torch.kernels import ops
 
     cfg = SurrogateConfig(sig_digits=3)
     gen = torch.Generator().manual_seed(5)
@@ -482,7 +610,15 @@ def phase_keys():
                    - 30)
     sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0)
     x = (mag * sign).to(torch.float32).reshape(-1, 10)
-    k_gpu = make_keys(cfg, x.to(DEVICE)).cpu()
+    x_dev = x.to(DEVICE)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with Capture(ops) as cap:
+        k_gpu = make_keys(cfg, x_dev)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    k_gpu = k_gpu.cpu()
+    parity = compare_calls(cap.calls, errs, "keys")
     k_cpu = make_keys(cfg, x)
     diff = (k_gpu[:, 0::2] != k_cpu[:, 0::2]).reshape(-1)
     bad = x.reshape(-1)[diff].numpy()
@@ -492,11 +628,15 @@ def phase_keys():
             if bad.size else np.zeros(0))
     outside = int((ulps > 64).sum())
     emit("keys", values=n, sig_digits=cfg.sig_digits,
-         mismatches=int(diff.sum()), outside_64ulp_band=outside,
+         kernel_vs_plain_on_card=parity,
+         card_vs_cpu_mismatches=int(diff.sum()),
+         outside_64ulp_band=outside,
          padding_words_equal=bool(torch.equal(k_gpu[:, 1::2],
-                                              k_cpu[:, 1::2])))
+                                              k_cpu[:, 1::2])),
+         launches=launches)
     check(outside == 0, f"keys: {outside} card/CPU mismatches lie outside "
                         "the 64-ulp band of a decade boundary")
+    return launches, cap.calls
 
 
 def phase_poet():
@@ -509,8 +649,10 @@ def phase_poet():
 
     cfg = PoetConfig(n_steps=POET_STEPS)
     ref = run_simulation(cfg, use_dht=False, device=DEVICE)
+    torch.cuda.synchronize()
     ops.reset_launches()
     dht = run_simulation(cfg, use_dht=True, device=DEVICE)
+    torch.cuda.synchronize()
     launches = ops.launches()
     conc = dht["conc"]
     check(conc.shape == (cfg.nx * cfg.ny, 9), "poet: conc shape")
@@ -528,14 +670,219 @@ def phase_poet():
          wall_s_no_dht=ref["wall_s"],
          gain_pct=(ref["wall_s"] - dht["wall_s"]) / ref["wall_s"] * 100,
          max_abs_dconc=err, launches=launches)
-    return launches
+    return launches, ref, dht
 
 
-def phase_timing(wcalls, rcalls):
+def interp_fn(x):
+    """The function stored in the interp phase's tables: (n, 10) -> (n, 13),
+    linear, so the blend of two neighbours 1 step either side of a centre
+    recovers it up to rounding."""
+    import torch
+
+    return torch.cat([x * 2.0, x[:, :3]], dim=-1)
+
+
+def _bracketed(scfg, n, device, seed):
+    """``n`` query centres on the ``sig_digits`` lattice (uniform in
+    1.5..9.5, D = 10) and the 2n points one lattice step either side of
+    each along dim 0, which the phase stores: every centre is then a
+    near miss with two cached neighbours (tests/test_interp.py's
+    construction).  Made on the CPU, then moved."""
+    import torch
+
+    from repro_torch.core.neighbors import lattice_step, round_significant
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, scfg.n_inputs), generator=gen) * 8 + 1.5
+    centre = round_significant(x, scfg.sig_digits)
+    step = lattice_step(centre, scfg.sig_digits)
+    lo, hi = centre.clone(), centre.clone()
+    lo[:, 0] -= step[:, 0]
+    hi[:, 0] += step[:, 0]
+    return centre.to(device), torch.cat([lo, hi]).to(device)
+
+
+def _rows(seed, n, lo, hi, device):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((n, 10), generator=gen) * (hi - lo) + lo).to(device)
+
+
+def _interp_parity(icfg):
+    """(b): the bracketed construction at B=2^16, plus stored exact rows
+    and far misses, on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import (DHTConfig, SurrogateConfig, dht_read_many,
+                                  lookup_interpolate_or_compute, store,
+                                  surrogate_create)
+    from repro_torch.core.neighbors import dedup_mask
+    from repro_torch.kernels import ops
+
+    small = SurrogateConfig(n_inputs=10, n_outputs=13, sig_digits=3,
+                            dht=DHTConfig(key_words=20, val_words=26,
+                                          n_shards=8,
+                                          buckets_per_shard=SMALL_BUCKETS))
+    n = INTERP_CENTRES
+    k = n // 6                   # stored exact rows; 2k far misses
+    res = {}
+    for device in (DEVICE, "cpu"):
+        centres, nbrs = _bracketed(small, n, device, seed=12)
+        exact = _rows(13, k, 0.5, 9.5, device)
+        far = _rows(14, 2 * k, 20.0, 90.0, device)
+        st = surrogate_create(small, device=device)
+        rows = torch.cat([nbrs, exact])
+        st, _ = store(small, st, rows, interp_fn(rows))
+        # n rows: bracketed centres, the exact rows, k far misses
+        q1 = torch.cat([centres[:n - 2 * k], exact, far[:k]])
+        keys, base = ops.stencil_keys(
+            q1, small.sig_digits, small.dht.key_words, icfg.radius,
+            icfg.coarse_tier, SMALL_BUCKETS, small.dht.n_probe)
+        st, vals, found, _ = dht_read_many(st, keys, dedup_mask(keys))
+        st, o1, p1, s1 = lookup_interpolate_or_compute(
+            small, st, q1, interp_fn, icfg)
+        # n rows: centres (those of q1 now exact), k fresh far misses
+        q2 = torch.cat([centres[k:], far[k:] * 1.01])[:n]
+        st, o2, p2, s2 = lookup_interpolate_or_compute(
+            small, st, q2, interp_fn, icfg, one_round=True)
+        res[device] = {
+            "keys": keys.cpu(), "base": base.cpu(), "found": found.cpu(),
+            "vals": vals.cpu(), "prov_host": p1.cpu(),
+            "prov_one_round": p2.cpu(), "out_host": o1.cpu(),
+            "out_one_round": o2.cpu(),
+            "stored": (int(s1["stored"]), int(s2["stored"])),
+            "table": state_to_numpy(st)}
+    card, cpu = res[DEVICE], res["cpu"]
+    equal = {k: bool(torch.equal(card[k], cpu[k]))
+             for k in ("keys", "base", "found", "vals", "prov_host",
+                       "prov_one_round")}
+    equal["stored"] = card["stored"] == cpu["stored"]
+    equal["table"] = all((card["table"][k] == cpu["table"][k]).all()
+                         for k in cpu["table"])
+    for k in ("out_host", "out_one_round"):
+        np.testing.assert_allclose(card[k].numpy(), cpu[k].numpy(),
+                                   rtol=1e-5, err_msg=k)
+    provs = {int(v) for v in torch.cat([cpu["prov_host"],
+                                         cpu["prov_one_round"]]).unique()}
+    emit("interp_parity", B=SMALL_BUCKETS, rows=n, equal=equal,
+         outputs="rtol 1e-5", provenances=sorted(provs),
+         stored=cpu["stored"], probe_hits=int(cpu["found"].sum()))
+    check(all(equal.values()), f"interp B=2^16: card and CPU differ {equal}")
+    check(provs == {0, 1, 2}, f"interp B=2^16: provenances {provs}")
+
+
+def phase_interp(cfg_big, errs, poet_plain):
+    import torch
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_poet_reactive_transport import PoetConfig, run_simulation
+
+    from repro_torch.core import (PROV_INTERP, InterpConfig, SurrogateConfig,
+                                  lookup_or_interpolate, store,
+                                  surrogate_create)
+    from repro_torch.core.neighbors import n_stencil
+    from repro_torch.kernels import ops
+
+    scfg = SurrogateConfig(n_inputs=10, n_outputs=13, sig_digits=3,
+                           dht=cfg_big)
+    icfg = InterpConfig(radius=1, coarse_tier=True)
+    n = INTERP_CENTRES
+    m = n_stencil(scfg.n_inputs, icfg.radius, icfg.coarse_tier)
+
+    # (a) the bracketed round on the full table
+    st = surrogate_create(scfg, device=DEVICE)
+    centres, nbrs = _bracketed(scfg, n, DEVICE, seed=11)
+    wc, wn = _bracketed(scfg, 64, DEVICE, seed=99)      # warm-up rows
+    st, _ = store(scfg, st, wn, interp_fn(wn))
+    lookup_or_interpolate(scfg, st, wc, icfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    times = []
+
+    def timed_round():
+        t0 = time.perf_counter()
+        result = lookup_or_interpolate(scfg, st, centres, icfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    with Capture(ops) as cap:              # the store and the first round
+        t0 = time.perf_counter()
+        st, ws = store(scfg, st, nbrs, interp_fn(nbrs))
+        torch.cuda.synchronize()
+        store_ms = (time.perf_counter() - t0) * 1e3
+        timed_round()
+    for _ in range(INTERP_REPS - 1):
+        st, out, prov, stats = timed_round()
+    launches_a = ops.launches()
+    truth = interp_fn(centres)
+    rel = float(((out - truth).abs() / (truth.abs() + 1e-9)).max())
+    n_interp = int((prov == PROV_INTERP).sum())
+    a = {"rows": n, "stencil_entries": m, "probes": n * m,
+         "stored_rows": int(nbrs.shape[0]), "store_ms": store_ms,
+         "store_dropped": int(ws["dropped"]),
+         "round_ms_all": times, "round_ms_median": statistics.median(times),
+         "interpolated": n_interp, "exact": int(stats["exact"]),
+         "misses": int(stats["misses"]),
+         "probe_hits": int(stats["probe_hits"]),
+         "dropped": int(stats["dropped"]),
+         "mismatches": int(stats["mismatches"]),
+         "wire_words": stats["wire_words"],
+         "fill_frac": float(stats["fill_frac"]), "max_rel_err": rel,
+         "launches": launches_a}
+    emit("interp_round", **a)
+    check(n_interp == n, f"interp: {n - n_interp} of {n} rows did not "
+                         "interpolate")
+    check(rel < 0.05, f"interp: max relative error {rel}")
+    check(a["dropped"] == 0 and a["store_dropped"] == 0
+          and a["mismatches"] == 0, f"interp: dropped or mismatched {a}")
+    check(len(cap.calls["stencil_keys"]) == 1
+          and tuple(cap.calls["stencil_keys"][0][0].shape) == (n, 10),
+          "interp: the round made no stencil_keys call at full shape")
+    compare_calls(cap.calls, errs, "interp")
+    del st
+
+    # (b) card against CPU at B=2^16
+    _interp_parity(icfg)
+
+    # (c) the POET twin with --interp, beside phase 6's plain run
+    cfg = PoetConfig(n_steps=POET_STEPS, use_interp=True)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = run_simulation(cfg, use_dht=True, device=DEVICE)
+    torch.cuda.synchronize()
+    launches_c = ops.launches()
+    conc = res["conc"]
+    cells = cfg.nx * cfg.ny * cfg.n_steps
+    check(conc.shape == (cfg.nx * cfg.ny, 9)
+          and bool(torch.isfinite(conc).all()), "interp poet: bad conc")
+    check(res["hits"] + res["interp_hits"] + res["misses"] == cells,
+          "interp poet: hits + interpolated + misses != cells")
+    emit("interp_poet", grid=[cfg.nx, cfg.ny], sig_digits=cfg.sig_digits,
+         n_steps=f"{cfg.n_steps} of {PoetConfig.n_steps}",
+         radius=cfg.interp_radius, max_dist=cfg.interp_max_dist,
+         min_neighbors=cfg.interp_min_neighbors,
+         exact_hits=res["hits"], interp_hits=res["interp_hits"],
+         misses=res["misses"], chem_calls=res["chem_calls"],
+         mismatches=res["mismatches"], wall_s=res["wall_s"],
+         plain={k: poet_plain[k] for k in ("hits", "misses", "chem_calls",
+                                           "wall_s")},
+         max_abs_dconc_vs_plain=float(
+             (conc - poet_plain["conc"]).abs().max()),
+         launches=launches_c)
+    return {k: launches_a[k] + launches_c[k] for k in launches_a}, cap.calls
+
+
+def phase_timing(wcalls, rcalls, kcalls, icalls):
     import torch
 
     from repro_torch.kernels import (apply_kernel, hash_kernel, ref,
                                      route_kernel)
+
+    pairs = kernel_pairs()
 
     def lib_call(args):
         """The nearest single PyTorch call: one row gather by index
@@ -558,6 +905,13 @@ def phase_timing(wcalls, rcalls):
                    rcalls["hash64"][0], bound_hash64),
         "shard_apply": (apply_kernel.shard_apply, ref.shard_apply, None,
                         rcalls["shard_apply"][0], apply_bound),
+        # no single PyTorch call computes these three
+        "checksum": (*pairs["checksum"], None, wcalls["checksum"][0],
+                     bound_checksum),
+        "round_sig": (*pairs["round_sig"], None, kcalls["round_sig"][0],
+                      bound_round_sig),
+        "stencil_keys": (*pairs["stencil_keys"], None,
+                         icalls["stencil_keys"][0], bound_stencil_keys),
     }
     out = {}
     for name, (kern, plain, lib, args, bound_fn) in spec.items():
@@ -611,23 +965,27 @@ def main() -> int:
                         buckets_per_shard=BIG_BUCKETS, n_probe=6,
                         mode="lockfree")
     gen = torch.Generator().manual_seed(0)
-    _st, wcalls, rcalls, errs = phase_kernels(cfg_big, gen)
-    dht_launches = phase_dht(cfg_big)
-    phase_keys()
-    poet_launches = phase_poet()
-    timing = phase_timing(wcalls, rcalls)
+    errs: dict[str, float] = {}
+    _st, wcalls, rcalls = phase_kernels(cfg_big, gen, errs)
+    launches = {"dht": phase_dht(cfg_big)}
+    launches["keys"], kcalls = phase_keys(errs)
+    launches["poet"], _ref, poet_plain = phase_poet()
+    del _ref
+    launches["interp"], icalls = phase_interp(cfg_big, errs, poet_plain)
+    timing = phase_timing(wcalls, rcalls, kcalls, icalls)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        n_dht, n_poet = dht_launches[name], poet_launches[name]
-        check(n_dht > 0 and n_poet > 0,
-              f"{name}: not launched on the main path "
-              f"(dht {n_dht}, poet {n_poet})")
+        per_phase = {ph: launches[ph][name] for ph in launches}
+        missing = [ph for ph in KERNEL_PHASES[name] if per_phase[ph] == 0]
+        check(not missing, f"{name}: not launched on the path of "
+                           f"{missing} ({per_phase})")
+        check(errs[name] == 0.0, f"{name}: max_abs_err {errs[name]}")
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n_dht + n_poet,
-            "launches_dht": n_dht, "launches_poet": n_poet,
+            "replaces": replaces, "launches": sum(per_phase.values()),
+            **{f"launches_{ph}": v for ph, v in per_phase.items()},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -1,6 +1,8 @@
 """Core of the port: slab layout, hashing, key rounding, routing, the
-one-round op-engine, the DHT wrappers and the surrogate cache."""
-from .dht import dht_read, dht_write
+one-round op-engine, the DHT wrappers, the surrogate cache and its
+neighbourhood interpolation."""
+from .dht import dht_read, dht_read_many, dht_write
+from .interp import PROV_EXACT, PROV_INTERP, PROV_MISS, InterpConfig
 from .layout import (
     DHTConfig,
     DHTState,
@@ -30,17 +32,21 @@ from .op_engine import (
 from .surrogate import (
     SurrogateConfig,
     lookup,
+    lookup_interpolate_or_compute,
     lookup_or_compute,
+    lookup_or_interpolate,
     make_keys,
     store,
     surrogate_create,
 )
 
 __all__ = [
-    "DHTConfig", "DHTState", "OP_MIGRATE", "OP_READ", "OP_WRITE", "OpBatch",
+    "DHTConfig", "DHTState", "InterpConfig", "OP_MIGRATE", "OP_READ",
+    "OP_WRITE", "OpBatch", "PROV_EXACT", "PROV_INTERP", "PROV_MISS",
     "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP",
     "W_UPDATE", "dht_create", "dht_execute", "dht_occupancy", "dht_read",
-    "dht_write", "lookup", "lookup_or_compute", "make_keys", "migrate_ops",
+    "dht_read_many", "dht_write", "lookup", "lookup_interpolate_or_compute",
+    "lookup_or_compute", "lookup_or_interpolate", "make_keys", "migrate_ops",
     "mixed_ops", "occupancy", "pack_floats", "read_ops", "shard_watermark",
     "store", "surrogate_create", "unpack_floats", "write_ops",
 ]

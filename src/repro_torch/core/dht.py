@@ -1,13 +1,16 @@
 """DHT read/write wrappers over the one-round engine (PyTorch port of the
-``dht_read``/``dht_write`` part of ``repro.core.dht``).
+``dht_read``/``dht_write``/``dht_read_many`` part of ``repro.core.dht``).
 
 Each call is one engine round (``core/op_engine.dht_execute``) on the
 single-device virtual-shard backend.  The table is updated in place.
+The dual-epoch and issue/commit forms of the multi-key read belong to
+later slices and raise.
 """
 from __future__ import annotations
 
 import torch
 
+from . import routing
 from .layout import DHTState
 from .op_engine import (
     W_DROPPED,
@@ -98,3 +101,38 @@ def dht_read(state: DHTState, keys: torch.Tensor,
     state, _, vals, found, _code, es = dht_execute(
         state, read_ops(keys, valid), kinds=("read",))
     return state, vals, found, _read_stats(valid, found, es)
+
+
+def dht_read_many(state: DHTState, keys: torch.Tensor,
+                  valid: torch.Tensor | None = None, *, axis_name=None,
+                  l1_meta: bool = False
+                  ) -> tuple[DHTState, torch.Tensor, torch.Tensor, dict]:
+    """Batched multi-key read: ``keys`` (n, m, KW), e.g. the stencil
+    neighbourhood of n queries, with an optional (n, m) ``valid`` mask;
+    all n*m probes share ONE routing round.  Returns ``(state', vals
+    (n, m, VW), found (n, m), stats)``."""
+    if axis_name is not None:
+        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
+    if l1_meta:
+        raise routing.not_ported("dht_read_many(l1_meta=True)", "9")
+    n, m = keys.shape[0], keys.shape[1]
+    flat, vflat = routing.flatten_fanout(keys, valid)
+    state, val, found, stats = dht_read(state, flat, vflat)
+    return (state, routing.unflatten_fanout(val, n, m),
+            routing.unflatten_fanout(found, n, m), stats)
+
+
+def dht_read_many_dual(state, prev, keys, valid=None, *, axis_name=None):
+    """Dual-epoch multi-key read (elastic membership, a later slice)."""
+    raise routing.not_ported("dht_read_many_dual", "11")
+
+
+def dht_read_many_async(state, keys, valid=None, *, axis_name=None,
+                        l1_meta=False, pending=None):
+    """Issue half of the multi-key read (issue/commit, a later slice)."""
+    raise routing.not_ported("dht_read_many_async", "10")
+
+
+def dht_read_many_commit(rnd):
+    """Commit half of the multi-key read (issue/commit, a later slice)."""
+    raise routing.not_ported("dht_read_many_commit", "10")

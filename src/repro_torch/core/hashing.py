@@ -6,9 +6,10 @@ the contiguous ``n_probe`` candidate window.
 
 Words are int32 bit-views.  The arithmetic widens to int64 holding the
 unsigned value and masks every step back to 32 bits; products are split
-so no int64 product overflows.  On the card the engine hashes through the
-``hash64`` kernel (``kernels/hash_kernel.py``); these functions are its
-plain version and the write-side checksum.
+so no int64 product overflows.  On the card the engine hashes and
+checksums through the ``hash64`` and ``checksum`` kernels
+(``kernels/hash_kernel.py``, ``kernels/checksum_kernel.py``); these
+functions are their plain versions.
 """
 from __future__ import annotations
 

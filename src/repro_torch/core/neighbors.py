@@ -1,6 +1,14 @@
-"""Key rounding onto the significant-digit lattice (PyTorch port of
-``repro.core.neighbors``: ``pow10`` and ``round_significant`` only; the
-stencil enumeration waits for the neighbourhood slice).
+"""Key rounding and stencil enumeration on the significant-digit lattice
+(PyTorch port of ``repro.core.neighbors``).
+
+The key space is a lattice: every stored key is a vector rounded to
+``sig_digits`` significant digits.  A neighbourhood query enumerates, per
+row, the centre (its own rounded point), a star stencil of +-1..radius
+lattice steps per dimension (each point re-rounded), and optionally the
+coarse-tier point (the centre rounded at ``sig_digits - 1``, re-expressed
+on the ``sig_digits`` lattice).  The order is the static list
+:func:`stencil_offsets`, shared with the stencil kernel
+(``kernels/csrc/stencil.cu``), which must match these keys bit for bit.
 
 Keys must be the same function of the input in both packages, or the
 lattice splits and a stored result is never found again.  Two steps of
@@ -11,14 +19,23 @@ the reference do not carry over bit for bit:
   reference's own f32 bits from the 77-entry table below.
 - the decade ``floor(log10 |x|)``: XLA's CPU ``log10`` equals
   ``log(x) * f32(1/ln 10)`` bit for bit, so the port computes exactly that
-  product.  ``torch.log`` itself still differs from XLA's ``log`` by an
-  ulp on some inputs, which moves the floor only within a few ulps of a
-  power of ten: parity holds outside that band (tests pin it).
+  product (here and in :func:`lattice_step`).  ``torch.log`` itself still
+  differs from XLA's ``log`` by an ulp on some inputs, which moves the
+  floor only within a few ulps of a power of ten: parity holds outside
+  that band (tests pin it).
+
+A stencil point is ``c + off * step`` as two rounded operations, never a
+fused multiply-add: for radius >= 3 ``off * step`` is inexact.  On the
+card the engine's callers round through the ``round_sig`` and
+``stencil_keys`` kernels (``kernels/ops.py``); the functions here are
+their plain versions.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .layout import pack_floats
 
 # smallest positive normal float32: denormals round to 0
 TINY_F32 = 1.1754944e-38
@@ -51,17 +68,90 @@ def pow10(e: torch.Tensor) -> torch.Tensor:
     return table[idx]
 
 
-def round_significant(x: torch.Tensor, sig_digits: int) -> torch.Tensor:
-    """Round to ``sig_digits`` significant decimal digits, elementwise.
-    Zeros and denormals map to 0; inf/nan pass through unchanged."""
-    x = x.to(torch.float32)
+def stencil_offsets(n_dims: int, radius: int,
+                    coarse_tier: bool = True) -> list[tuple[int, int]]:
+    """Static (dim, offset) enumeration shared by the plain version and the
+    kernel: the centre ``(-1, 0)``, then ring r = 1..radius, each
+    dimension in order, +r before -r, then ``(-2, 0)`` for the coarse
+    tier.  ``1 + 2 * radius * n_dims (+ 1)`` entries."""
+    out: list[tuple[int, int]] = [(-1, 0)]
+    for r in range(1, radius + 1):
+        for d in range(n_dims):
+            out.append((d, r))
+            out.append((d, -r))
+    if coarse_tier:
+        out.append((-2, 0))
+    return out
+
+
+def n_stencil(n_dims: int, radius: int, coarse_tier: bool = True) -> int:
+    return 1 + 2 * radius * n_dims + (1 if coarse_tier else 0)
+
+
+def _decade(x: torch.Tensor):
+    """``(finite, tiny, floor(log10 |x|))`` with the F1 log form; the
+    decade of zeros, denormals and non-finite values is that of 1."""
     absx = x.abs()
     finite = torch.isfinite(x)
     tiny = absx < TINY_F32
     safe = torch.where(finite & ~tiny, absx, torch.ones_like(absx))
     inv_ln10 = torch.tensor(_INV_LN10, dtype=torch.float32, device=x.device)
-    exp = torch.floor(torch.log(safe) * inv_ln10)
+    return finite, tiny, torch.floor(torch.log(safe) * inv_ln10)
+
+
+def round_significant(x: torch.Tensor, sig_digits: int) -> torch.Tensor:
+    """Round to ``sig_digits`` significant decimal digits, elementwise.
+    Zeros and denormals map to 0; inf/nan pass through unchanged."""
+    x = x.to(torch.float32)
+    finite, tiny, exp = _decade(x)
     e = (sig_digits - 1) - exp
     out = torch.round(x * pow10(e)) * pow10(-e)
     out = torch.where(tiny, torch.zeros_like(out), out)
     return torch.where(finite, out, x)
+
+
+def lattice_step(x_rounded: torch.Tensor, sig_digits: int) -> torch.Tensor:
+    """One lattice step at each coordinate's magnitude: the unit in the
+    last significant place, ``10^(floor(log10 |x|) - (sig_digits - 1))``.
+    Zeros step at ``10^-(sig_digits - 1)``."""
+    _finite, _tiny, exp = _decade(x_rounded.to(torch.float32))
+    return pow10(exp - (sig_digits - 1))
+
+
+def stencil_points(inputs: torch.Tensor, sig_digits: int, radius: int = 1,
+                   coarse_tier: bool = True) -> torch.Tensor:
+    """(n, D) queries -> (n, M, D) float32 lattice points, each a fixed
+    point of the ``sig_digits`` rounding (offsets are re-rounded)."""
+    center = round_significant(inputs, sig_digits)
+    step = lattice_step(center, sig_digits)
+    entries = []
+    for dim, off in stencil_offsets(inputs.shape[-1], radius, coarse_tier):
+        if dim == -1:
+            entries.append(center)
+        elif dim == -2:
+            entries.append(round_significant(
+                round_significant(center, sig_digits - 1), sig_digits))
+        else:
+            p = center.clone()
+            p[..., dim] = center[..., dim] + off * step[..., dim]
+            entries.append(round_significant(p, sig_digits))
+    return torch.stack(entries, dim=-2)
+
+
+def stencil_keys(inputs: torch.Tensor, sig_digits: int, key_words: int,
+                 radius: int = 1, coarse_tier: bool = True):
+    """(n, D) queries -> packed keys (n, M, KW) int32 and the points
+    (n, M, D): the plain version of the stencil kernel's keys."""
+    points = stencil_points(inputs, sig_digits, radius, coarse_tier)
+    return pack_floats(points, key_words), points
+
+
+def dedup_mask(keys: torch.Tensor) -> torch.Tensor:
+    """(n, M, KW) stencil keys -> (n, M) bool, True on the first
+    occurrence of each distinct key within a row (re-rounding collapses
+    entries at decade boundaries).  O(M^2) per row."""
+    eq = (keys[:, :, None, :] == keys[:, None, :, :]).all(dim=-1)
+    m = keys.shape[1]
+    earlier = torch.tril(torch.ones((m, m), dtype=torch.bool,
+                                    device=keys.device), diagonal=-1)
+    return ~(eq & earlier[None]).any(dim=-1)

@@ -13,7 +13,8 @@ Every operation is a request record (``OP_READ`` / ``OP_WRITE`` /
    kernel; the reference runs a ``vmap`` over the shards): the probing
    ops read the table as of round start, checksum-failed buckets are
    flagged INVALID, then the writes apply in bounded retry passes, each
-   pass taking its slot decision from the same kernel;
+   pass taking its slot decision from the same kernel and the new
+   buckets' checksums from the ``checksum`` kernel;
 5. the replies unpacked (``route_unpack`` kernel).
 
 The slab is updated in place (see ``core/layout.py``).  Winner resolution
@@ -35,7 +36,7 @@ import torch
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
 from . import routing
-from .hashing import base_bucket, checksum32, owner_shard
+from .hashing import base_bucket, owner_shard
 from .layout import (
     GEN_SHIFT,
     INVALID,
@@ -155,7 +156,7 @@ def _write_pass(state: DHTState, abs_base, keys, vals, active):
     state.flat_keys[wslot] = keys
     state.flat_vals[wslot] = vals
     state.flat_meta[wslot] = new_meta
-    state.flat_csum[wslot] = checksum32(keys, vals)
+    state.flat_csum[wslot] = kops.checksum(keys, vals)
 
     # settled: the key now sits at its chosen slot (it won, or a same-key
     # duplicate with a higher index won); losers to another key re-probe

@@ -13,7 +13,9 @@ returns the replies the same way:
   histogram's max, rounded up the power-of-two lattice.  It reads one
   number back to the host per round;
 - fused pack/unpack: ``dispatch``/``collect`` run the route kernels
-  (``kernels/ops.route_pack``/``route_unpack``; plain torch on the CPU).
+  (``kernels/ops.route_pack``/``route_unpack``; plain torch on the CPU);
+- multi-key fan-out (:func:`flatten_fanout`): the m probes per query of
+  a neighbourhood read go out as one flat batch.
 
 Only the single-device backend (``axis_name=None``), where the S shards
 are virtual and the exchange is a reshape, is ported in this slice.
@@ -278,6 +280,22 @@ def collect(b: Binned, replies: Sequence[torch.Tensor], axis_name=None,
     obs_metrics.inc("routing.collects")
     mat, specs, fill_row = _encode(replies, 2, fills)
     return _decode(_gather_from_bins(b, mat, fill_row), specs)
+
+
+def flatten_fanout(keys: torch.Tensor, valid: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(n, m, ...) per-query fan-out (e.g. stencil keys) -> one flat batch
+    of n*m items, so the m probes of every query ride ONE routing round."""
+    n, m = keys.shape[0], keys.shape[1]
+    flat = keys.reshape((n * m,) + tuple(keys.shape[2:]))
+    vflat = None if valid is None else valid.reshape(n * m)
+    return flat, vflat
+
+
+def unflatten_fanout(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Inverse of :func:`flatten_fanout` for replies: (n*m, ...) ->
+    (n, m, ...)."""
+    return x.reshape((n, m) + tuple(x.shape[1:]))
 
 
 def wire_stats(b: Binned, send_lanes: int, reply_lanes: int, *,

@@ -1,10 +1,18 @@
 """Surrogate-model cache on top of the DHT (PyTorch port of the exact-match
-part of ``repro.core.surrogate``, paper §5.4).
+and neighbourhood parts of ``repro.core.surrogate``, paper §5.4).
 
 POET's pattern: round the expensive simulation's inputs to ``sig_digits``
 significant digits, pack the rounded vector into the DHT key, store the
 exact output as the value.  A later query whose rounded inputs coincide
-skips the simulation.
+skips the simulation.  :func:`lookup_or_interpolate` widens the match to
+the query's lattice neighbourhood: a near miss resolves by
+inverse-distance interpolation over cached neighbours instead of paying
+the solver.
+
+On the card the keys come from the ``round_sig`` kernel and the
+neighbourhood's keys from the ``stencil_keys`` kernel
+(``kernels/ops.py``); the stencil points are the keys' even words, so the
+plain ``stencil_points`` never runs there.
 """
 from __future__ import annotations
 
@@ -12,7 +20,12 @@ import dataclasses
 
 import torch
 
+from ..kernels import ops as kops
+from ..obs import metrics as obs_metrics
 from . import dht as dht_ops
+from . import interp as interp_ops
+from . import neighbors, routing
+from .interp import PROV_MISS, InterpConfig
 from .layout import (
     DHTConfig,
     DHTState,
@@ -20,8 +33,14 @@ from .layout import (
     pack_floats,
     unpack_floats,
 )
-from .neighbors import round_significant
-from .op_engine import W_INSERT, dht_execute, migrate_ops
+from .op_engine import (
+    OP_MIGRATE,
+    OP_READ,
+    W_INSERT,
+    dht_execute,
+    migrate_ops,
+    mixed_ops,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +66,7 @@ def surrogate_create(cfg: SurrogateConfig, *,
 
 def make_keys(cfg: SurrogateConfig, inputs: torch.Tensor) -> torch.Tensor:
     """(n, n_inputs) float -> (n, KW) int32 rounded keys (80 B for POET)."""
-    return pack_floats(round_significant(inputs, cfg.sig_digits),
+    return pack_floats(kops.round_sig(inputs, cfg.sig_digits),
                        cfg.dht.key_words)
 
 
@@ -106,3 +125,152 @@ def lookup_or_compute(cfg: SurrogateConfig, state: DHTState,
         "stored": (code == W_INSERT).sum().to(torch.int32),
     }
     return state, outputs, found, stats
+
+
+# ---------------------------------------------------------------------------
+# neighbourhood queries
+# ---------------------------------------------------------------------------
+
+def _stencil(cfg: SurrogateConfig, inputs: torch.Tensor, icfg: InterpConfig):
+    """Stencil keys (n, M, KW) from the kernel switch, and the points
+    (n, M, D) read back from the keys' even words (bit for bit the
+    points the keys were packed from)."""
+    keys, _base = kops.stencil_keys(
+        inputs, cfg.sig_digits, cfg.dht.key_words, icfg.radius,
+        icfg.coarse_tier, cfg.dht.buckets_per_shard, cfg.dht.n_probe)
+    return keys, unpack_floats(keys, inputs.shape[-1])
+
+
+def _interp_tail(cfg: SurrogateConfig, inputs, points, val_words, found,
+                 icfg: InterpConfig, valid, probe_hits, transport_stats):
+    """Shared post-probe half of the neighbourhood query: unpack the
+    stencil replies, take the lattice step at the centre, run the gated
+    IDW blend and assemble the stats."""
+    values = unpack_floats(val_words, cfg.n_outputs)        # (n, M, O)
+    step = neighbors.lattice_step(points[:, 0], cfg.sig_digits)
+    outputs, provenance, istats = interp_ops.interpolate(
+        inputs, points, values, found, step, icfg)
+    wire = obs_metrics.merge_wire_stats(transport_stats)
+    stats = {
+        "exact": istats["exact"],
+        "interpolated": istats["interpolated"],
+        "misses": (valid & (provenance == PROV_MISS)).sum().to(torch.int32),
+        "neighbors_mean": istats["neighbors_mean"],
+        "probe_hits": probe_hits,
+        "mismatches": transport_stats["mismatches"],
+        "dropped": transport_stats["dropped"],
+        "epoch": transport_stats["epoch"],
+        "wire_words": wire["wire_words"],
+        "fill_frac": wire["fill_frac"],
+    }
+    return outputs, provenance, stats
+
+
+# provenance lanes of a neighbourhood query flushed to the counters
+_PROV_LANES = ("exact", "interpolated", "misses", "probe_hits")
+
+
+def _record_provenance(stats: dict) -> None:
+    """Add the provenance lanes of ``stats`` to the ``surrogate.<lane>``
+    counters (one read back to the host)."""
+    vals = torch.stack([stats[lane] for lane in _PROV_LANES]).tolist()
+    for lane, v in zip(_PROV_LANES, vals):
+        obs_metrics.inc(f"surrogate.{lane}", v)
+
+
+def lookup_or_interpolate(cfg: SurrogateConfig, state: DHTState,
+                          inputs: torch.Tensor,
+                          icfg: InterpConfig = InterpConfig(), *,
+                          valid: torch.Tensor | None = None, prev=None,
+                          axis_name=None):
+    """Neighbourhood query: exact hit -> cached value; near miss -> IDW
+    interpolation over cached lattice neighbours; else miss.
+
+    Enumerates the +-``icfg.radius`` stencil around each query's rounded
+    key (plus the optional coarse tier), probes all stencil keys in ONE
+    routing round (:func:`dht_read_many`) and gates the blend on
+    ``icfg.max_neighbor_dist``/``icfg.min_neighbors``.  ``valid`` masks
+    whole rows: they probe nothing and report ``PROV_MISS``.
+
+    Returns ``(state', outputs (n, n_outputs), provenance (n,), stats)``."""
+    if prev is not None:
+        raise routing.not_ported("lookup_or_interpolate(prev=...)", "11")
+    keys, points = _stencil(cfg, inputs, icfg)
+    vmask = neighbors.dedup_mask(keys)
+    if valid is None:
+        valid = torch.ones(inputs.shape[0], dtype=torch.bool,
+                           device=inputs.device)
+    vmask = vmask & valid[:, None]
+    state, val_words, found, rstats = dht_ops.dht_read_many(
+        state, keys, vmask, axis_name=axis_name)
+    outputs, provenance, stats = _interp_tail(
+        cfg, inputs, points, val_words, found, icfg, valid,
+        probe_hits=rstats["hits"], transport_stats=rstats)
+    _record_provenance(stats)
+    return state, outputs, provenance, stats
+
+
+def lookup_interpolate_or_compute(cfg: SurrogateConfig, state: DHTState,
+                                  inputs: torch.Tensor, compute_fn,
+                                  icfg: InterpConfig = InterpConfig(), *,
+                                  one_round: bool = False, axis_name=None):
+    """:func:`lookup_or_compute` with the neighbourhood fast path: only
+    rows neither cached nor interpolable pay ``compute_fn``; computed
+    (exact) outputs are published, interpolated values never are.
+
+    Host form (default): the probe round first; a batch with no
+    ``PROV_MISS`` row skips ``compute_fn``, and only the misses are
+    written back in a second round.
+
+    ``one_round=True`` (the reference's traced form): ``compute_fn`` runs
+    on every row, and the n*M stencil reads and the n centre-key
+    write-backs ride ONE mixed ``OP_READ`` + ``OP_MIGRATE`` engine round:
+    every row whose exact key was absent publishes its computed output
+    (misses and interpolated rows alike), present keys are skipped."""
+    if not one_round:
+        state, resolved, provenance, stats = lookup_or_interpolate(
+            cfg, state, inputs, icfg, axis_name=axis_name)
+        miss = provenance == PROV_MISS
+        if not bool(miss.any()):
+            obs_metrics.inc("surrogate.stored", 0)
+            return state, resolved, provenance, {
+                **stats, "stored": torch.zeros((), dtype=torch.int32,
+                                               device=inputs.device)}
+        computed = compute_fn(inputs)
+        outputs = torch.where(miss[:, None], computed, resolved)
+        state, wstats = store(cfg, state, inputs, computed, valid=miss)
+        obs_metrics.inc("surrogate.stored", int(wstats["inserted"]))
+        return state, outputs, provenance, {**stats,
+                                            "stored": wstats["inserted"]}
+
+    if axis_name is not None:
+        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
+    computed = compute_fn(inputs)
+    keys, points = _stencil(cfg, inputs, icfg)
+    n, m = keys.shape[0], keys.shape[1]
+    vmask = neighbors.dedup_mask(keys)
+    flat, vflat = routing.flatten_fanout(keys, vmask)
+    center = keys[:, 0]
+    cvals = pack_floats(computed, cfg.dht.val_words)
+    nm = n * m
+    dev = keys.device
+    op = torch.cat([torch.full((nm,), OP_READ, dtype=torch.int32, device=dev),
+                    torch.full((n,), OP_MIGRATE, dtype=torch.int32,
+                               device=dev)])
+    ops = mixed_ops(
+        op, torch.cat([flat, center]),
+        torch.cat([torch.zeros((nm, cvals.shape[1]), dtype=torch.int32,
+                               device=dev), cvals]),
+        valid=torch.cat([vflat, torch.ones(n, dtype=torch.bool, device=dev)]))
+    state, _, val_flat, found_flat, code, es = dht_execute(
+        state, ops, kinds=("read", "migrate"))
+    val_words = routing.unflatten_fanout(val_flat[:nm], n, m)
+    found = routing.unflatten_fanout(found_flat[:nm], n, m)
+    resolved, provenance, stats = _interp_tail(
+        cfg, inputs, points, val_words, found, icfg,
+        valid=torch.ones(n, dtype=torch.bool, device=dev),
+        probe_hits=found.sum().to(torch.int32), transport_stats=es)
+    miss = provenance == PROV_MISS
+    outputs = torch.where(miss[:, None], computed, resolved)
+    stats["stored"] = (code[nm:] == W_INSERT).sum().to(torch.int32)
+    return state, outputs, provenance, stats

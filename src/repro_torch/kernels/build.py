@@ -7,8 +7,10 @@ interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <src>.cu
 
 into ``build/repro_torch_kernels/`` at the root of the checkout, at first
-use.  The library name carries a hash of its sources and flags, so a stale
-build is never loaded.  All missing libraries are compiled in parallel,
+use.  The library name carries a hash of its source, every shared header
+and the flags, so a stale build is never loaded.  No ``--use_fast_math``:
+the rounding kernels must call the same full-precision ``logf`` as
+``torch.log``.  All missing libraries are compiled in parallel,
 one ``nvcc`` per source.  A failed build raises; so does a launch whose
 returned ``cudaError_t`` is not 0.  ``LAUNCHES`` counts successful
 launches per kernel: :func:`launch` is the one place that increments it.
@@ -42,10 +44,21 @@ LIBRARIES = {
         "repro_shard_apply": (_P, _P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _P,
                               _P, _P),
     }),
+    "checksum": ("checksum.cu", {
+        "repro_checksum": (_P, _L, _P, _L, _P, _L, _I, _I, _P),
+        "repro_checksum_max_width": (),
+    }),
+    "round": ("round.cu", {
+        "repro_round_sig": (_P, _P, _L, _I, _P),
+    }),
+    "stencil": ("stencil.cu", {
+        "repro_stencil_keys": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _P),
+    }),
 }
 
 LAUNCHES: dict[str, int] = {
-    "route_pack": 0, "route_unpack": 0, "hash64": 0, "shard_apply": 0}
+    "route_pack": 0, "route_unpack": 0, "hash64": 0, "shard_apply": 0,
+    "checksum": 0, "round_sig": 0, "stencil_keys": 0}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each library built
@@ -64,10 +77,14 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """Build path of library ``name``: its hash covers the flags, its
+    source and every shared header (``csrc/*.cuh``), so a change to any
+    header a source may include gives a new name."""
     src = LIBRARIES[name][0]
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in (src, "murmur.cuh"):
-        h.update((CSRC / f).read_bytes())
+    for f in [CSRC / src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -9,7 +9,16 @@ from __future__ import annotations
 
 import torch
 
-from . import apply_kernel, build, hash_kernel, ref, route_kernel
+from . import (
+    apply_kernel,
+    build,
+    checksum_kernel,
+    hash_kernel,
+    ref,
+    round_kernel,
+    route_kernel,
+    stencil_kernel,
+)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -53,3 +62,26 @@ def shard_apply(slab_keys, slab_vals, slab_meta, slab_csum, qkeys, base,
     if _on_cuda(*args):
         return apply_kernel.shard_apply(*args, n_probe)
     return ref.shard_apply(*args, n_probe)
+
+
+def checksum(keys, vals):
+    if _on_cuda(keys, vals):
+        return checksum_kernel.checksum(keys, vals)
+    return ref.checksum(keys, vals)
+
+
+def round_sig(x, sig_digits: int):
+    x = x.to(torch.float32)
+    if _on_cuda(x):
+        return round_kernel.round_sig(x.contiguous(), sig_digits)
+    return ref.round_sig(x, sig_digits)
+
+
+def stencil_keys(x, sig_digits: int, key_words: int, radius: int = 1,
+                 coarse_tier: bool = True, n_buckets: int = 1024,
+                 n_probe: int = 6):
+    x = x.to(torch.float32)
+    args = (sig_digits, key_words, radius, coarse_tier, n_buckets, n_probe)
+    if _on_cuda(x):
+        return stencil_kernel.stencil_keys(x.contiguous(), *args)
+    return ref.stencil_keys(x, *args)

@@ -10,7 +10,15 @@ from __future__ import annotations
 
 import torch
 
-from ..core.hashing import CHECKSUM_SEED, hash64 as _hash64, murmur32_words
+from ..core import neighbors
+from ..core.hashing import (
+    CHECKSUM_SEED,
+    SEED_LO,
+    base_bucket,
+    checksum32,
+    hash64 as _hash64,
+    murmur32_words,
+)
 from ..core.layout import INVALID, OCCUPIED
 
 
@@ -34,6 +42,25 @@ def hash64(keys: torch.Tensor) -> torch.Tensor:
     """(N, KW) int32 -> (N, 2) int32 ``[hi, lo]``."""
     hi, lo = _hash64(keys)
     return torch.stack([hi, lo], dim=-1)
+
+
+# (N, KW) x (N, VW) int32 -> (N,) int32 checksum over key || value
+checksum = checksum32
+# elementwise round to ``sig_digits`` significant digits (float32)
+round_sig = neighbors.round_significant
+
+
+def stencil_keys(x: torch.Tensor, sig_digits: int, key_words: int,
+                 radius: int = 1, coarse_tier: bool = True,
+                 n_buckets: int = 1024, n_probe: int = 6):
+    """(n, D) queries -> ``(keys (n, M, KW), base (n, M))`` int32: the
+    keys of ``core/neighbors.stencil_keys`` and each key's window base
+    (``base_bucket`` of the hash64 lo lane)."""
+    keys, _points = neighbors.stencil_keys(x, sig_digits, key_words,
+                                           radius, coarse_tier)
+    n, m, kw = keys.shape
+    lo = murmur32_words(keys.reshape(n * m, kw), SEED_LO)
+    return keys, base_bucket(lo, n_buckets, n_probe).reshape(n, m)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:

@@ -11,20 +11,30 @@ import torch
 
 from repro_torch.convert import state_to_numpy
 from repro_torch.core import (
+    PROV_INTERP,
     DHTConfig,
+    InterpConfig,
+    SurrogateConfig,
     dht_create,
     dht_execute,
     dht_read,
     dht_write,
+    lookup_interpolate_or_compute,
     migrate_ops,
     mixed_ops,
+    store,
+    surrogate_create,
 )
+from repro_torch.core.neighbors import lattice_step, round_significant
 from repro_torch.kernels import (
     apply_kernel,
+    checksum_kernel,
     hash_kernel,
     ops,
     ref,
+    round_kernel,
     route_kernel,
+    stencil_kernel,
 )
 
 pytestmark = pytest.mark.cuda
@@ -84,10 +94,91 @@ def test_shard_apply_kernel_matches_plain(gen, n_probe):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("n,kw,vw", [(1, 20, 26), (7, 4, 1), (300, 33, 17),
+                                     (65536, 20, 26)])
+def test_checksum_kernel_matches_plain(gen, n, kw, vw):
+    keys, vals = _words(gen, n, kw), _words(gen, n, vw)
+    assert torch.equal(checksum_kernel.checksum(keys, vals),
+                       ref.checksum(keys, vals))
+    wide = torch.cat([keys, vals, _words(gen, n, 3)], dim=1)
+    assert torch.equal(ops.checksum(wide[:, :kw], wide[:, kw:kw + vw]),
+                       ref.checksum(keys, vals))
+
+
+@pytest.mark.parametrize("sig", [1, 3, 4])
+def test_round_sig_kernel_matches_plain(gen, sig):
+    """Bit for bit on the card, the band around each power of ten
+    included: both call CUDA's logf."""
+    mag = 10.0 ** (torch.rand(1_000_000, generator=gen,
+                              dtype=torch.float64) * 76 - 38)
+    sign = torch.where(torch.rand(1_000_000, generator=gen) < 0.5, -1.0, 1.0)
+    p = torch.tensor([10.0 ** k for k in range(-37, 38)],
+                     dtype=torch.float32).view(torch.int32)
+    band = (p[:, None] + torch.arange(-64, 65)[None, :]).view(
+        torch.float32).reshape(-1)
+    edges = torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
+                          -float("inf"), float("nan"), 1.0])
+    x = torch.cat([edges, band, -band, (mag * sign).to(torch.float32)])
+    x = x.cuda().reshape(-1, 1)
+    a = round_kernel.round_sig(x, sig)
+    b = round_significant(x, sig)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (a[:4].view(torch.int32) == 0).all()            # +0
+
+
+@pytest.mark.parametrize("radius,coarse,n", [(1, True, 2978), (2, False, 64),
+                                             (3, True, 64)])
+def test_stencil_keys_kernel_matches_plain(gen, radius, coarse, n):
+    """Radius 3 makes ``off * step`` inexact: the kernel must not fuse it
+    into the add."""
+    x = (10.0 ** (torch.rand((n, 10), generator=gen) * 6 - 3)).cuda()
+    x[0, :3] = torch.tensor([9.99, 0.0999, 0.0])
+    args = (3, 20, radius, coarse, 1 << 16, 6)
+    a = stencil_kernel.stencil_keys(x, *args)
+    b = ref.stencil_keys(x, *args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_interp_on_card_matches_cpu(gen):
+    """The bracketed near-miss construction through both forms of
+    ``lookup_interpolate_or_compute`` on the card and on the CPU: the
+    same keys, provenance and slab words; outputs at rtol 1e-5."""
+    cfg = SurrogateConfig(sig_digits=3, dht=DHTConfig(
+        n_shards=4, buckets_per_shard=4096))
+    x = (torch.rand((64, 10), generator=gen) * 8 + 1.5)
+    center = round_significant(x, 3)
+    step = lattice_step(center, 3)
+
+    def compute(v):
+        return torch.cat([v * 2.0, v[:, :3]], dim=-1)
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = surrogate_create(cfg, device=device)
+        for k in (-1, 1):
+            p = center.clone()
+            p[:, 0] += k * step[:, 0]
+            st, _ = store(cfg, st, p.to(device), compute(p).to(device))
+        res = []
+        for one_round in (False, True):
+            q = torch.cat([center[:40], x[40:] * 7]).to(device)
+            st, o, prov, s = lookup_interpolate_or_compute(
+                cfg, st, q, compute, InterpConfig(), one_round=one_round)
+            res.append((o.cpu(), prov.cpu(), int(s["stored"])))
+        out[device] = (state_to_numpy(st), res)
+    for name in out["cpu"][0]:
+        np.testing.assert_array_equal(out["cuda"][0][name],
+                                      out["cpu"][0][name], name)
+    for (ao, ap, an), (bo, bp, bn) in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(ap, bp) and an == bn
+        np.testing.assert_allclose(ao.numpy(), bo.numpy(), rtol=1e-5)
+    assert (out["cpu"][1][0][1][:40] == PROV_INTERP).all()
+
+
 def test_engine_on_card_matches_cpu(gen):
     """Write, read, mixed and migrate rounds leave the same slab words
     and return the same items on the card as on the CPU; every kernel
-    of the path launches."""
+    of the path launches, the checksum once per write pass."""
     cfg = DHTConfig(n_shards=4, buckets_per_shard=256)
     keys, vals = _words(gen, 600, 20, "cpu"), _words(gen, 600, 26, "cpu")
     op = (torch.rand(600, generator=gen) < 0.05).to(torch.int32)
@@ -107,7 +198,12 @@ def test_engine_on_card_matches_cpu(gen):
                        [t.cpu() for t in (ws["code"], rv, rf, mv, mf, mc,
                                           gv, gf, gc)])
         if device == "cuda":
-            assert all(n > 0 for n in ops.launches().values())
+            n = ops.launches()
+            engine = ("route_pack", "route_unpack", "hash64", "shard_apply",
+                      "checksum")
+            assert all(n[k] > 0 for k in engine)
+            # four rounds: one probe pass in read, mixed and migrate
+            assert n["checksum"] == n["shard_apply"] - 3
     for name in out["cpu"][0]:
         np.testing.assert_array_equal(out["cuda"][0][name],
                                       out["cpu"][0][name], name)
@@ -122,3 +218,13 @@ def test_kernel_wrappers_reject_bad_inputs(gen):
         hash_kernel.hash64(_words(gen, 4, 20, "cpu"))    # not on the card
     with pytest.raises(ValueError):
         ops.hash64(_words(gen, 4, 20)[:, ::2])           # not contiguous
+    with pytest.raises(ValueError):                      # row too wide
+        checksum_kernel.checksum(_words(gen, 4, 60), _words(gen, 4, 60))
+    with pytest.raises(ValueError):                      # rows differ
+        checksum_kernel.checksum(_words(gen, 4, 20), _words(gen, 5, 26))
+    with pytest.raises(ValueError):                      # not float32
+        round_kernel.round_sig(torch.ones(4, dtype=torch.float64).cuda(), 3)
+    with pytest.raises(ValueError):                      # mixed devices
+        ops.checksum(_words(gen, 4, 20), _words(gen, 4, 26, "cpu"))
+    with pytest.raises(ValueError):                      # not 2-d
+        stencil_kernel.stencil_keys(torch.ones(4).cuda(), 3, 20)

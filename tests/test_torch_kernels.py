@@ -16,8 +16,11 @@ from repro.core.hashing import hash64 as j_hash64
 from repro.core.hashing import probe_indices as j_probe_indices
 from repro.core.op_engine import _probe_window as j_probe_window
 from repro.kernels.apply_kernel import shard_apply_pallas
+from repro.kernels.checksum_kernel import checksum_pallas
 from repro.kernels.hash_kernel import hash64_pallas
+from repro.kernels.round_kernel import round_sig_pallas
 from repro.kernels.route_kernel import route_pack_pallas, route_unpack_pallas
+from repro.kernels.stencil_kernel import stencil_keys_pallas
 from repro_torch.kernels import ops, ref
 
 
@@ -157,3 +160,99 @@ def test_shard_apply_checksum_reject_no_fallthrough():
     assert int(wkind[0]) == int(k_p[0]) == W_UPDATE
     np.testing.assert_array_equal(_u(val), np.asarray(v_p))
 
+
+
+@pytest.mark.parametrize("n", [1, 7, 300])
+@pytest.mark.parametrize("kw,vw", [(20, 26), (4, 1), (33, 17)])
+def test_checksum_matches_pallas(n, kw, vw):
+    rng = np.random.default_rng(n * 7 + kw + vw)
+    keys, vals = _words(rng, n, kw), _words(rng, n, vw)
+    expect = np.asarray(checksum_pallas(jnp.asarray(keys), jnp.asarray(vals),
+                                        interpret=True))
+    np.testing.assert_array_equal(_u(ref.checksum(_t(keys), _t(vals))),
+                                  expect)
+    # the write pass hands over row-strided views: slices of wider rows
+    wide = _t(np.concatenate([keys, vals, _words(rng, n, 3)], axis=1))
+    np.testing.assert_array_equal(
+        _u(ops.checksum(wide[:, :kw], wide[:, kw:kw + vw])), expect)
+
+
+def _decade_band():
+    """Inputs within +-64 ulps of every power of ten, both signs."""
+    p = np.array([np.float32(10.0 ** k) for k in range(-37, 38)], np.float32)
+    band = (p.view(np.int32)[:, None] + np.arange(-64, 65)[None, :])
+    band = band.astype(np.int32).view(np.float32).ravel()
+    return np.concatenate([band, -band])
+
+
+@pytest.mark.parametrize("sig", [3, 4])
+def test_round_sig_matches_pallas(sig):
+    """Bit for bit over 1e-30..1e30 outside the +-64-ulp band of each
+    power of ten, with +-0, denormals, inf and nan; +0 for every zero and
+    denormal.  Inside the band the F1 residue (ROADMAP.md) is pinned:
+    6 of 19,350 words differ at sig 3, 2 at sig 4."""
+    rng = np.random.default_rng(10 + sig)
+    x = (10.0 ** rng.uniform(-30, 30, 30_000)
+         * rng.choice([-1, 1], 30_000)).astype(np.float32)
+    p = np.array([np.float32(10.0 ** k) for k in range(-37, 38)], np.float32)
+    far = np.abs(np.abs(x).view(np.int32)[:, None]
+                 - p.view(np.int32)[None, :]).min(axis=1) > 64
+    edges = np.array([0.0, -0.0, 1e-40, -1e-45, -1e-39, np.inf, -np.inf,
+                      np.nan, 1.0, -1.0], np.float32)
+    x = np.concatenate([edges, x[far]]).reshape(-1, 10)
+    expect = np.asarray(round_sig_pallas(jnp.asarray(x), sig, interpret=True))
+    for out in (ref.round_sig(torch.from_numpy(x), sig),
+                ops.round_sig(torch.from_numpy(x), sig)):
+        assert out.shape == x.shape and out.dtype == torch.float32
+        np.testing.assert_array_equal(out.numpy().view(np.uint32),
+                                      expect.view(np.uint32))
+    assert (expect.view(np.uint32).ravel()[:5] == 0).all()     # +0
+
+    band = _decade_band()
+    a = np.asarray(round_sig_pallas(jnp.asarray(band), sig, interpret=True))
+    b = ops.round_sig(torch.from_numpy(band), sig).numpy()
+    assert int((a.view(np.uint32) != b.view(np.uint32)).sum()) == {
+        3: 6, 4: 2}[sig]
+
+
+@pytest.mark.parametrize("radius,coarse,d,key_words", [
+    (1, True, 10, 20), (1, False, 4, 9), (2, True, 4, 7), (2, False, 3, 12)])
+def test_stencil_keys_matches_pallas(radius, coarse, d, key_words):
+    """Keys bit for bit (no input near a power of ten), and each key's
+    window base wherever the keys agree.  D = 10, KW = 20 is POET's
+    shape; the others cover radius 2, no coarse tier, an odd key width,
+    padding words and a key cut short of 2 * D words."""
+    rng = np.random.default_rng(radius * 2 + coarse)
+    x = (10.0 ** rng.uniform(-3, 3, size=(13, d))
+         * rng.choice([-1, 1], size=(13, d))).astype(np.float32)
+    x[0, :3] = [9.99, 0.0999, -0.0]
+    kw = dict(radius=radius, coarse_tier=coarse, n_buckets=4096, n_probe=6)
+    jk, jb = stencil_keys_pallas(jnp.asarray(x), 3, key_words,
+                                 interpret=True, **kw)
+    for tk, tb in (ref.stencil_keys(torch.from_numpy(x), 3, key_words, **kw),
+                   ops.stencil_keys(torch.from_numpy(x), 3, key_words, **kw)):
+        m = 1 + 2 * radius * d + coarse
+        assert tk.shape == (13, m, key_words) and tb.shape == (13, m)
+        np.testing.assert_array_equal(_u(tk), np.asarray(jk))
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+        assert 0 <= int(tb.min()) and int(tb.max()) <= 4096 - 6
+
+
+def test_library_name_covers_every_shared_header(tmp_path, monkeypatch):
+    """A change to any ``csrc/*.cuh`` renames every library, so a build
+    made against the old header is never loaded."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    for f in build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {name: build._lib_path(name) for name in build.LIBRARIES}
+    assert len(set(before.values())) == len(before)
+    for header in ("siground.cuh", "murmur.cuh"):
+        with open(tmp_path / header, "a") as f:
+            f.write("\n// edited\n")
+        after = {name: build._lib_path(name) for name in build.LIBRARIES}
+        assert all(after[n] != before[n] for n in before), header
+        before = after
