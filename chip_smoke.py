@@ -37,7 +37,21 @@ kernel.  One JSON line per phase:
              lookup_interpolate_or_compute: keys, found flags, provenance
              and slab words equal, outputs at rtol 1e-5; (c) the POET twin
              with --interp beside phase 6's plain run;
-8. timing  - each kernel, its plain version and the nearest single
+8. l1      - the locality tier: (a) l1-full: the full table holding 2^20
+             keys, an L1 of 1024 sets x 4 ways, 8 Zipf(1.1) and 8 uniform
+             batches of 2^16 reads, 2^12 keys rewritten after every second
+             batch; every cached read must equal the uncached read of the
+             same table, with nothing dropped or mismatched, and the Zipf
+             stream must hit the L1 after batch 0; (b) l1-ref: the
+             reference benchmark's quick stream on the card and the CPU,
+             equal batch by batch, meeting its gates (hit fraction >= 0.5,
+             wire ratio >= 1.5 on Zipf); (c) modes-parity: the B=2^16
+             stream in small write batches under the lock-free, fine and
+             coarse schedules, slab words, codes, rounds and lock tokens
+             equal card/CPU; (d) lookup_cached on 2^16 POET-shaped rows
+             from 4,096 chemistry states, equal to lookup, the second call
+             served from the L1;
+9. timing  - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound.
 
@@ -72,6 +86,12 @@ POET_STEPS = 20                # of the example's 50
 DHT_REPS = 5                   # timed repeats of the 4-round stream
 INTERP_CENTRES = 2978          # x 22 stencil entries = 65,516 probes
 INTERP_REPS = 3                # timed repeats of the bracketed round
+L1_UNIVERSE = 1 << 20          # keys on the full table in the l1 phase
+L1_BATCHES = 8                 # read batches of N_KEYS per stream
+L1_REWRITES = 1 << 12          # keys rewritten after every second batch
+MODE_KEYS = 2048               # keys of the modes-parity stream
+MODE_BATCH = 256               # its write batch (coarse: a round per write)
+POET_STATES = 4096             # distinct chemistry states in l1 (d)
 TIMING_REPS = 20
 KERNEL_SOURCES = {
     "route_pack": ("src/repro_torch/kernels/csrc/route.cu",
@@ -88,14 +108,20 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/round_kernel.py:29"),
     "stencil_keys": ("src/repro_torch/kernels/csrc/stencil.cu",
                      "src/repro/kernels/stencil_kernel.py:78"),
+    "probe": ("src/repro_torch/kernels/csrc/probe.cu",
+              "src/repro/kernels/probe_kernel.py:70"),
+    "l1_probe": ("src/repro_torch/kernels/csrc/l1.cu",
+                 "src/repro/kernels/l1_kernel.py:54"),
 }
-# the phases whose path calls each kernel: each must launch it
-ENGINE_PHASES = ("dht", "poet", "interp")
+# the phases whose path calls each kernel: each must launch it (every
+# engine phase runs read and write passes)
+ENGINE_PHASES = ("dht", "poet", "interp", "l1")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
-    "checksum": ENGINE_PHASES, "round_sig": ("keys", "poet", "interp"),
-    "stencil_keys": ("interp",),
+    "checksum": ENGINE_PHASES, "probe": ENGINE_PHASES,
+    "round_sig": ("keys", "poet", "interp", "l1"),
+    "stencil_keys": ("interp",), "l1_probe": ("l1",),
 }
 
 
@@ -131,8 +157,7 @@ class Capture:
     active (the kernels still run), bound to positional order with the
     defaults filled in."""
 
-    NAMES = ("route_pack", "route_unpack", "hash64", "shard_apply",
-             "checksum", "round_sig", "stencil_keys")
+    NAMES = tuple(KERNEL_SOURCES)
 
     def __init__(self, ops):
         self.ops = ops
@@ -265,6 +290,51 @@ def bound_shard_apply(skeys, svals, smeta, scsum, q, base, n_probe, res):
     return nbytes, ops
 
 
+def bound_probe(skeys, svals, smeta, scsum, q, base, n_probe, validate,
+                res):
+    """What the answer needs: each query's key and base, the meta word of
+    every distinct candidate up to the selected one (all of the window
+    where none is), the key words of the distinct live ones among them,
+    the value and checksum of the distinct selected ones, and the
+    outputs.  Operations: the checksum chain of each selected query."""
+    import torch
+
+    c, kw = q.shape
+    vw = svals.shape[1]
+    found, rsel = res
+    off = torch.arange(n_probe, device=base.device, dtype=torch.int64)
+    last = torch.where(found != 0, rsel.long(), n_probe - 1)
+    idx = (base.long()[:, None] + off).clamp(0, smeta.shape[0] - 1)
+    cand = torch.unique(idx[off[None, :] <= last[:, None]])
+    m = smeta[cand]
+    live = int((((m & 1) != 0) & ((m & 2) == 0)).sum())
+    sel = torch.unique((base.long() + rsel.long())[found != 0])
+    nbytes = 4 * (c * (kw + 1) + cand.numel() + live * kw
+                  + sel.numel() * (vw + 1) + c * (vw + 2))
+    ops = int((found != 0).sum()) * (kw + vw) * 11 if validate else 0
+    return nbytes, ops
+
+
+def bound_l1_probe(lkeys, lvals, flags, q, set_idx):
+    """Each query's key and set index in, its value row and hit flag
+    out; of the cache, the flags, the key words of the coherent lines of
+    the sets queried and the value rows of the lines that hit (each read
+    once)."""
+    import torch
+
+    n, kw = q.shape
+    ways, vw = lkeys.shape[1], lvals.shape[2]
+    s = set_idx.long()
+    ok = (lkeys[s] == q[:, None, :]).all(dim=-1) & (flags[s] != 0)
+    hit = ok.any(dim=-1)
+    line = s * ways + torch.argmax(ok.to(torch.int32), dim=-1)
+    coherent = int((flags[torch.unique(s)] != 0).sum())
+    hit_lines = int(torch.unique(line[hit]).numel())
+    nbytes = (4 * n * (kw + 1 + vw) + n + flags.numel()
+              + 4 * coherent * kw + 4 * hit_lines * vw)
+    return nbytes, 0
+
+
 def bound_checksum(keys, vals):
     n, kw = keys.shape
     vw = vals.shape[1]
@@ -296,10 +366,11 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def phase_env():
+    import numpy as np
     import torch
 
     smi = nvidia_smi()
-    emit("env", nvidia_smi=smi, torch=torch.__version__,
+    emit("env", nvidia_smi=smi, torch=torch.__version__, numpy=np.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), python=sys.version.split()[0])
     return smi
@@ -324,10 +395,12 @@ def phase_build():
 
 def main_path_capture(cfg_big, gen):
     """A full-size table holding 2^16 written keys, and the exact kernel
-    inputs of a write round and a read round on it."""
+    inputs of a write round, a read round and two cached reads (an L1 of
+    1024 sets x 4 ways, the second read finding it filled) on it."""
     import torch
 
-    from repro_torch.core import dht_create, dht_read, dht_write
+    from repro_torch.core import (L1Config, dht_create, dht_read,
+                                  dht_read_cached, dht_write, l1_create)
     from repro_torch.kernels import ops
 
     st = dht_create(cfg_big, device=DEVICE)
@@ -339,7 +412,14 @@ def main_path_capture(cfg_big, gen):
         st, _, found, _ = dht_read(st, keys)
     torch.cuda.synchronize()
     check(bool(found.all()), "capture round: a written key was not found")
-    return st, wcap.calls, rcap.calls
+    l1 = l1_create(L1Config(n_sets=1024, n_ways=4), cfg_big.n_shards,
+                   device=DEVICE)
+    with Capture(ops) as lcap:
+        for _ in range(2):
+            st, l1, _, found, _ = dht_read_cached(st, l1, keys)
+    torch.cuda.synchronize()
+    check(bool(found.all()), "capture round: a cached read missed a key")
+    return st, wcap.calls, rcap.calls, lcap.calls
 
 
 def edge_cases(gen):
@@ -352,9 +432,7 @@ def edge_cases(gen):
     from repro_torch.core import DHTConfig, dht_create, dht_write
     from repro_torch.core.hashing import base_bucket, hash64
 
-    cases = {"hash64": [], "route_pack": [], "route_unpack": [],
-             "shard_apply": [], "checksum": [], "round_sig": [],
-             "stencil_keys": []}
+    cases = {name: [] for name in KERNEL_SOURCES}
     for n, kw in ((1, 20), (7, 4), (300, 33), (1000, 20)):
         cases["hash64"].append((words(gen, n, kw, DEVICE),))
     for n, kw, vw in ((1, 20, 26), (7, 4, 1), (300, 33, 17)):
@@ -397,11 +475,38 @@ def edge_cases(gen):
         st.flat_csum[live[5::9]] ^= 1
         q = torch.cat([keys[:40], words(gen, 16, cfg.key_words, DEVICE),
                        keys[40:48]])
+        # one key twice in a window, its first copy failing its checksum,
+        # behind an INVALID copy
+        st.flat_keys[4:4 + n_probe] = q[0]
+        st.flat_meta[4] = 1 | 2
+        st.flat_meta[5:4 + n_probe] = 1 | (1 << 8)
+        st.flat_csum[5] ^= 1
+        q = torch.cat([q, q[:1]])
         base = base_bucket(hash64(q)[1], cfg.buckets_per_shard, n_probe)
-        base[-1] = cfg.buckets_per_shard - n_probe
+        base[-2] = cfg.buckets_per_shard - n_probe
+        base[-1] = 4
         slab = (st.flat_keys[:-1], st.flat_vals[:-1], st.flat_meta[:-1],
                 st.flat_csum[:-1])
         cases["shard_apply"].append((*slab, q, base.contiguous(), n_probe))
+        for validate in (True, False):
+            cases["probe"].append((*slab, q, base.contiguous(), n_probe,
+                                   validate))
+    for sets, ways, n in ((1024, 4, 4096), (5, 1, 40), (16, 8, 300)):
+        lkeys = words(gen, sets * ways, 20, DEVICE).reshape(sets, ways, 20)
+        lvals = words(gen, sets * ways, 26, DEVICE).reshape(sets, ways, 26)
+        flags = torch.randint(0, 2, (sets, ways), generator=gen).to(
+            torch.bool).to(DEVICE)
+        set_idx = torch.randint(0, sets, (n,), generator=gen).to(
+            torch.int32).to(DEVICE)
+        way = torch.randint(0, ways, (n,), generator=gen).to(DEVICE)
+        q = lkeys[set_idx.long(), way].clone()
+        q[::2] = words(gen, (n + 1) // 2, 20, DEVICE)
+        if ways > 1:       # the key in two ways, the first one incoherent
+            s = int(set_idx[1])
+            lkeys[s, 1] = lkeys[s, 0]
+            q[1] = lkeys[s, 0]
+            flags[s, 0], flags[s, 1] = False, True
+        cases["l1_probe"].append((lkeys, lvals, flags, q, set_idx))
     return cases
 
 
@@ -410,8 +515,9 @@ def kernel_pairs():
     ``kernels/ops.py`` receives (the rounding wrappers take the float32
     contiguous input that ``ops`` hands them)."""
     from repro_torch.kernels import (apply_kernel, checksum_kernel,
-                                     hash_kernel, ref, round_kernel,
-                                     route_kernel, stencil_kernel)
+                                     hash_kernel, l1_kernel, probe_kernel,
+                                     ref, round_kernel, route_kernel,
+                                     stencil_kernel)
 
     def f32(x):
         return x.float().contiguous()
@@ -427,6 +533,8 @@ def kernel_pairs():
         "stencil_keys": (
             lambda x, *a: stencil_kernel.stencil_keys(f32(x), *a),
             ref.stencil_keys),
+        "probe": (probe_kernel.probe, ref.probe),
+        "l1_probe": (l1_kernel.l1_probe, ref.l1_probe),
     }
 
 
@@ -449,11 +557,11 @@ def compare_calls(calls: dict, errs: dict, where: str) -> dict:
 
 
 def phase_kernels(cfg_big, gen, errs):
-    st, wcalls, rcalls = main_path_capture(cfg_big, gen)
+    st, wcalls, rcalls, lcalls = main_path_capture(cfg_big, gen)
     edges = edge_cases(gen)
     result = {}
     for name, (kern, plain) in kernel_pairs().items():
-        main = wcalls[name] + rcalls[name]
+        main = wcalls[name] + rcalls[name] + lcalls[name]
         check(len(main) > 0 or name in ("round_sig", "stencil_keys"),
               f"{name}: the main path made no call")
         err = 0.0
@@ -466,7 +574,7 @@ def phase_kernels(cfg_big, gen, errs):
                                                if hasattr(a, "shape")])
                                           for args in main})}
     emit("kernels", result=result, tolerance="bit for bit (max_abs_err 0)")
-    return st, wcalls, rcalls
+    return st, wcalls, rcalls, lcalls
 
 
 def _stream(cfg, device, seed):
@@ -547,13 +655,15 @@ def phase_dht(cfg_big):
         check(torch.equal(outs["read"][2], vals), "dht read: wrong values")
     launches = ops.launches()
     # every write pass launches shard_apply (slot choice) and checksum
-    # once; the read, mixed and migrate rounds add one probe pass each
+    # once; the read, mixed and migrate rounds make one probe pass each
     passes = sum(sum(r["write_passes"] for r in runs)
                  for runs in samples.values())
-    check(launches["checksum"] == passes
-          == launches["shard_apply"] - 3 * DHT_REPS,
+    check(launches["checksum"] == passes == launches["shard_apply"],
           f"dht: checksum launches {launches['checksum']}, write passes "
           f"{passes}, shard_apply launches {launches['shard_apply']}")
+    check(launches["probe"] == 3 * DHT_REPS,
+          f"dht: probe launches {launches['probe']}, probe passes "
+          f"{3 * DHT_REPS}")
     rounds = []
     for kind, runs in samples.items():
         ms = [r["ms"] for r in runs]
@@ -572,7 +682,7 @@ def phase_dht(cfg_big):
          key_words=cfg_big.key_words, val_words=cfg_big.val_words,
          n_probe=cfg_big.n_probe, mode=cfg_big.mode, table_gb=table_gb,
          reps=DHT_REPS, rounds=rounds, max_memory_allocated_gb=peak / 1e9,
-         write_passes=passes, launches=launches)
+         write_passes=passes, probe_passes=3 * DHT_REPS, launches=launches)
     del st
 
     # the same stream at B=2^16: card and CPU must agree word for word
@@ -876,7 +986,299 @@ def phase_interp(cfg_big, errs, poet_plain):
     return {k: launches_a[k] + launches_c[k] for k in launches_a}, cap.calls
 
 
-def phase_timing(wcalls, rcalls, kcalls, icalls):
+def _l1_full(cfg_big, errs):
+    """(a) l1-full: cached against uncached reads of one full-size table
+    on a Zipf and a uniform stream, with rewrites between batches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (L1Config, dht_create, dht_read,
+                                  dht_read_cached, dht_write, l1_create)
+    from repro_torch.kernels import ops
+
+    torch.cuda.reset_peak_memory_stats()
+    st = dht_create(cfg_big, device=DEVICE)
+    gen = torch.Generator().manual_seed(21)
+    u = L1_UNIVERSE
+    ukeys = words(gen, u, cfg_big.key_words, DEVICE)
+    uvals = words(gen, u, cfg_big.val_words, DEVICE)
+    for i in range(0, u, N_KEYS):
+        st, ws = dht_write(st, ukeys[i:i + N_KEYS], uvals[i:i + N_KEYS])
+        check(int(ws["dropped"]) == 0, "l1-full: universe write dropped rows")
+    rng = np.random.default_rng(22)
+    out = {}
+    for dist in ("zipf", "uniform"):
+        l1 = l1_create(L1Config(n_sets=1024, n_ways=4), cfg_big.n_shards,
+                       device=DEVICE)
+        hits = queries = wire_c = wire_p = 0
+        ms_c, ms_p, per_batch = [], [], []
+        for b in range(L1_BATCHES):
+            ids = (rng.zipf(1.1, N_KEYS) % u if dist == "zipf"
+                   else rng.integers(0, u, N_KEYS))
+            kb = ukeys[torch.from_numpy(ids).to(DEVICE)]
+            torch.cuda.synchronize()
+            with Capture(ops) as cap:
+                t0 = time.perf_counter()
+                st, l1, cv, cf, cs = dht_read_cached(st, l1, kb)
+                torch.cuda.synchronize()
+                ms_c.append((time.perf_counter() - t0) * 1e3)
+            if dist == "zipf" and b == 1:
+                compare_calls(cap.calls, errs, "l1-full cached round")
+            del cap
+            t0 = time.perf_counter()
+            st, pv, pf, ps = dht_read(st, kb)
+            torch.cuda.synchronize()
+            ms_p.append((time.perf_counter() - t0) * 1e3)
+            n_hit = int(cs["l1_hits"])
+            bad = {k: (int(cs[k]), int(ps[k])) for k in ("dropped",
+                                                         "mismatches")
+                   if int(cs[k]) or int(ps[k])}
+            check(not bad, f"l1-full {dist} batch {b}: {bad}")
+            check(torch.equal(cv, pv) and torch.equal(cf, pf),
+                  f"l1-full {dist} batch {b}: cached read differs from "
+                  "the uncached one")
+            # a rewrite touches every shard, so its watermark fence
+            # retires every line: the batch after it refills the cache
+            after_write = b > 0 and b % 2 == 0
+            check(dist != "zipf" or b == 0 or after_write or n_hit > 0,
+                  f"l1-full zipf batch {b}: no L1 hit")
+            per_batch.append({"l1_hits": n_hit, "after_rewrite": after_write,
+                              "found": int(cf.sum()),
+                              "wire_cached": cs["wire_words"],
+                              "wire_uncached": ps["wire_words"]})
+            if b:
+                hits += n_hit
+                queries += N_KEYS
+                wire_c += cs["wire_words"]
+                wire_p += ps["wire_words"]
+            if b % 2 == 1:      # rewrite keys of the universe: the fence
+                wid = torch.from_numpy(rng.choice(u, L1_REWRITES,
+                                                  replace=False)).to(DEVICE)
+                st, ws = dht_write(st, ukeys[wid], words(
+                    gen, L1_REWRITES, cfg_big.val_words, DEVICE))
+                check(int(ws["dropped"]) == 0, "l1-full: rewrite dropped")
+        out[dist] = {"l1_hit_frac": hits / queries,
+                     "wire_words_cached": wire_c,
+                     "wire_words_uncached": wire_p,
+                     "wire_ratio": wire_p / wire_c,
+                     "cached_round_ms_median": statistics.median(ms_c),
+                     "uncached_round_ms_median": statistics.median(ms_p),
+                     "cached_round_ms": ms_c, "uncached_round_ms": ms_p,
+                     "batches": per_batch}
+    emit("l1_full", S=cfg_big.n_shards, B=cfg_big.buckets_per_shard,
+         universe=u, l1="1024 sets x 4 ways", batch=N_KEYS,
+         batches=L1_BATCHES, rewrites=L1_REWRITES,
+         hit_frac_and_wire_over="batches 1..7", streams=out,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del st
+
+
+def _l1_ref_stream(device):
+    """``benchmarks/bench_l1_locality.py``'s quick stream, drawn in its
+    order: the key table, then per distribution the table write, the L1
+    and four batches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import l1_to_numpy
+    from repro_torch.core import (DHTConfig, L1Config, dht_create, dht_read,
+                                  dht_read_cached, dht_write, l1_create)
+
+    universe, n, s = 2048, 2048, 8
+    rng = np.random.default_rng(11)
+
+    def table(w):
+        a = rng.integers(0, 2**31, size=(universe, w)).astype(np.int32)
+        return torch.from_numpy(a).to(device)
+
+    ukeys, uvals = table(20), table(26)
+    cfg = DHTConfig(n_shards=s, buckets_per_shard=1 << 10)
+    res = {}
+    for dist in ("zipf", "uniform"):
+        st = dht_create(cfg, device=device)
+        st, ws = dht_write(st, ukeys, uvals)
+        check(int(ws["dropped"]) == 0, "l1-ref: table write dropped rows")
+        l1 = l1_create(L1Config(n_sets=1024, n_ways=4), s, device=device)
+        batches = []
+        for _ in range(4):
+            ids = (rng.zipf(1.1, size=n) % universe if dist == "zipf"
+                   else rng.integers(0, universe, size=n))
+            batches.append(ukeys[torch.from_numpy(ids).to(device)])
+        steps = []
+        for kb in batches:
+            st, l1, cv, cf, cs = dht_read_cached(st, l1, kb)
+            _, pv, pf, ps = dht_read(st.clone(), kb)
+            check(torch.equal(cv, pv) and torch.equal(cf, pf),
+                  f"l1-ref {dist} on {device}: cached differs from uncached")
+            steps.append({"vals": cv.cpu(), "found": cf.cpu(),
+                          "l1_hits": int(cs["l1_hits"]),
+                          "wire_words": cs["wire_words"],
+                          "wire_uncached": ps["wire_words"]})
+        res[dist] = (steps, l1_to_numpy(l1))
+    return res
+
+
+def _l1_ref():
+    """(b) l1-ref: card against CPU, batch by batch, and the reference's
+    gates on the Zipf stream."""
+    import torch
+
+    card, cpu = _l1_ref_stream(DEVICE), _l1_ref_stream("cpu")
+    out = {}
+    for dist in ("zipf", "uniform"):
+        (cs, cl), (ps, pl) = card[dist], cpu[dist]
+        equal = all(torch.equal(a[k], b[k]) for a, b in zip(cs, ps)
+                    for k in ("vals", "found"))
+        equal &= all(a[k] == b[k] for a, b in zip(cs, ps)
+                     for k in ("l1_hits", "wire_words"))
+        equal &= all((cl[k] == pl[k]).all() for k in pl)
+        check(equal, f"l1-ref {dist}: card and CPU differ")
+        hits = sum(b["l1_hits"] for b in cs[1:])
+        wire_c = sum(b["wire_words"] for b in cs[1:])
+        wire_p = sum(b["wire_uncached"] for b in cs[1:])
+        out[dist] = {"l1_hit_frac": hits / (3 * 2048),
+                     "wire_ratio": wire_p / wire_c,
+                     "l1_hits": [b["l1_hits"] for b in cs],
+                     "card_equals_cpu": equal}
+    z = out["zipf"]
+    check(z["l1_hit_frac"] >= 0.5 and z["wire_ratio"] >= 1.5,
+          f"l1-ref zipf misses the reference's gates: {z}")
+    emit("l1_ref", S=8, B=1 << 10, universe=2048, batch=2048, batches=4,
+         gates="zipf l1_hit_frac >= 0.5, wire_ratio >= 1.5 (batches 1..3)",
+         streams=out)
+
+
+def _modes_stream(mode, device):
+    """The B=2^16 stream's first MODE_KEYS keys in small batches under
+    one locking schedule: writes, one read, 95/5 mixed and migrate."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import (DHTConfig, dht_create, dht_execute,
+                                  migrate_ops, mixed_ops, read_ops,
+                                  write_ops)
+
+    cfg = DHTConfig(key_words=20, val_words=26, n_shards=8,
+                    buckets_per_shard=SMALL_BUCKETS, mode=mode)
+    keys, vals, mk, mv, op = _stream(cfg, device, seed=1)
+    n, h = MODE_KEYS, MODE_KEYS // 2
+    # the migrate/mixed keys: half stored, half fresh, as in the stream
+    mk = torch.cat([mk[:h], mk[N_KEYS // 2:N_KEYS // 2 + h]])
+    keys, vals, mv, op = keys[:n], vals[:n], mv[:n], op[:n]
+    st = dht_create(cfg, device=device)
+    b = MODE_BATCH
+    plan = [("write", write_ops(keys[i:i + b], vals[i:i + b]), ("write",))
+            for i in range(0, n, b)]
+    plan.append(("read", read_ops(keys), ("read",)))
+    plan += [("mixed_95_5", mixed_ops(op[i:i + b], mk[i:i + b], mv[i:i + b]),
+              ("read", "write")) for i in range(0, n, b)]
+    plan += [("migrate", migrate_ops(mk[i:i + b], mv[i:i + b]), ("migrate",))
+             for i in range(0, n, b)]
+    rec = []
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for kind, ops, kinds in plan:
+        st, _, v, f, code, es = dht_execute(st, ops, kinds=kinds)
+        rec.append((kind, code.cpu(), es["rounds"], es["lock_tokens"],
+                    int(es["dropped"])))
+    secs = time.perf_counter() - t0
+    return state_to_numpy(st), rec, secs
+
+
+def _modes_parity():
+    """(c) modes-parity: the three schedules, card against CPU."""
+    out = {}
+    for mode in ("lockfree", "fine", "coarse"):
+        (tc, rc, sc), (tp, rp, sp) = (_modes_stream(mode, DEVICE),
+                                      _modes_stream(mode, "cpu"))
+        tables = all((tc[k] == tp[k]).all() for k in tp)
+        items = all(a[0] == b[0] and bool((a[1] == b[1]).all())
+                    and a[2:] == b[2:] for a, b in zip(rc, rp))
+        check(tables and items, f"modes-parity {mode}: card and CPU differ "
+                                f"(tables {tables}, items {items})")
+        check(not any(r[4] for r in rc), f"modes-parity {mode}: dropped")
+        kinds = {}
+        for kind, _c, rounds, tok, _d in rc:
+            k = kinds.setdefault(kind, {"rounds": [], "lock_tokens": []})
+            k["rounds"].append(rounds)
+            k["lock_tokens"].append(tok)
+        out[mode] = {"card_s": sc, "cpu_s": sp, "equal": True, **kinds}
+    check(sum(out["fine"]["write"]["rounds"])
+          < sum(out["coarse"]["write"]["rounds"]),
+          "modes-parity: coarse took no more write rounds than fine")
+    emit("modes_parity", B=SMALL_BUCKETS, S=8, keys=MODE_KEYS,
+         write_batch=MODE_BATCH, modes=out)
+
+
+def _lookup_cached():
+    """(d) lookup_cached on POET-shaped rows against lookup."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_poet_reactive_transport import (N_IN, N_OUT, PoetConfig,
+                                               chemistry, initial_state)
+
+    from repro_torch.core import (DHTConfig, L1Config, SurrogateConfig,
+                                  l1_create, lookup, lookup_cached, store,
+                                  surrogate_create)
+
+    pc = PoetConfig()
+    scfg = SurrogateConfig(
+        n_inputs=N_IN, n_outputs=N_OUT, sig_digits=pc.sig_digits,
+        dht=DHTConfig(key_words=20, val_words=26, n_shards=pc.dht_shards,
+                      buckets_per_shard=pc.dht_buckets, mode=pc.dht_mode))
+    rng = np.random.default_rng(31)
+    base = initial_state(pc, "cpu")[:1].repeat(POET_STATES, 1)
+    scale = torch.from_numpy(10.0 ** rng.uniform(-1, 1, size=(POET_STATES,
+                                                              9)))
+    states = torch.cat([base * scale.to(torch.float32),
+                        torch.full((POET_STATES, 1), pc.dt)], dim=1)
+    states = states.to(DEVICE)
+    rows = states[torch.from_numpy(rng.integers(0, POET_STATES,
+                                                N_KEYS)).to(DEVICE)]
+    st = surrogate_create(scfg, device=DEVICE)
+    known = POET_STATES * 3 // 4
+    st, ws = store(scfg, st, states[:known], chemistry(states[:known]))
+    check(int(ws["dropped"]) == 0, "lookup_cached: store dropped rows")
+    l1 = l1_create(L1Config(n_sets=1024, n_ways=4), scfg.dht.n_shards,
+                   device=DEVICE)
+    calls = []
+    for _ in range(2):
+        st, l1, out, found, cs = lookup_cached(scfg, st, l1, rows)
+        _, ref_out, ref_found, _ = lookup(scfg, st, rows)
+        check(torch.equal(out.view(torch.int32), ref_out.view(torch.int32))
+              and torch.equal(found, ref_found),
+              "lookup_cached differs from lookup")
+        calls.append({"l1_hits": int(cs["l1_hits"]),
+                      "found": int(found.sum()),
+                      "wire_words": cs["wire_words"]})
+    check(calls[1]["l1_hits"] > 0, "lookup_cached: second call had no L1 hit")
+    check(0 < calls[1]["found"] < N_KEYS, "lookup_cached: found all or none")
+    emit("l1_lookup_cached", rows=N_KEYS, states=POET_STATES,
+         stored_states=known, sig_digits=scfg.sig_digits,
+         S=scfg.dht.n_shards, B=scfg.dht.buckets_per_shard, calls=calls)
+
+
+def phase_l1(cfg_big, errs):
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    _l1_full(cfg_big, errs)
+    _l1_ref()
+    _modes_parity()
+    _lookup_cached()
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    emit("l1", launches=launches)
+    return launches
+
+
+def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls):
     import torch
 
     from repro_torch.kernels import (apply_kernel, hash_kernel, ref,
@@ -894,6 +1296,10 @@ def phase_timing(wcalls, rcalls, kcalls, icalls):
         _v, found, rsel, _w, _k = ref.shard_apply(*args)
         return bound_shard_apply(*args, (found, rsel))
 
+    def probe_bound(args):
+        _v, found, rsel = ref.probe(*args)
+        return bound_probe(*args, (found, rsel))
+
     spec = {
         # name: (kernel, plain, library call or None, inputs, bound fn)
         "route_pack": (route_kernel.route_pack, ref.route_pack, lib_call,
@@ -903,8 +1309,9 @@ def phase_timing(wcalls, rcalls, kcalls, icalls):
                          bound_route_unpack),
         "hash64": (hash_kernel.hash64, ref.hash64, None,
                    rcalls["hash64"][0], bound_hash64),
+        # the write round's first pass: the slot choice
         "shard_apply": (apply_kernel.shard_apply, ref.shard_apply, None,
-                        rcalls["shard_apply"][0], apply_bound),
+                        wcalls["shard_apply"][0], apply_bound),
         # no single PyTorch call computes these three
         "checksum": (*pairs["checksum"], None, wcalls["checksum"][0],
                      bound_checksum),
@@ -912,10 +1319,14 @@ def phase_timing(wcalls, rcalls, kcalls, icalls):
                       bound_round_sig),
         "stencil_keys": (*pairs["stencil_keys"], None,
                          icalls["stencil_keys"][0], bound_stencil_keys),
+        # the read round's probe pass; the second cached read's L1 probe
+        "probe": (*pairs["probe"], None, rcalls["probe"][0], probe_bound),
+        "l1_probe": (*pairs["l1_probe"], None, lcalls["l1_probe"][-1],
+                     bound_l1_probe),
     }
     out = {}
     for name, (kern, plain, lib, args, bound_fn) in spec.items():
-        nbytes, nops = (bound_fn(args) if name == "shard_apply"
+        nbytes, nops = (bound_fn(args) if name in ("shard_apply", "probe")
                         else bound_fn(*args))
         b_ms, b_by = bound_ms(nbytes, nops)
         out[name] = {
@@ -966,13 +1377,14 @@ def main() -> int:
                         mode="lockfree")
     gen = torch.Generator().manual_seed(0)
     errs: dict[str, float] = {}
-    _st, wcalls, rcalls = phase_kernels(cfg_big, gen, errs)
+    _st, wcalls, rcalls, lcalls = phase_kernels(cfg_big, gen, errs)
     launches = {"dht": phase_dht(cfg_big)}
     launches["keys"], kcalls = phase_keys(errs)
     launches["poet"], _ref, poet_plain = phase_poet()
     del _ref
     launches["interp"], icalls = phase_interp(cfg_big, errs, poet_plain)
-    timing = phase_timing(wcalls, rcalls, kcalls, icalls)
+    launches["l1"] = phase_l1(cfg_big, errs)
+    timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

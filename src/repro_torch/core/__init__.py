@@ -1,9 +1,14 @@
 """Core of the port: slab layout, hashing, key rounding, routing, the
-one-round op-engine, the DHT wrappers, the surrogate cache and its
-neighbourhood interpolation."""
-from .dht import dht_read, dht_read_many, dht_write
+one-round op-engine in its three modes, the DHT wrappers, the L1
+locality tier, the surrogate cache and its neighbourhood interpolation."""
+from .dht import dht_read, dht_read_cached, dht_read_many, dht_write
 from .interp import PROV_EXACT, PROV_INTERP, PROV_MISS, InterpConfig
+from .l1cache import L1Config, L1State, l1_create, l1_flush
 from .layout import (
+    MODE_COARSE,
+    MODE_FINE,
+    MODE_LOCKFREE,
+    MODES,
     DHTConfig,
     DHTState,
     dht_create,
@@ -32,6 +37,7 @@ from .op_engine import (
 from .surrogate import (
     SurrogateConfig,
     lookup,
+    lookup_cached,
     lookup_interpolate_or_compute,
     lookup_or_compute,
     lookup_or_interpolate,
@@ -41,11 +47,13 @@ from .surrogate import (
 )
 
 __all__ = [
-    "DHTConfig", "DHTState", "InterpConfig", "OP_MIGRATE", "OP_READ",
-    "OP_WRITE", "OpBatch", "PROV_EXACT", "PROV_INTERP", "PROV_MISS",
-    "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP",
-    "W_UPDATE", "dht_create", "dht_execute", "dht_occupancy", "dht_read",
-    "dht_read_many", "dht_write", "lookup", "lookup_interpolate_or_compute",
+    "DHTConfig", "DHTState", "InterpConfig", "L1Config", "L1State",
+    "MODES", "MODE_COARSE", "MODE_FINE", "MODE_LOCKFREE", "OP_MIGRATE",
+    "OP_READ", "OP_WRITE", "OpBatch", "PROV_EXACT", "PROV_INTERP",
+    "PROV_MISS", "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT",
+    "W_SKIP", "W_UPDATE", "dht_create", "dht_execute", "dht_occupancy",
+    "dht_read", "dht_read_cached", "dht_read_many", "dht_write", "l1_create",
+    "l1_flush", "lookup", "lookup_cached", "lookup_interpolate_or_compute",
     "lookup_or_compute", "lookup_or_interpolate", "make_keys", "migrate_ops",
     "mixed_ops", "occupancy", "pack_floats", "read_ops", "shard_watermark",
     "store", "surrogate_create", "unpack_floats", "write_ops",

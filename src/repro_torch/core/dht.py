@@ -1,22 +1,28 @@
 """DHT read/write wrappers over the one-round engine (PyTorch port of the
-``dht_read``/``dht_write``/``dht_read_many`` part of ``repro.core.dht``).
+``dht_read``/``dht_write``/``dht_read_many``/``dht_read_cached`` part of
+``repro.core.dht``).
 
 Each call is one engine round (``core/op_engine.dht_execute``) on the
-single-device virtual-shard backend.  The table is updated in place.
-The dual-epoch and issue/commit forms of the multi-key read belong to
-later slices and raise.
+single-device virtual-shard backend; :func:`dht_read_cached` serves the
+coherent part of a batch from the L1 cache (``core/l1cache.py``) first.
+The table and the cache are updated in place.  The dual-epoch,
+replicated and issue/commit forms belong to later slices and raise.
 """
 from __future__ import annotations
 
 import torch
 
-from . import routing
-from .layout import DHTState
+from ..kernels import ops as kops
+from ..obs import metrics as obs_metrics
+from . import l1cache, routing
+from .layout import DHTState, shard_watermark, to_i32
 from .op_engine import (
     W_DROPPED,
     W_EVICT,
     W_INSERT,
     W_UPDATE,
+    OpBatch,
+    _owner_epoch,
     dht_execute,
     read_ops,
     write_ops,
@@ -30,8 +36,8 @@ def _wire_skew_stats(es: dict) -> dict:
         "bin_max_load", "bin_imbalance", "hot_frac")}
 
 
-def _read_stats(valid, found, es) -> dict:
-    return {
+def _read_stats(valid, found, es, *, l1_meta: bool = False) -> dict:
+    stats = {
         "hits": found.sum().to(torch.int32),
         "misses": (valid & ~found).sum().to(torch.int32),
         "mismatches": es["mismatches"],
@@ -40,10 +46,13 @@ def _read_stats(valid, found, es) -> dict:
         "fallback_reads": es["fallback_reads"],
         **_wire_skew_stats(es),
     }
+    if l1_meta:
+        stats["wmark_post"] = es["wmark_post"]
+    return stats
 
 
-def _write_stats(code, es) -> dict:
-    return {
+def _write_stats(code, es, *, l1_meta: bool = False) -> dict:
+    stats = {
         "inserted": (code == W_INSERT).sum().to(torch.int32),
         "updated": (code == W_UPDATE).sum().to(torch.int32),
         "evicted": (code == W_EVICT).sum().to(torch.int32),
@@ -53,6 +62,9 @@ def _write_stats(code, es) -> dict:
         **_wire_skew_stats(es),
         "code": code,
     }
+    if l1_meta:
+        stats["wmark_post"] = es["wmark_post"]
+    return stats
 
 
 def _ones(keys: torch.Tensor) -> torch.Tensor:
@@ -60,24 +72,27 @@ def _ones(keys: torch.Tensor) -> torch.Tensor:
 
 
 def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
-              valid: torch.Tensor | None = None, *, max_retries: int = 0
-              ) -> tuple[DHTState, dict]:
+              valid: torch.Tensor | None = None, *, l1_meta: bool = False,
+              max_retries: int = 0) -> tuple[DHTState, dict]:
     """DHT_write: store/update a batch of key-value pairs.
 
-    ``max_retries > 0`` re-issues rows the router dropped on a capacity
-    overflow (``code == W_DROPPED``) for up to that many extra rounds;
-    the default 0 is the single-round write."""
+    ``l1_meta=True`` piggybacks the shard watermarks on the reply lanes
+    (stats gain ``wmark_post``).  ``max_retries > 0`` re-issues rows the
+    router dropped on a capacity overflow (``code == W_DROPPED``) for up
+    to that many extra rounds; the default 0 is the single-round write."""
     if valid is None:
         valid = _ones(keys)
     state, _, _, _, code, es = dht_execute(
-        state, write_ops(keys, vals, valid), kinds=("write",))
-    total = _write_stats(code, es)
+        state, write_ops(keys, vals, valid), kinds=("write",),
+        l1_meta=l1_meta)
+    total = _write_stats(code, es, l1_meta=l1_meta)
     for _ in range(max_retries):
         retry = valid & (total["code"] == W_DROPPED)
         if not bool(retry.any()):
             break
         state, _, _, _, code, es = dht_execute(
-            state, write_ops(keys, vals, retry), kinds=("write",))
+            state, write_ops(keys, vals, retry), kinds=("write",),
+            l1_meta=l1_meta)
         stats = _write_stats(code, es)
         for lane in ("inserted", "updated", "evicted", "lock_tokens",
                      "wire_words", "rounds"):
@@ -91,16 +106,84 @@ def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
 
 
 def dht_read(state: DHTState, keys: torch.Tensor,
-             valid: torch.Tensor | None = None
+             valid: torch.Tensor | None = None, *, l1_meta: bool = False
              ) -> tuple[DHTState, torch.Tensor, torch.Tensor, dict]:
     """DHT_read: fetch a batch of values.  Returns ``(state', vals,
     found, stats)``; ``state'`` changes only where a checksum-failed
-    bucket is flagged INVALID."""
+    bucket is flagged INVALID.  ``l1_meta=True`` adds the watermark
+    piggyback (``wmark_post``) to the stats."""
     if valid is None:
         valid = _ones(keys)
     state, _, vals, found, _code, es = dht_execute(
-        state, read_ops(keys, valid), kinds=("read",))
-    return state, vals, found, _read_stats(valid, found, es)
+        state, read_ops(keys, valid), kinds=("read",), l1_meta=l1_meta)
+    return state, vals, found, _read_stats(valid, found, es,
+                                           l1_meta=l1_meta)
+
+
+def dht_read_cached(state: DHTState, l1: l1cache.L1State, keys: torch.Tensor,
+                    valid: torch.Tensor | None = None, *, axis_name=None):
+    """DHT_read through the locality tier: coherent L1 hits are served
+    from the cache with no routing traffic; only the residue rides the
+    one-round engine, which piggybacks the coherence metadata used to
+    refill the cache.  The result is bit for bit :func:`dht_read`'s as
+    long as every table mutation since the lines were filled changed the
+    shard watermarks (engine rounds and INVALID flagging do).
+
+    Returns ``(state', l1', vals, found, stats)``: ``stats`` matches
+    :func:`dht_read` plus ``l1_hits``.  ``l1`` is updated in place.
+    Reads two counts back to the host for the ``l1.*`` counters."""
+    if axis_name is not None:
+        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
+    if state.cfg.n_replicas > 1:
+        raise routing.not_ported("cached reads under replication", "12")
+    if valid is None:
+        valid = _ones(keys)
+    l1cfg = l1.cfg
+    h = kops.hash64(keys.contiguous())
+    hashes = (h[:, 0], h[:, 1])
+    set_idx, way_idx = l1cache.l1_slots(l1cfg, *hashes)
+    dest, epoch = _owner_epoch(state, hashes[0])
+    # the whole table is at hand: every shard's watermark is recomputed,
+    # so even edits made outside the engine fence
+    known = to_i32(shard_watermark(state.meta))
+    flags = l1cache.serve_flags(l1, known, epoch)
+    hit, cval = l1cache.l1_probe(l1cfg, l1, keys, set_idx, flags)
+    hit = hit & valid
+
+    rvalid = valid & ~hit
+    state, _, rval, rfound, _code, es = dht_execute(
+        state, OpBatch(keys=keys, valid=rvalid), kinds=("read",),
+        hashes=hashes, placement=(dest, epoch), l1_meta=True)
+    vals = torch.where(hit[:, None], cval, rval)
+    found = hit | rfound
+
+    gen = es.pop("bucket_gen")
+    wpre, wpost = es.pop("wmark_pre"), es.pop("wmark_post")
+    l1 = l1cache.with_shard_wmarks(l1, wpost)
+    l1 = l1cache.l1_insert(l1cfg, l1, keys, rval, gen, dest,
+                           wpre[dest.long()], epoch, set_idx, way_idx,
+                           mask=rfound)
+    stats = {
+        "hits": found.sum().to(torch.int32),
+        "misses": (valid & ~found).sum().to(torch.int32),
+        "l1_hits": hit.sum().to(torch.int32),
+        "mismatches": es["mismatches"],
+        "dropped": es["dropped"],
+        "lock_tokens": es["lock_tokens"],
+        "fallback_reads": es["fallback_reads"],
+        "epoch": es["epoch"],
+        "wire_words": es["wire_words"],
+        "fill_frac": es["fill_frac"],
+        "bin_counts": es["bin_counts"],
+        "bin_max_load": es["bin_max_load"],
+        "bin_imbalance": es["bin_imbalance"],
+        "hot_frac": es["hot_frac"],
+    }
+    n_hits, n_queries = torch.stack(
+        [stats["l1_hits"], valid.sum().to(torch.int32)]).tolist()
+    obs_metrics.inc("l1.hits", n_hits)
+    obs_metrics.inc("l1.queries", n_queries)
+    return state, l1, vals, found, stats
 
 
 def dht_read_many(state: DHTState, keys: torch.Tensor,
@@ -113,11 +196,9 @@ def dht_read_many(state: DHTState, keys: torch.Tensor,
     (n, m, VW), found (n, m), stats)``."""
     if axis_name is not None:
         raise routing.not_ported("the multi-rank backend (axis_name)", "7")
-    if l1_meta:
-        raise routing.not_ported("dht_read_many(l1_meta=True)", "9")
     n, m = keys.shape[0], keys.shape[1]
     flat, vflat = routing.flatten_fanout(keys, valid)
-    state, val, found, stats = dht_read(state, flat, vflat)
+    state, val, found, stats = dht_read(state, flat, vflat, l1_meta=l1_meta)
     return (state, routing.unflatten_fanout(val, n, m),
             routing.unflatten_fanout(found, n, m), stats)
 

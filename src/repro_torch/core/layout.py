@@ -154,8 +154,10 @@ def live_mask(meta: torch.Tensor) -> torch.Tensor:
 
 def shard_watermark(meta: torch.Tensor) -> torch.Tensor:
     """uint32 sum of a slab's meta words over the bucket axis, wrapped
-    explicitly: ((B,) -> (), (S, B) -> (S,)), as an int64 in [0, 2^32)."""
-    return u32(meta).sum(dim=-1) & MASK32
+    explicitly: ((B,) -> (), (S, B) -> (S,)), as an int64 in [0, 2^32).
+    The int32 view is summed in int64: a sum mod 2^32 is the same for the
+    signed and the unsigned view, and no int64 copy of ``meta`` is made."""
+    return meta.sum(dim=-1, dtype=torch.int64) & MASK32
 
 
 def occupancy(state: DHTState) -> torch.Tensor:

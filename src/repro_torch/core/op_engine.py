@@ -1,5 +1,5 @@
 """One-round op-engine for the DHT hot path (PyTorch port of
-``repro.core.op_engine``: the lock-free, synchronous, single-device subset).
+``repro.core.op_engine``: the synchronous, single-device subset).
 
 Every operation is a request record (``OP_READ`` / ``OP_WRITE`` /
 ``OP_MIGRATE``, a key, and for the writing kinds a value);
@@ -9,22 +9,28 @@ Every operation is a request record (``OP_READ`` / ``OP_WRITE`` /
    ``lo % (B - P + 1)``;
 2. count-driven capacity and sort binning (``core/routing.py``);
 3. one fused lane matrix packed into bins (``route_pack`` kernel);
-4. one window pass over all virtual shards at once (``shard_apply``
-   kernel; the reference runs a ``vmap`` over the shards): the probing
-   ops read the table as of round start, checksum-failed buckets are
-   flagged INVALID, then the writes apply in bounded retry passes, each
-   pass taking its slot decision from the same kernel and the new
-   buckets' checksums from the ``checksum`` kernel;
+4. one window pass over all virtual shards at once (the reference runs a
+   ``vmap`` over the shards): the probing ops read the table as of round
+   start through the ``probe`` kernel, checksum-failed buckets are
+   flagged INVALID (lock-free mode), then the writes apply under the
+   mode's schedule in bounded retry passes, each pass taking its slot
+   decision from the ``shard_apply`` kernel and the new buckets'
+   checksums from the ``checksum`` kernel;
 5. the replies unpacked (``route_unpack`` kernel).
+
+The three designs of the paper are the three modes: lock-free (readers
+validate a checksum), fine-grained locking (writes to one window base
+serialize into rounds) and coarse-grained locking (every write of a shard
+takes its own round).  With ``l1_meta=True`` the replies also carry the
+locality tier's coherence metadata (``core/l1cache.py``).
 
 The slab is updated in place (see ``core/layout.py``).  Winner resolution
 and slab updates are plain torch: ``scatter_reduce("amax")`` and index
 writes, both aimed at the dump row where the reference drops an item.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the fine/coarse schedules, dual-epoch ``prev``, the ring, the L1
-metadata piggyback, precomputed ``hashes``/``placement``, ``pending``
-forwarding and the issue/commit split.
+item): dual-epoch ``prev``, the ring, self-traffic elision,
+``pending`` forwarding and the issue/commit split.
 """
 from __future__ import annotations
 
@@ -41,9 +47,11 @@ from .layout import (
     GEN_SHIFT,
     INVALID,
     MASK32,
+    MODE_FINE,
     MODE_LOCKFREE,
     OCCUPIED,
     DHTState,
+    shard_watermark,
     to_i32,
     u32,
 )
@@ -118,11 +126,13 @@ def _slab_views(state: DHTState):
 
 
 def _probe_window(state: DHTState, abs_base, keys):
-    """Read probe: ``(found_tri, sel, val)`` from the shard-apply kernel;
-    ``found_tri`` is 1 (checksum-valid hit), -1 (selected bucket failed its
-    checksum) or 0 (no live key-equal candidate)."""
-    val, found, rsel, _wsel, _wkind = kops.shard_apply(
-        *_slab_views(state), keys, abs_base, state.cfg.n_probe)
+    """Read probe through the ``probe`` kernel: ``(found_tri, sel, val)``;
+    ``found_tri`` is 1 (hit), -1 (selected bucket failed its checksum;
+    lock-free mode only, the locking modes read without a checksum) or 0
+    (no live key-equal candidate)."""
+    val, found, rsel = kops.probe(
+        *_slab_views(state), keys, abs_base, state.cfg.n_probe,
+        validate_checksum=state.cfg.mode == MODE_LOCKFREE)
     return found, rsel, val
 
 
@@ -133,6 +143,20 @@ def _choose_write_slot(state: DHTState, abs_base, keys):
     _val, _found, _rsel, wsel, wkind = kops.shard_apply(
         *_slab_views(state), keys, abs_base, state.cfg.n_probe)
     return wsel, wkind
+
+
+def _conflict_rank(group, valid, n_groups: int | None = None):
+    """Rank of each valid item among items of the same conflict group,
+    stable in item order: the sort-based rank that also bins routing
+    destinations (``routing.stable_rank_by_group``)."""
+    return routing.stable_rank_by_group(group, valid, n_groups=n_groups)
+
+
+def _lock_token() -> int:
+    """One acquire/release round trip's worth of traffic: 1 on the
+    single-device backend (the reference exchanges a probe word per shard
+    on the sharded one)."""
+    return 1
 
 
 def _write_pass(state: DHTState, abs_base, keys, vals, active):
@@ -182,6 +206,43 @@ def _apply_writes(state: DHTState, abs_base, keys, vals, valid):
     return code, passes
 
 
+def _locked_write_rounds(state: DHTState, abs_base, keys, vals, valid):
+    """fine/coarse modes: serialize conflicting writes into rounds.  The
+    conflict group is the absolute window base (fine: one lock per
+    window) or the shard (coarse: one lock per shard); round ``r`` applies
+    each group's ``r``-th write.  Every shard runs its own count of
+    locked rounds, 2 lock tokens each, as under the reference's ``vmap``.
+    Returns ``(code, rounds, tokens)``: the most rounds any shard took and
+    the tokens summed over shards.  Reads the per-shard counts back to the
+    host once, and one flag per write pass."""
+    cfg = state.cfg
+    shard = abs_base // cfg.buckets_per_shard
+    if cfg.mode == MODE_FINE:
+        group, n_groups = abs_base, cfg.n_shards * cfg.buckets_per_shard
+    else:
+        group, n_groups = shard, cfg.n_shards
+    rank = _conflict_rank(group, valid, n_groups=n_groups)
+    per_shard = torch.zeros(cfg.n_shards, dtype=torch.int32,
+                            device=rank.device)
+    per_shard.scatter_reduce_(0, shard.long(), torch.where(valid, rank + 1, 0),
+                              "amax")
+    per_shard = per_shard.tolist()
+    code = torch.zeros_like(rank)
+    for r in range(max(per_shard)):
+        mask = valid & (rank == r)
+        wcode, _passes = _apply_writes(state, abs_base, keys, vals, mask)
+        code = torch.where(mask, wcode, code)
+    return code, max(per_shard), 2 * _lock_token() * sum(per_shard)
+
+
+def _shard_write(state: DHTState, abs_base, keys, vals, valid):
+    """The mode's write schedule: ``(code, rounds, tokens)``."""
+    if state.cfg.mode == MODE_LOCKFREE:
+        code, passes = _apply_writes(state, abs_base, keys, vals, valid)
+        return code, passes, 0
+    return _locked_write_rounds(state, abs_base, keys, vals, valid)
+
+
 def _validate_and_flag(state: DHTState, found_tri, slot, mask):
     """Lock-free mismatch policy (paper §4.2): a selected bucket whose
     checksum fails is flagged INVALID so writers may reclaim it.  Returns
@@ -194,14 +255,25 @@ def _validate_and_flag(state: DHTState, found_tri, slot, mask):
     return found, mismatch.sum().to(torch.int32)
 
 
-def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds):
+def _watermarks(state: DHTState) -> torch.Tensor:
+    """Every shard's meta watermark, (S,) int32 bit-view words."""
+    return to_i32(shard_watermark(state.meta))
+
+
+def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
+                 l1_meta: bool = False):
     """Apply every virtual shard's bins: probes see the round-start slab,
-    writes follow.  ``base`` etc. are (S, cap, ...) bins.  Returns
-    ``(val, found, code, n_mismatch, passes)`` shaped (S, cap, ...)."""
+    writes follow under the mode's schedule.  ``base`` etc. are (S, cap,
+    ...) bins.  Returns ``(val, found, code, n_mismatch, rounds, tokens,
+    gen, wpre, wpost)`` shaped (S, cap, ...).  With ``l1_meta`` the last
+    three are the coherence metadata: the round-start generation of each
+    item's selected bucket (``meta >> GEN_SHIFT``) and every shard's
+    watermark before and after the round's mutations, (S,); else None."""
     cfg = state.cfg
     s, cap = base.shape
     do_probe = ("read" in kinds) or ("migrate" in kinds)
     do_write = ("write" in kinds) or ("migrate" in kinds)
+    locked = cfg.mode != MODE_LOCKFREE
     shard = torch.arange(s, dtype=torch.int32, device=base.device)
     abs_base = (base + shard[:, None] * cfg.buckets_per_shard).reshape(-1)
     keys = keys.reshape(s * cap, -1).contiguous()
@@ -219,26 +291,44 @@ def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds):
         m_write = valid & (op == OP_WRITE)
 
     c = s * cap
+    wpre = _watermarks(state) if l1_meta else None
     val = torch.zeros((c, cfg.val_words), dtype=torch.int32,
                       device=base.device)
     found = torch.zeros(c, dtype=torch.bool, device=base.device)
+    gen = (torch.zeros(c, dtype=torch.int32, device=base.device) if l1_meta
+           else None)
     n_mm = torch.zeros((), dtype=torch.int32, device=base.device)
+    tokens = 0
     if do_probe:
         found_tri, sel, pval = _probe_window(state, abs_base, keys)
         slot = (abs_base + sel).to(torch.int64)
-        found, n_mm = _validate_and_flag(state, found_tri, slot, m_probe)
+        if l1_meta:       # the round-start snapshot, before any flagging
+            gen = to_i32(u32(state.flat_meta[slot]) >> GEN_SHIFT)
+        if locked:
+            found = m_probe & (found_tri == 1)
+            tokens = 2 * _lock_token() * s          # shared-lock round trips
+        else:
+            found, n_mm = _validate_and_flag(state, found_tri, slot, m_probe)
         val = torch.where(found[:, None], pval, 0)
 
     code = torch.zeros(c, dtype=torch.int32, device=base.device)
-    passes = 0
+    rounds = 0
     if do_write:
         wmask = m_write | (m_migrate & ~found)
         wvals = vals.reshape(c, -1).contiguous()
-        wcode, passes = _apply_writes(state, abs_base, keys, wvals, wmask)
+        wcode, rounds, tok_w = _shard_write(state, abs_base, keys, wvals,
+                                            wmask)
+        tokens += tok_w
         code = torch.where(wmask, wcode,
                            torch.where(m_migrate & found, W_SKIP, 0))
+    if l1_meta:
+        gen = gen.reshape(s, cap)
+        wpost = _watermarks(state)
+    else:
+        wpost = None
     return (val.reshape(s, cap, -1), found.reshape(s, cap),
-            code.to(torch.int32).reshape(s, cap), n_mm, passes)
+            code.to(torch.int32).reshape(s, cap), n_mm, rounds, tokens,
+            gen, wpre, wpost)
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +341,19 @@ def _owner_epoch(state: DHTState, h_hi):
     return owner_shard(h_hi, state.cfg.n_shards), 0
 
 
-def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None):
-    """Hash, place and bin the whole batch.  Returns ``(binned, base,
-    used_prologue)``."""
+def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
+               hashes=None, placement=None):
+    """Hash, place and bin the whole batch.  ``hashes`` takes a
+    precomputed ``(hi, lo)`` pair and ``placement`` a precomputed ``(dest,
+    epoch)``, so the L1 front end and the router share one ``hash64``
+    launch.  Returns ``(binned, base, used_prologue)``."""
     cfg = state.cfg
-    h = kops.hash64(ops.keys.contiguous())
-    dest, epoch = _owner_epoch(state, h[:, 0])
-    base = base_bucket(h[:, 1], cfg.buckets_per_shard, cfg.n_probe)
+    if hashes is None:
+        h = kops.hash64(ops.keys.contiguous())
+        hashes = (h[:, 0], h[:, 1])
+    dest, epoch = (_owner_epoch(state, hashes[0]) if placement is None
+                   else placement)
+    base = base_bucket(hashes[1], cfg.buckets_per_shard, cfg.n_probe)
     cap = capacity or cfg.capacity
     used_prologue = not cap
     if used_prologue:
@@ -268,13 +364,9 @@ def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None):
 
 
 def _check_supported(state: DHTState, kinds, **later) -> None:
-    cfg = state.cfg
-    if cfg.mode != MODE_LOCKFREE:
-        raise routing.not_ported(f"the {cfg.mode!r} locking schedule", "6")
-    if cfg.n_replicas > 1:
+    if state.cfg.n_replicas > 1:
         raise routing.not_ported("k-successor replication", "12")
-    items = {"prev": "11", "axis_name": "7", "hashes": "9",
-             "placement": "9", "l1_meta": "9", "elide_self": "9",
+    items = {"prev": "11", "axis_name": "7", "elide_self": "7",
              "pending": "10"}
     for name, value in later.items():
         if value not in (None, False):
@@ -289,13 +381,21 @@ def dht_execute(state: DHTState, ops: OpBatch, *,
                 l1_meta: bool = False, elide_self=None, pending=None):
     """Execute an op-tagged request batch in ONE routing round.
 
+    ``hashes`` / ``placement`` take a precomputed ``(hi, lo)`` hash pair
+    and ``(dest, epoch)``.  ``l1_meta=True`` piggybacks the locality
+    tier's coherence metadata on the reply lanes: ``estats`` gains
+    ``bucket_gen`` (per item, the round-start generation of its serving
+    bucket) and ``wmark_pre``/``wmark_post`` ((S,) shard watermarks
+    before and after the round), as int32 bit-views; 3 reply lanes, no
+    extra round.
+
     Returns the reference's tuple ``(state', prev', vals, found, code,
     estats)``; ``state'`` is ``state`` updated in place and ``prev'`` is
     None.  ``estats`` has the reference's keys; values derived from the
-    data are 0-d tensors on the state's device, static geometry is int."""
+    data are 0-d tensors on the state's device, static geometry and the
+    host-side counts (``rounds``, ``lock_tokens``) are int."""
     kinds = tuple(kinds)
     _check_supported(state, kinds, prev=prev, axis_name=axis_name,
-                     hashes=hashes, placement=placement, l1_meta=l1_meta,
                      elide_self=elide_self, pending=pending)
     cfg = state.cfg
     do_write = ("write" in kinds) or ("migrate" in kinds)
@@ -304,7 +404,8 @@ def dht_execute(state: DHTState, ops: OpBatch, *,
     if ops.op is None and len(kinds) != 1:
         raise ValueError("untagged batches must be uniform-kind")
 
-    binned, base, used_prologue = _route_ops(state, ops, capacity)
+    binned, base, used_prologue = _route_ops(state, ops, capacity, hashes,
+                                             placement)
     payloads = [base, ops.keys]
     if do_write:
         payloads.append(ops.vals.to(torch.int32))
@@ -318,25 +419,36 @@ def dht_execute(state: DHTState, ops: OpBatch, *,
     v_in = next(it) if do_write else None
     o_in = next(it) if ops.op is not None else None
     m_in = next(it).to(torch.bool)
-    val, found, code, n_mm, passes = _shard_apply(
-        state, b_in, k_in, v_in, o_in, m_in, kinds)
-    val_b, found_b, code_b = routing.collect(
-        binned, [val, found.to(torch.int32), code])
+    (val, found, code, n_mm, rounds, tokens,
+     gen, wpre, wpost) = _shard_apply(state, b_in, k_in, v_in, o_in, m_in,
+                                      kinds, l1_meta)
+    replies = [val, found.to(torch.int32), code]
+    if l1_meta:
+        # each shard's watermarks fill every row of its reply block, so
+        # row 0 of the block carries them (routing.collect block_rows)
+        shape = gen.shape
+        replies += [gen, wpre[:, None].expand(shape),
+                    wpost[:, None].expand(shape)]
+        items, blocks = routing.collect(binned, replies, block_rows=True)
+    else:
+        items = routing.collect(binned, replies)
+    val_b, found_b, code_b = items[:3]
 
     live = ops.valid & binned.kept
     found_out = (found_b > 0) & live
     code_out = torch.where(live, code_b, W_DROPPED)
     val_out = torch.where(found_out[:, None], val_b, 0)
     wire = routing.wire_stats(
-        binned, routing.lane_width(payloads), cfg.val_words + 2,
+        binned, routing.lane_width(payloads),
+        cfg.val_words + 2 + (3 if l1_meta else 0),
         prologue_words=2 * cfg.n_shards if used_prologue else 0)
     bcounts = routing.bin_counts(binned)
     btotal = torch.clamp(bcounts.sum(), min=1).to(torch.float32)
     bmax = bcounts.max().to(torch.float32)
     estats = {
         "mismatches": n_mm,
-        "rounds": passes,
-        "lock_tokens": 0,
+        "rounds": rounds,
+        "lock_tokens": tokens,
         "dropped": binned.n_dropped,
         "epoch": binned.epoch,
         "wire_words": wire["wire_words"],
@@ -352,6 +464,10 @@ def dht_execute(state: DHTState, ops: OpBatch, *,
         "hot_frac": bmax / btotal,
         "fallback_reads": 0,
     }
+    if l1_meta:
+        estats["bucket_gen"] = items[3]
+        estats["wmark_pre"] = blocks[4]
+        estats["wmark_post"] = blocks[5]
     obs_metrics.inc("engine.rounds")
     return state, None, val_out, found_out, code_out, estats
 

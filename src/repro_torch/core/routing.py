@@ -269,17 +269,24 @@ def dispatch(b: Binned, payloads: Sequence[torch.Tensor], axis_name=None,
 
 
 def collect(b: Binned, replies: Sequence[torch.Tensor], axis_name=None,
-            fills: Sequence = (0,), block_rows: bool = False
-            ) -> list[torch.Tensor]:
+            fills: Sequence = (0,), block_rows: bool = False):
     """Inverse of :func:`dispatch`: replies shaped (n_dest, capacity,
-    *tail) return to item order; overflowed items get ``fills``."""
+    *tail) return to item order; overflowed items get ``fills``.
+
+    ``block_rows=True`` also returns, per reply, row 0 of each shard's
+    block of the reply buffer, an (n_dest, *tail) tensor: a handler that
+    writes a shard-wide word (its slab watermark) into every row of its
+    block, padding included, hands it to every caller this way with no
+    extra exchange (the L1 coherence piggyback).  Returns ``(items,
+    blocks)`` then."""
     if axis_name is not None:
         raise not_ported("the multi-rank backend (axis_name)", "7")
-    if block_rows:
-        raise not_ported("block_rows (the L1 coherence piggyback)", "9")
     obs_metrics.inc("routing.collects")
     mat, specs, fill_row = _encode(replies, 2, fills)
-    return _decode(_gather_from_bins(b, mat, fill_row), specs)
+    items = _decode(_gather_from_bins(b, mat, fill_row), specs)
+    if not block_rows:
+        return items
+    return items, _decode(mat[::b.capacity], specs)
 
 
 def flatten_fanout(keys: torch.Tensor, valid: torch.Tensor | None = None

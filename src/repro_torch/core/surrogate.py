@@ -77,6 +77,18 @@ def lookup(cfg: SurrogateConfig, state: DHTState, inputs: torch.Tensor):
     return state, unpack_floats(val_words, cfg.n_outputs), found, stats
 
 
+def lookup_cached(cfg: SurrogateConfig, state: DHTState, l1, inputs, *,
+                  axis_name=None):
+    """:func:`lookup` through the locality tier: POET's grid cells
+    re-query near-identical chemistry, so the rounded keys repeat and the
+    L1 cache (``core/l1cache.py``) serves the hot ones without a routing
+    round.  Returns ``(state', l1', outputs, found, stats)``, the outputs
+    bit for bit :func:`lookup`'s; ``l1`` is updated in place."""
+    state, l1, val_words, found, stats = dht_ops.dht_read_cached(
+        state, l1, make_keys(cfg, inputs), axis_name=axis_name)
+    return state, l1, unpack_floats(val_words, cfg.n_outputs), found, stats
+
+
 def store(cfg: SurrogateConfig, state: DHTState, inputs: torch.Tensor,
           outputs: torch.Tensor, valid=None):
     keys = make_keys(cfg, inputs)

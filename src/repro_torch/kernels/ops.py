@@ -14,6 +14,8 @@ from . import (
     build,
     checksum_kernel,
     hash_kernel,
+    l1_kernel,
+    probe_kernel,
     ref,
     round_kernel,
     route_kernel,
@@ -62,6 +64,21 @@ def shard_apply(slab_keys, slab_vals, slab_meta, slab_csum, qkeys, base,
     if _on_cuda(*args):
         return apply_kernel.shard_apply(*args, n_probe)
     return ref.shard_apply(*args, n_probe)
+
+
+def probe(slab_keys, slab_vals, slab_meta, slab_csum, qkeys, base,
+          n_probe: int, validate_checksum: bool = True):
+    args = (slab_keys, slab_vals, slab_meta, slab_csum, qkeys, base)
+    if _on_cuda(*args):
+        return probe_kernel.probe(*args, n_probe, validate_checksum)
+    return ref.probe(*args, n_probe, validate_checksum)
+
+
+def l1_probe(l1_keys, l1_vals, flags, qkeys, set_idx):
+    args = (l1_keys, l1_vals, flags, qkeys, set_idx)
+    if _on_cuda(*args):
+        return l1_kernel.l1_probe(*args)
+    return ref.l1_probe(*args)
 
 
 def checksum(keys, vals):

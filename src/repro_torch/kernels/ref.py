@@ -68,17 +68,66 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.int32), dim=-1).to(torch.int32)
 
 
+def _window(slab_keys: torch.Tensor, slab_meta: torch.Tensor,
+            qkeys: torch.Tensor, base: torch.Tensor, n_probe: int):
+    """Each query's candidate indices ``base .. base + n_probe - 1``
+    (clamped into the slab) with their occupied, INVALID and key-equal
+    masks, all (C, P)."""
+    nb = slab_meta.shape[0]
+    off = torch.arange(n_probe, dtype=torch.int64, device=base.device)
+    idx = (base.long()[:, None] + off[None, :]).clamp(0, nb - 1)
+    meta = slab_meta[idx]
+    occupied = (meta & OCCUPIED) != 0
+    invalid = (meta & INVALID) != 0
+    keys_eq = (slab_keys[idx] == qkeys[:, None, :]).all(dim=-1)
+    return idx, occupied, invalid, keys_eq
+
+
+def _read_lane(slab_vals, slab_csum, qkeys, idx, occupied, invalid, keys_eq,
+               validate_checksum: bool):
+    """The engine's read: the first occupied, non-INVALID, key-equal
+    candidate is selected (``rsel``, 0 where none); with
+    ``validate_checksum`` only it is checksum-validated, with no
+    fall-through to a later candidate.  ``found`` is 1 (hit), -1
+    (selected but its checksum failed; never without validation) or 0
+    (no candidate); ``vals`` is the selected value where ``found == 1``,
+    else zeros."""
+    rmatch = keys_eq & occupied & ~invalid
+    has = rmatch.any(dim=-1)
+    rsel = _first_true(rmatch)
+    ridx = idx.gather(1, rsel.long()[:, None])[:, 0]
+    val = slab_vals[ridx]
+    if validate_checksum:
+        ok = murmur32_words(torch.cat([qkeys, val], dim=-1),
+                            CHECKSUM_SEED) == slab_csum[ridx]
+        found = torch.where(has, torch.where(ok, 1, -1), 0)
+    else:
+        found = has
+    found = found.to(torch.int32)
+    val = torch.where((found == 1)[:, None], val, torch.zeros_like(val))
+    return val, found, rsel
+
+
+def probe(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
+          slab_meta: torch.Tensor, slab_csum: torch.Tensor,
+          qkeys: torch.Tensor, base: torch.Tensor, n_probe: int,
+          validate_checksum: bool = True):
+    """The read probe over each query's window ``base .. base + n_probe -
+    1`` (indices clamped into the slab), with the read semantics of
+    :func:`_read_lane`.  Returns ``(vals (C, VW), found (C,), rsel (C,))``,
+    all int32."""
+    idx, occupied, invalid, keys_eq = _window(slab_keys, slab_meta, qkeys,
+                                              base, n_probe)
+    return _read_lane(slab_vals, slab_csum, qkeys, idx, occupied, invalid,
+                      keys_eq, validate_checksum)
+
+
 def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
                 slab_meta: torch.Tensor, slab_csum: torch.Tensor,
                 qkeys: torch.Tensor, base: torch.Tensor, n_probe: int):
-    """One pass over each query's window ``base .. base + n_probe - 1``
-    (indices clamped into the slab):
+    """One pass over each query's window (as :func:`probe`):
 
-    - read lane: the first occupied, non-INVALID, key-equal candidate is
-      selected (``rsel``, 0 where none); only it is checksum-validated,
-      with no fall-through to a later candidate.  ``found`` is 1 (valid),
-      -1 (selected but its checksum failed) or 0 (no candidate); ``vals``
-      is the selected value where ``found == 1``, else zeros.
+    - read lane: :func:`probe` with checksum validation;
     - write lane (paper §3.1): same key (INVALID included) -> W_UPDATE at
       the first match; else the first empty or INVALID bucket -> W_INSERT;
       else the last candidate -> W_EVICT.
@@ -87,24 +136,10 @@ def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
     all int32."""
     from ..core.op_engine import W_EVICT, W_INSERT, W_UPDATE
 
-    nb = slab_meta.shape[0]
-    off = torch.arange(n_probe, dtype=torch.int64, device=base.device)
-    idx = (base.long()[:, None] + off[None, :]).clamp(0, nb - 1)   # (C, P)
-    meta = slab_meta[idx]
-    occupied = (meta & OCCUPIED) != 0
-    invalid = (meta & INVALID) != 0
-    keys_eq = (slab_keys[idx] == qkeys[:, None, :]).all(dim=-1)
-
-    rmatch = keys_eq & occupied & ~invalid
-    has = rmatch.any(dim=-1)
-    rsel = _first_true(rmatch)
-    ridx = idx.gather(1, rsel.long()[:, None])[:, 0]
-    val = slab_vals[ridx]
-    ok = murmur32_words(torch.cat([qkeys, val], dim=-1),
-                        CHECKSUM_SEED) == slab_csum[ridx]
-    found = torch.where(has, torch.where(ok, 1, -1), 0).to(torch.int32)
-    val = torch.where((found == 1)[:, None], val, torch.zeros_like(val))
-
+    idx, occupied, invalid, keys_eq = _window(slab_keys, slab_meta, qkeys,
+                                              base, n_probe)
+    val, found, rsel = _read_lane(slab_vals, slab_csum, qkeys, idx, occupied,
+                                  invalid, keys_eq, True)
     wmatch = keys_eq & occupied
     writable = ~occupied | invalid
     has_match = wmatch.any(dim=-1)
@@ -117,3 +152,18 @@ def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
         has_match, W_UPDATE, torch.where(has_empty, W_INSERT, W_EVICT),
     ).to(torch.int32)
     return val, found, rsel, wsel, wkind
+
+
+def l1_probe(l1_keys: torch.Tensor, l1_vals: torch.Tensor,
+             flags: torch.Tensor, qkeys: torch.Tensor,
+             set_idx: torch.Tensor):
+    """The L1 front end: for each query, the first way of its set
+    ``set_idx`` that is coherent (``flags`` nonzero, (sets, ways)) and
+    key-equal.  Returns ``(hit (n,) bool, vals (n, VW) int32)``, zeros
+    where nothing hit."""
+    s = set_idx.long()
+    ok = ((l1_keys[s] == qkeys[:, None, :]).all(dim=-1)
+          & (flags[s] != 0))                                  # (n, ways)
+    hit = ok.any(dim=-1)
+    val = l1_vals[s, _first_true(ok).long()]
+    return hit, torch.where(hit[:, None], val, torch.zeros_like(val))

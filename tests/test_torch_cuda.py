@@ -9,16 +9,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.convert import state_to_numpy
+from repro_torch.convert import l1_to_numpy, state_to_numpy
 from repro_torch.core import (
     PROV_INTERP,
     DHTConfig,
     InterpConfig,
+    L1Config,
     SurrogateConfig,
     dht_create,
     dht_execute,
     dht_read,
+    dht_read_cached,
     dht_write,
+    l1_create,
     lookup_interpolate_or_compute,
     migrate_ops,
     mixed_ops,
@@ -30,7 +33,9 @@ from repro_torch.kernels import (
     apply_kernel,
     checksum_kernel,
     hash_kernel,
+    l1_kernel,
     ops,
+    probe_kernel,
     ref,
     round_kernel,
     route_kernel,
@@ -92,6 +97,98 @@ def test_shard_apply_kernel_matches_plain(gen, n_probe):
     b = ref.shard_apply(*slab, q, base, n_probe)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("validate", [True, False])
+@pytest.mark.parametrize("n_probe", [1, 4, 6])
+def test_probe_kernel_matches_plain(gen, n_probe, validate):
+    """A roughened two-shard slab (INVALID, emptied and corrupted
+    buckets), random and edge windows (the last one at S*B - n_probe), a
+    window holding one key twice with its first copy corrupted."""
+    cfg = DHTConfig(n_shards=2, buckets_per_shard=256, n_probe=n_probe)
+    st = dht_create(cfg, device="cuda")
+    keys = _words(gen, 300, cfg.key_words)
+    st, _ = dht_write(st, keys, _words(gen, 300, cfg.val_words))
+    live = torch.nonzero(st.flat_meta[:-1] & 1)[:, 0]
+    st.flat_meta[live[0::7]] |= 2
+    st.flat_meta[live[3::11]] = 0
+    st.flat_csum[live[5::9]] ^= 1
+    st.flat_keys[9] = st.flat_keys[8]
+    st.flat_meta[8:10] = 1 | (1 << 8)
+    st.flat_csum[8] ^= 1
+    q = torch.cat([keys, _words(gen, 50, cfg.key_words), st.flat_keys[8:9]])
+    base = torch.randint(0, 2 * 256 - n_probe + 1, (q.shape[0],),
+                         generator=gen).to(torch.int32).cuda()
+    base[-2] = 2 * 256 - n_probe
+    base[-1] = 8
+    slab = (st.flat_keys[:-1], st.flat_vals[:-1], st.flat_meta[:-1],
+            st.flat_csum[:-1])
+    a = probe_kernel.probe(*slab, q, base, n_probe, validate)
+    b = ref.probe(*slab, q, base, n_probe, validate)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert int(a[1][-1]) == (-1 if validate else 1)
+
+
+@pytest.mark.parametrize("sets,ways,n", [(1024, 4, 65536), (5, 1, 40),
+                                         (16, 8, 300)])
+def test_l1_probe_kernel_matches_plain(gen, sets, ways, n):
+    lkeys = _words(gen, sets * ways, 20).reshape(sets, ways, 20)
+    lvals = _words(gen, sets * ways, 26).reshape(sets, ways, 26)
+    flags = torch.randint(0, 2, (sets, ways), generator=gen).bool().cuda()
+    set_idx = torch.randint(0, sets, (n,), generator=gen).to(
+        torch.int32).cuda()
+    way = torch.randint(0, ways, (n,), generator=gen).cuda()
+    q = lkeys[set_idx.long(), way].clone()
+    q[::2] = _words(gen, (n + 1) // 2, 20)
+    flags[set_idx[3].long(), way[3]] = True      # query 3 hits
+    if ways > 1:             # key in two ways, the first one incoherent
+        s = int(set_idx[1])
+        lkeys[s, 1] = lkeys[s, 0]
+        q[1] = lkeys[s, 0]
+        flags[s, 0], flags[s, 1] = False, True
+    for f in (flags, flags.to(torch.uint8)):
+        a = l1_kernel.l1_probe(lkeys, lvals, f, q, set_idx)
+        b = ref.l1_probe(lkeys, lvals, flags, q, set_idx)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert bool(a[0].any()) and not bool(a[0].all())
+
+
+def test_cached_read_on_card_matches_cpu(gen):
+    """A mixed write / cached-read stream on the card and on the CPU:
+    the same values, found flags, l1_hits and wire words per read, the
+    same slab and L1 words; both kernels of the tier launch."""
+    cfg = DHTConfig(n_shards=8, buckets_per_shard=512)
+    keys, vals = _words(gen, 256, 20, "cpu"), _words(gen, 256, 26, "cpu")
+    picks = [torch.randint(0, 256, (n,), generator=gen)
+             for n in (48, 128, 128) * 4]
+    out = {}
+    for device in ("cuda", "cpu"):
+        ops.reset_launches()
+        st = dht_create(cfg, device=device)
+        l1 = l1_create(L1Config(n_sets=128, n_ways=4), 8, device=device)
+        res = []
+        for i, p in enumerate(picks):
+            k = keys[p].to(device)
+            if i % 3 == 0:
+                st, _ = dht_write(st, k, (vals[p] + i).to(device))
+                continue
+            st, l1, v, f, s = dht_read_cached(st, l1, k)
+            res.append((v.cpu(), f.cpu(), int(s["l1_hits"]),
+                        int(s["wire_words"])))
+        out[device] = (state_to_numpy(st), l1_to_numpy(l1), res)
+        if device == "cuda":
+            n = ops.launches()
+            assert n["l1_probe"] == 8 and n["probe"] == 8
+    for i in (0, 1):
+        for name in out["cpu"][i]:
+            np.testing.assert_array_equal(out["cuda"][i][name],
+                                          out["cpu"][i][name], name)
+    for (av, af, ah, aw), (bv, bf, bh, bw) in zip(out["cuda"][2],
+                                                  out["cpu"][2]):
+        assert torch.equal(av, bv) and torch.equal(af, bf)
+        assert (ah, aw) == (bh, bw)
+    assert sum(r[2] for r in out["cpu"][2]) > 0
 
 
 @pytest.mark.parametrize("n,kw,vw", [(1, 20, 26), (7, 4, 1), (300, 33, 17),
@@ -200,10 +297,12 @@ def test_engine_on_card_matches_cpu(gen):
         if device == "cuda":
             n = ops.launches()
             engine = ("route_pack", "route_unpack", "hash64", "shard_apply",
-                      "checksum")
+                      "checksum", "probe")
             assert all(n[k] > 0 for k in engine)
-            # four rounds: one probe pass in read, mixed and migrate
-            assert n["checksum"] == n["shard_apply"] - 3
+            # four rounds: one probe pass in read, mixed and migrate;
+            # every write pass launches the slot choice and the checksum
+            assert n["probe"] == 3
+            assert n["checksum"] == n["shard_apply"]
     for name in out["cpu"][0]:
         np.testing.assert_array_equal(out["cuda"][0][name],
                                       out["cpu"][0][name], name)
@@ -228,3 +327,12 @@ def test_kernel_wrappers_reject_bad_inputs(gen):
         ops.checksum(_words(gen, 4, 20), _words(gen, 4, 26, "cpu"))
     with pytest.raises(ValueError):                      # not 2-d
         stencil_kernel.stencil_keys(torch.ones(4).cuda(), 3, 20)
+    keys = _words(gen, 8, 20)
+    with pytest.raises(ValueError):                      # base rows differ
+        probe_kernel.probe(keys, _words(gen, 8, 26), keys[:, 0].contiguous(),
+                           keys[:, 1].contiguous(), keys,
+                           torch.zeros(7, dtype=torch.int32).cuda(), 6)
+    with pytest.raises(ValueError):                      # int32 flags
+        l1_kernel.l1_probe(keys.reshape(2, 4, 20), _words(gen, 8, 26).reshape(
+            2, 4, 26), torch.ones((2, 4), dtype=torch.int32).cuda(), keys,
+            torch.zeros(8, dtype=torch.int32).cuda())

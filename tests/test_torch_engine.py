@@ -27,6 +27,7 @@ ESTATS = ("mismatches", "rounds", "lock_tokens", "dropped", "epoch",
           "wire_words", "wire_send_words", "wire_reply_words", "fill_frac",
           "dispatch_rounds", "n_shards", "capacity", "bin_counts",
           "bin_max_load", "bin_imbalance", "hot_frac", "fallback_reads")
+L1_META = ("bucket_gen", "wmark_pre", "wmark_post")
 
 
 def _words(rng, n, w):
@@ -66,7 +67,7 @@ def _assert_stats_equal(jes, tes, keys):
                                       a.view(np.uint8), k)
 
 
-def _execute_both(js, ts, kind, keys, vals=None, op=None):
+def _execute_both(js, ts, kind, keys, vals=None, op=None, l1_meta=False):
     kinds = (kind,) if op is None else ("read", "write")
     if op is not None:
         jops = J.mixed_ops(jnp.asarray(op), jnp.asarray(keys),
@@ -79,15 +80,18 @@ def _execute_both(js, ts, kind, keys, vals=None, op=None):
               "migrate": (J.migrate_ops, T.migrate_ops)}[kind]
         jops = mk[0](jnp.asarray(keys), jnp.asarray(vals))
         tops = mk[1](_t(keys), _t(vals))
-    js, _, jv, jf, jc, jes = J.dht_execute(js, jops, kinds=kinds)
+    js, _, jv, jf, jc, jes = J.dht_execute(js, jops, kinds=kinds,
+                                           l1_meta=l1_meta)
     with counting() as c:
-        ts, _, tv, tf, tc, tes = T.dht_execute(ts, tops, kinds=kinds)
+        ts, _, tv, tf, tc, tes = T.dht_execute(ts, tops, kinds=kinds,
+                                               l1_meta=l1_meta)
     assert c.delta == 1
     _assert_tables_equal(js, ts)
     np.testing.assert_array_equal(_np(tv), np.asarray(jv))
     np.testing.assert_array_equal(_np(tf), np.asarray(jf))
     np.testing.assert_array_equal(_np(tc), np.asarray(jc))
-    _assert_stats_equal(jes, tes, ESTATS)
+    _assert_stats_equal(jes, tes, ESTATS + (L1_META if l1_meta else ()))
+    assert set(tes) == set(jes)
     return js, ts, tes
 
 
@@ -181,15 +185,81 @@ def test_migrate_equals_read_then_write_if_absent():
     assert int((code_a == T.W_INSERT).sum()) == 32
 
 
-@pytest.mark.parametrize("what", ["fine", "prev", "axis_name", "l1_meta"])
+@pytest.mark.parametrize("mode", ["fine", "coarse"])
+def test_locked_modes_match_reference(mode):
+    """The fine and coarse locking schedules (the paper's other two
+    designs) against the JAX engine: write -> read -> corrupted read (no
+    checksum in these modes: still found, no mismatch) -> 95/5 mixed ->
+    migrate, with the same slab words, codes, ``rounds`` and
+    ``lock_tokens`` (summed over the virtual shards' own round counts)."""
+    rng = np.random.default_rng(21)
+    js, ts = _pair(dict(n_shards=4, buckets_per_shard=256, mode=mode))
+    keys, vals = _words(rng, 300, KW), _words(rng, 300, VW)
+    js, ts, es = _execute_both(js, ts, "write", keys, vals)
+    assert es["rounds"] > 1 and es["lock_tokens"] >= 2 * 4 * 1
+    js, ts, es = _execute_both(js, ts, "read", keys)
+    assert es["lock_tokens"] == 2 * 4 and es["rounds"] == 0
+    csum = np.array(js.csum)
+    csum[0, :64] ^= 1
+    js = JState(js.cfg, js.keys, js.vals, js.meta, jnp.asarray(csum))
+    ts.flat_csum[:64] ^= 1
+    js, ts, es = _execute_both(js, ts, "read", keys)
+    assert int(es["mismatches"]) == 0
+    op = (rng.random(300) < 0.05).astype(np.int32)
+    k2 = np.concatenate([keys[:150], _words(rng, 150, KW)])
+    v2 = _words(rng, 300, VW)
+    js, ts, _ = _execute_both(js, ts, "mixed", k2, v2, op=op)
+    js, ts, es = _execute_both(js, ts, "migrate", k2, v2)
+    assert es["rounds"] > 1
+
+
+def test_coarse_serializes_more_than_fine():
+    """The same write batch takes more locked rounds under the coarse
+    lock than under the fine one, and tokens follow the rounds."""
+    rng = np.random.default_rng(22)
+    keys, vals = _t(_words(rng, 200, KW)), _t(_words(rng, 200, VW))
+    out = {}
+    for mode in ("fine", "coarse"):
+        st = T.dht_create(T.DHTConfig(n_shards=4, buckets_per_shard=256,
+                                      mode=mode), device="cpu")
+        st, ws = T.dht_write(st, keys, vals)
+        out[mode] = (int(ws["rounds"]), int(ws["lock_tokens"]))
+    assert out["fine"][0] < out["coarse"][0]
+    # coarse: each shard takes as many rounds as it got writes
+    assert out["coarse"][1] == 2 * 200
+
+
+@pytest.mark.parametrize("mode", ["lockfree", "coarse"])
+def test_l1_meta_round_matches_reference(mode):
+    """``l1_meta=True`` on a mixed round: the serving buckets'
+    generations and every shard's watermark before and after the round
+    equal the JAX engine's, and the reply leg counts 3 more lanes."""
+    rng = np.random.default_rng(12)
+    js, ts = _pair(dict(n_shards=4, buckets_per_shard=256, mode=mode))
+    keys, vals = _words(rng, 300, KW), _words(rng, 300, VW)
+    js, ts, es = _execute_both(js, ts, "write", keys, vals, l1_meta=True)
+    assert (_np(es["wmark_post"]) != _np(es["wmark_pre"])).all()
+    op = (rng.random(300) < 0.1).astype(np.int32)
+    k2 = np.concatenate([keys[:200], _words(rng, 100, KW)])
+    v2 = _words(rng, 300, VW)
+    js, ts, es = _execute_both(js, ts, "mixed", k2, v2, op=op, l1_meta=True)
+    assert (_np(es["bucket_gen"]) > 0).any()
+    _, _, _, _, _, plain = T.dht_execute(
+        ts.clone(), T.read_ops(_t(keys)), kinds=("read",))
+    _, _, _, _, _, meta = T.dht_execute(
+        ts.clone(), T.read_ops(_t(keys)), kinds=("read",), l1_meta=True)
+    assert (meta["wire_reply_words"] - plain["wire_reply_words"]
+            == 3 * 4 * meta["capacity"])
+
+
+@pytest.mark.parametrize("what", ["elide_self", "prev", "axis_name",
+                                  "pending"])
 def test_later_slices_raise(what):
-    cfg = T.DHTConfig(n_shards=2, buckets_per_shard=64,
-                      mode="fine" if what == "fine" else "lockfree")
+    cfg = T.DHTConfig(n_shards=2, buckets_per_shard=64)
     st = T.dht_create(cfg, device="cpu")
     ops = T.read_ops(torch.zeros((4, KW), dtype=torch.int32))
-    extra = {} if what == "fine" else {what: True}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.dht_execute(st, ops, kinds=("read",), **extra)
+        T.dht_execute(st, ops, kinds=("read",), **{what: True})
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,8 @@ from repro.core.op_engine import _probe_window as j_probe_window
 from repro.kernels.apply_kernel import shard_apply_pallas
 from repro.kernels.checksum_kernel import checksum_pallas
 from repro.kernels.hash_kernel import hash64_pallas
+from repro.kernels.probe_kernel import probe_pallas
+from repro.kernels.ref import ref_probe
 from repro.kernels.round_kernel import round_sig_pallas
 from repro.kernels.route_kernel import route_pack_pallas, route_unpack_pallas
 from repro.kernels.stencil_kernel import stencil_keys_pallas
@@ -160,6 +162,76 @@ def test_shard_apply_checksum_reject_no_fallthrough():
     assert int(wkind[0]) == int(k_p[0]) == W_UPDATE
     np.testing.assert_array_equal(_u(val), np.asarray(v_p))
 
+
+
+@pytest.mark.parametrize("validate", [True, False])
+@pytest.mark.parametrize("n_probe,seed", [(6, 0), (6, 1), (1, 2), (4, 3)])
+def test_probe_matches_oracle_and_pallas(n_probe, seed, validate):
+    """The plain read probe against the JAX oracle ``ref_probe`` and the
+    Pallas kernel in interpret mode on a roughened slab (INVALID, emptied
+    and corrupted buckets, a window at B - n_probe; no key twice in a
+    window, so the Pallas kernel's fall-through never applies)."""
+    sk, sv, sm, sc, q, base = _apply_case(n_probe, seed)
+    j = [jnp.asarray(a) for a in (sk, sv, sm, sc, q, base)]
+    o_val, o_has, o_slot = ref_probe(*j, n_probe, validate_checksum=validate)
+    p_val, p_found = probe_pallas(*j, n_probe=n_probe,
+                                  validate_checksum=validate, interpret=True)
+    val, found, rsel = ops.probe(_t(sk), _t(sv), _t(sm), _t(sc), _t(q),
+                                 torch.from_numpy(base), n_probe,
+                                 validate_checksum=validate)
+    assert val.dtype == found.dtype == rsel.dtype == torch.int32
+    for v, f in ((o_val, o_has), (p_val, p_found)):
+        np.testing.assert_array_equal(_u(val), np.asarray(v))
+        np.testing.assert_array_equal(found.numpy() == 1, np.asarray(f))
+    slot = np.where(found.numpy() == 1, base + rsel.numpy(), -1)
+    np.testing.assert_array_equal(slot, np.asarray(o_slot))
+    # the read lane of the shard-apply kernel is the validated probe
+    ref_lane = ref.shard_apply(_t(sk), _t(sv), _t(sm), _t(sc), _t(q),
+                               torch.from_numpy(base), n_probe)[:3]
+    if validate:
+        for a, b in zip((val, found, rsel), ref_lane):
+            assert torch.equal(a, b)
+        assert (found == -1).any()
+    else:
+        assert not (found == -1).any()
+        assert int((found == 1).sum()) > int((ref_lane[1] == 1).sum())
+
+
+def test_probe_checksum_reject_no_fallthrough():
+    """The one documented difference from ``probe_pallas``: a window that
+    holds the key twice, its first copy with a failed checksum.  The port
+    (like the engine and ``ref_probe``) reports the selected candidate as
+    failed (found == -1, not found); the Pallas kernel falls through to
+    the second copy.  Without validation the first copy is served."""
+    from repro_torch.core.hashing import checksum32
+
+    rng = np.random.default_rng(5)
+    kw, vw, b, p = 20, 26, 16, 6
+    key = _words(rng, 1, kw)
+    sk = np.zeros((b, kw), np.uint32)
+    sv = _words(rng, b, vw)
+    sm = np.zeros(b, np.uint32)
+    sk[3] = sk[5] = key[0]
+    sm[3] = sm[5] = 1 | (1 << 8)
+    sm[2] = 1 | 2                                   # INVALID before them
+    sk[2] = key[0]
+    sc = _u(checksum32(_t(sk), _t(sv)))
+    sc[3] ^= 1
+    base = np.array([2], np.int32)
+    args = [jnp.asarray(a) for a in (sk, sv, sm, sc, key, base)]
+    p_val, p_found = probe_pallas(*args, n_probe=p, interpret=True)
+    o_val, o_has, _ = ref_probe(*args, p)
+    val, found, rsel = ops.probe(_t(sk), _t(sv), _t(sm), _t(sc), _t(key),
+                                 torch.from_numpy(base), p)
+    assert int(found[0]) == -1 and int(rsel[0]) == 1
+    assert not bool(o_has[0]) and not val.any()
+    assert bool(p_found[0])                                  # fell through
+    np.testing.assert_array_equal(np.asarray(p_val)[0], sv[5])
+    val, found, rsel = ops.probe(_t(sk), _t(sv), _t(sm), _t(sc), _t(key),
+                                 torch.from_numpy(base), p,
+                                 validate_checksum=False)
+    assert int(found[0]) == 1 and int(rsel[0]) == 1
+    np.testing.assert_array_equal(_u(val)[0], sv[3])
 
 
 @pytest.mark.parametrize("n", [1, 7, 300])
