@@ -1,5 +1,5 @@
-"""Carry a table or an L1 cache between the JAX package and the port as
-numpy arrays.
+"""Carry a table, an L1 cache or a language model's weights between the
+JAX package and the port as numpy arrays.
 
 The JAX package's ``DHTState`` and ``L1State`` hold uint32 arrays; the
 port holds int32 bit-views of the same words in flat buffers with a dump
@@ -17,6 +17,9 @@ import torch
 
 from .core.l1cache import L1Config, L1State
 from .core.layout import DHTConfig, DHTState, resolve_device
+from .models.config import ModelConfig
+from .models.model import LM, init_lm
+from .models.stack import find_period
 
 
 def cfg_from_dict(fields: dict, cls=DHTConfig):
@@ -106,3 +109,70 @@ def l1_to_numpy(l1: L1State) -> dict[str, np.ndarray]:
     for name in ("keys", "vals", "csum", "gen", "wmark", "shard_wmark"):
         out[name] = out[name].view(np.uint32)
     return out
+
+
+def _load(dst: torch.Tensor, arr) -> None:
+    a = np.asarray(arr, dtype=np.float32)
+    if tuple(a.shape) != tuple(dst.shape):
+        raise ValueError(f"weight of shape {a.shape} does not fit "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(a))
+
+
+def _load_dict(dst, tree: dict) -> None:
+    """Each entry of ``tree`` into the same name of ``dst`` (a norm's
+    ``scale``/``bias``)."""
+    if set(tree) != set(dst.keys()):
+        raise ValueError(f"entries {sorted(tree)} differ from "
+                         f"{sorted(dst.keys())}")
+    for name, arr in tree.items():
+        _load(dst[name], arr)
+
+
+def _take(tree, i: int):
+    """Period ``i`` of a tree of stacked ``(n_periods, ...)`` arrays."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
+                         device: str | torch.device | None = None) -> LM:
+    """The port's model holding the weights of ``repro.models.init_lm``'s
+    tree, given as numpy arrays (for example ``jax.tree.map(np.asarray,
+    params)``): ``embed.table``, ``final_norm``, and the stack's ``scan``
+    params stacked ``(n_periods, ...)`` per period position (layer
+    ``i * p + j`` is period i, position j) followed by its ``tail`` list.
+    Matrices are stored in ``cfg.dtype``, norm scales and the embedding
+    table in float32."""
+    dev = resolve_device(device)
+    lm = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                 device=dev)
+    p, n_full, _tail = find_period(cfg.block_pattern)
+    stack = tree["stack"]
+    with torch.no_grad():
+        _load(lm.embed, tree["embed"]["table"])
+        _load_dict(lm.final_norm, tree["final_norm"])
+        for i, layer in enumerate(lm.stack.layers):
+            if i < n_full * p:
+                bt = _take(stack["scan"][f"b{i % p}"], i // p)
+            else:
+                bt = stack["tail"][i - n_full * p]
+            for name in ("ln1", "ln2", "pn1", "pn2"):
+                if name in bt:
+                    _load_dict(getattr(layer, name), bt[name])
+            at, attn = bt["attn"], layer.attn
+            for name in ("q", "k", "v"):
+                _load(getattr(attn, f"w{name}"), at[f"w{name}"]["w"])
+                if "b" in at[f"w{name}"]:
+                    _load(getattr(attn, f"b{name}"), at[f"w{name}"]["b"])
+            _load(attn.wo, at["wo"]["w"])
+            for name in ("q_norm", "k_norm"):
+                if name in at:
+                    _load_dict(getattr(attn, name), at[name])
+            if set(bt["mlp"]) != set(layer.mlp.keys()):
+                raise ValueError(f"layer {i}: mlp weights {sorted(bt['mlp'])}")
+            for name, w in bt["mlp"].items():
+                _load(layer.mlp[name], w["w"])
+    lm.refresh_head()
+    return lm

@@ -15,6 +15,7 @@ from . import (
     checksum_kernel,
     hash_kernel,
     l1_kernel,
+    local_attn_kernel,
     probe_kernel,
     ref,
     round_kernel,
@@ -102,3 +103,12 @@ def stencil_keys(x, sig_digits: int, key_words: int, radius: int = 1,
     if _on_cuda(x):
         return stencil_kernel.stencil_keys(x.contiguous(), *args)
     return ref.stencil_keys(x, *args)
+
+
+def local_attention(q, k, v, window: int):
+    """Causal sliding-window attention, q (B, S, H, D), k/v (B, S, Hk, D)
+    -> (B, S, H, D); a (BH, S, D) problem is the view ``x[:, :, None]``."""
+    if _on_cuda(q, k, v):
+        return local_attn_kernel.local_attention(q, k, v, window)
+    local_attn_kernel.check_inputs(q, k, v, window)
+    return ref.local_attention(q, k, v, window)

@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function here computes exactly what its CUDA kernel computes, on
-int32 bit-views of the words.  The CPU path runs them (``kernels/ops.py``
+int32 bit-views of the words (``local_attention``: the same float32
+function, summed in another order).  The CPU path runs them (``kernels/ops.py``
 picks them for CPU tensors only), the tests hold them against the JAX
 package's Pallas kernels, and ``chip_smoke.py`` holds each kernel against
 them on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -167,3 +170,23 @@ def l1_probe(l1_keys: torch.Tensor, l1_vals: torch.Tensor,
     hit = ok.any(dim=-1)
     val = l1_vals[s, _first_true(ok).long()]
     return hit, torch.where(hit[:, None], val, torch.zeros_like(val))
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int) -> torch.Tensor:
+    """Causal sliding-window attention: q (B, S, H, D), k/v (B, S, Hk, D)
+    -> (B, S, H, D) in q's type.  Query row i of head h attends over keys
+    j of KV head ``h // (H // Hk)`` with ``j <= i`` and ``i - j < window``:
+    the ``ref_local_attention`` formula (float32 scores, softmax and
+    product) on K/V repeated per query group."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) / math.sqrt(d)
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    valid = ((qp - kp) < window) & (kp <= qp)
+    scores = scores.masked_fill(~valid, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)

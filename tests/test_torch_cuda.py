@@ -34,6 +34,7 @@ from repro_torch.kernels import (
     checksum_kernel,
     hash_kernel,
     l1_kernel,
+    local_attn_kernel,
     ops,
     probe_kernel,
     ref,
@@ -336,3 +337,65 @@ def test_kernel_wrappers_reject_bad_inputs(gen):
         l1_kernel.l1_probe(keys.reshape(2, 4, 20), _words(gen, 8, 26).reshape(
             2, 4, 26), torch.ones((2, 4), dtype=torch.int32).cuda(), keys,
             torch.zeros(8, dtype=torch.int32).cuda())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,d,w", [
+    (1, 300, 4, 2, 256, 64),     # gemma3's head dim, ragged S
+    (2, 100, 2, 2, 16, 1024),    # window >= S
+    (1, 77, 2, 1, 64, 5),        # window below a tile
+    (1, 40, 2, 2, 128, 1),       # window 1
+    (3, 1, 2, 1, 32, 8),         # S = 1
+    (2, 64, 1, 1, 8, 16)])
+def test_local_attention_kernel_matches_plain(gen, dtype, b, s, h, hk, d, w):
+    q = torch.randn((b, s, h, d), generator=gen).to(dtype).cuda()
+    k = torch.randn((b, s, hk, d), generator=gen).to(dtype).cuda()
+    v = torch.randn((b, s, hk, d), generator=gen).to(dtype).cuda()
+    out = local_attn_kernel.local_attention(q, k, v, w)
+    plain = ref.local_attention(q, k, v, w)
+    assert out.dtype == dtype and out.shape == (b, s, h, d)
+    err = float((out.float() - plain.float()).abs().max())
+    assert err <= local_attn_kernel.tolerance(plain), err
+
+
+def test_local_attention_kernel_takes_strided_views(gen):
+    """Heads sliced out of a wider projection: no copy, same result."""
+    wide = torch.randn((2, 50, 6, 32), generator=gen).cuda()
+    q, k, v = wide[:, :, :4], wide[:, :, 4:5], wide[:, :, 5:6]
+    before = ops.launches()["local_attention"]
+    out = ops.local_attention(q, k, v, window=9)
+    assert ops.launches()["local_attention"] == before + 1
+    plain = ref.local_attention(q, k, v, 9)
+    assert float((out - plain).abs().max()) <= 1e-5
+    with pytest.raises(ValueError):                     # mixed devices
+        ops.local_attention(q, k.cpu(), v, window=9)
+    odd = torch.zeros((1, 8, 2, 48), device="cuda")
+    with pytest.raises(ValueError):                     # head dim 48
+        local_attn_kernel.local_attention(odd, odd, odd, 4)
+
+
+def test_lm_on_card_matches_cpu(gen):
+    """The reduced gemma3-12b on the card (local layers through the
+    kernel) against the same weights on the CPU (plain version): forward
+    logits and 24 decode steps at rtol 1e-4 (float32)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import decode_step, forward, init_cache, init_lm
+
+    cfg = reduced(get_config("gemma3-12b"))
+    lm_cpu = init_lm(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
+    lm_gpu = init_lm(cfg, generator=torch.Generator("cuda").manual_seed(5))
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    lm_gpu.refresh_head()
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    ops.reset_launches()
+    on_card = forward(lm_gpu, {"tokens": toks.cuda()})
+    n_local = sum(k == "attn_local" for k in cfg.block_pattern)
+    assert ops.launches()["local_attention"] == n_local
+    on_cpu = forward(lm_cpu, {"tokens": toks})
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-4)
+    cg = init_cache(cfg, 2, 32, torch.float32)
+    cc = init_cache(cfg, 2, 32, torch.float32, device="cpu")
+    for t in range(24):
+        a, cg = decode_step(lm_gpu, cg, toks[:, t:t + 1].cuda(), t)
+        b, cc = decode_step(lm_cpu, cc, toks[:, t:t + 1], t)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

@@ -57,3 +57,25 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         surrogate_create(SurrogateConfig(dht=cfg))
     assert dht_create(cfg, device="cpu").device.type == "cpu"
+
+
+def test_init_lm_defaults_to_cuda():
+    """``init_lm(cfg, generator=...)`` with no device asks for CUDA, and
+    so do the cache and the weight conversion."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import init_cache, init_lm
+
+    cfg = reduced(get_config("gemma3-12b"))
+    if torch.cuda.is_available():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        assert init_lm(cfg, generator=gen).embed.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_lm(cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_numpy(cfg, {})
+    lm = init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    assert lm.embed.device.type == "cpu"

@@ -18,8 +18,9 @@ from repro.core.op_engine import _probe_window as j_probe_window
 from repro.kernels.apply_kernel import shard_apply_pallas
 from repro.kernels.checksum_kernel import checksum_pallas
 from repro.kernels.hash_kernel import hash64_pallas
+from repro.kernels.local_attn_kernel import local_attention_pallas
 from repro.kernels.probe_kernel import probe_pallas
-from repro.kernels.ref import ref_probe
+from repro.kernels.ref import ref_local_attention, ref_probe
 from repro.kernels.round_kernel import round_sig_pallas
 from repro.kernels.route_kernel import route_pack_pallas, route_unpack_pallas
 from repro.kernels.stencil_kernel import stencil_keys_pallas
@@ -328,3 +329,77 @@ def test_library_name_covers_every_shared_header(tmp_path, monkeypatch):
         after = {name: build._lib_path(name) for name in build.LIBRARIES}
         assert all(after[n] != before[n] for n in before), header
         before = after
+
+
+def _attn_inputs(b, s, h, hk, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, d)).astype(np.float32),
+            rng.standard_normal((b, s, hk, d)).astype(np.float32),
+            rng.standard_normal((b, s, hk, d)).astype(np.float32))
+
+
+def _per_head(x, g):
+    """(B, S, Hx, D) -> (B * Hx * g, S, D), each head repeated g times:
+    the reference kernel's (BH, S, D) layout with K/V expanded."""
+    x = np.repeat(x, g, axis=2)
+    b, s, h, d = x.shape
+    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,w,bq,bk", [
+    # the four shapes of tests/test_kernels.py, one head per batch row
+    (2, 256, 1, 1, 32, 64, 64, 32), (1, 512, 1, 1, 16, 128, 128, 64),
+    (3, 128, 1, 1, 64, 128, 64, 64), (1, 128, 1, 1, 8, 32, 32, 32),
+    # grouped KV heads (G = 2), as gemma3's local layers
+    (2, 128, 4, 2, 16, 32, 32, 32)])
+def test_local_attention_matches_pallas(b, s, h, hk, d, w, bq, bk):
+    """The plain version (the CPU path of every local layer) against the
+    Pallas kernel in interpret mode and against ``ref_local_attention``,
+    at atol 2e-5 (float32 on both sides, sums in another order)."""
+    q, k, v = _attn_inputs(b, s, h, hk, d, seed=b * s + h)
+    g = h // hk
+    jq, jk, jv = _per_head(q, 1), _per_head(k, g), _per_head(v, g)
+    pallas = np.asarray(local_attention_pallas(jq, jk, jv, window=w, bq=bq,
+                                               bk=bk, interpret=True))
+    oracle = np.asarray(ref_local_attention(jq, jk, jv, window=w))
+    for out in (ref.local_attention(*map(torch.from_numpy, (q, k, v)), w),
+                ops.local_attention(*map(torch.from_numpy, (q, k, v)), window=w)):
+        assert out.shape == (b, s, h, d) and out.dtype == torch.float32
+        got = out.numpy().transpose(0, 2, 1, 3).reshape(b * h, s, d)
+        np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(got, oracle, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s,w,h,hk", [(45, 16, 2, 1), (40, 7, 2, 2),
+                                      (20, 64, 4, 2), (33, 1, 2, 1),
+                                      (1, 8, 2, 2)])
+def test_local_attention_edge_shapes_match_oracle(s, w, h, hk):
+    """Shapes the Pallas kernel refuses (ragged S, window below a tile,
+    window >= S, window 1, S = 1), through the (BH, S, D) view of the
+    oracle's layout where G = 1."""
+    q, k, v = _attn_inputs(2, s, h, hk, 16, seed=s * 7 + w)
+    g = h // hk
+    oracle = np.asarray(ref_local_attention(_per_head(q, 1), _per_head(k, g),
+                                            _per_head(v, g), window=w))
+    out = ops.local_attention(*map(torch.from_numpy, (q, k, v)), window=w)
+    got = out.numpy().transpose(0, 2, 1, 3).reshape(2 * h, s, 16)
+    np.testing.assert_allclose(got, oracle, atol=2e-5, rtol=2e-5)
+    if g == 1:   # the oracle's own layout as a strided (BH, S, 1, D) view
+        flat = [torch.from_numpy(x.transpose(0, 2, 1, 3).reshape(2 * h, s, 16))
+                for x in (q, k, v)]
+        view = ops.local_attention(*(x[:, :, None] for x in flat), window=w)
+        np.testing.assert_allclose(view[:, :, 0].numpy(), oracle, atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_local_attention_rejects_bad_inputs():
+    q = torch.zeros(1, 8, 4, 16)
+    kv = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.local_attention(q, kv, kv, window=4)
+    with pytest.raises(ValueError, match="window"):
+        ops.local_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match="type"):
+        ops.local_attention(q, q.double(), q, window=4)
+    with pytest.raises(ValueError, match="B, S or D"):
+        ops.local_attention(q, q[:, :4], q[:, :4], window=4)
