@@ -4,7 +4,9 @@ Counterpart of ``repro/kernels/local_attn_kernel.py``
 (``local_attention_pallas``), generalised to grouped KV heads (query head
 h reads KV head ``h // (H // Hk)``), any S >= 1 and window >= 1, and any
 strides with the feature axis contiguous, so the model's (B, S, H, D)
-projections go in without a transposed copy.  CUDA tensors only:
+projections go in without a transposed copy (the kernel stages rows with
+16-byte copies, so a view whose rows are not 16-byte aligned is copied to
+a contiguous tensor first).  CUDA tensors only:
 ``kernels/ops.py`` routes CPU tensors to ``kernels/ref.local_attention``.
 """
 from __future__ import annotations
@@ -52,6 +54,17 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"local_attention: window {window} < 1")
 
 
+def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if every (b, s, h) row starts on a 16-byte boundary, else a
+    contiguous copy (whose rows do: D * element size is a multiple of 16
+    for every head dim and type the kernel takes)."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st * size % 16 == 0
+                                      for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S, Hk, D) on the card, float32 or bfloat16,
@@ -73,6 +86,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    q, k, v = (_rows_aligned(t) for t in (q, k, v))
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         build.launch("local_attention", "local_attn", "repro_local_attention",

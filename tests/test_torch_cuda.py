@@ -65,13 +65,26 @@ def test_hash64_kernel_matches_plain(gen, n, kw):
 
 
 @pytest.mark.parametrize("n,rows,width", [(1, 16, 1), (80, 64, 22),
-                                          (65536, 131072, 48)])
+                                          (65536, 131072, 48), (50, 77, 21),
+                                          (300, 513, 28), (9, 1001, 48),
+                                          (131072, 131072, 22)])
 def test_route_kernels_match_plain(gen, n, rows, width):
+    """Bit for bit, with fill rows (-1) and an index past n, which the
+    kernel clamps to the last row; route_pack also from a matrix one word
+    off its 16-byte alignment (the 4-byte path)."""
     mat = _words(gen, n, width)
     inv = torch.randint(-1, n, (rows,), generator=gen).to(torch.int32).cuda()
+    inv[:3] = -1
+    inv[-1] = n + 5
     fill = _words(gen, 1, width)[0]
+    clamped = inv.clamp(max=n - 1)
     assert torch.equal(route_kernel.route_pack(mat, inv, fill),
-                       ref.route_pack(mat, inv, fill))
+                       ref.route_pack(mat, clamped, fill))
+    flat = torch.empty(n * width + 1, dtype=torch.int32, device="cuda")
+    shifted = flat[1:].view(n, width)
+    shifted.copy_(mat)
+    assert torch.equal(route_kernel.route_pack(shifted, inv, fill),
+                       ref.route_pack(mat, clamped, fill))
     buf = _words(gen, rows, width)
     slot = torch.randint(0, rows, (n,), generator=gen).to(torch.int32).cuda()
     kept = torch.randint(0, 2, (n,), generator=gen).to(torch.int32).cuda()
@@ -346,7 +359,16 @@ def test_kernel_wrappers_reject_bad_inputs(gen):
     (1, 77, 2, 1, 64, 5),        # window below a tile
     (1, 40, 2, 2, 128, 1),       # window 1
     (3, 1, 2, 1, 32, 8),         # S = 1
-    (2, 64, 1, 1, 8, 16)])
+    (2, 64, 1, 1, 8, 16),
+    (1, 130, 2, 2, 128, 64),     # S past the 128- and 64-row query tiles
+    (1, 160, 2, 1, 64, 31),      # windows one below, at and one above
+    (1, 160, 2, 1, 64, 32),      # the key tile: 32 keys in float32,
+    (1, 160, 2, 1, 64, 33),      # 64 in bf16
+    (1, 200, 2, 1, 64, 63),
+    (1, 200, 2, 1, 64, 64),
+    (1, 200, 2, 1, 64, 65),
+    (2, 520, 4, 2, 256, 200),    # G = 2 at D = 256 over many key tiles
+    (1, 150, 2, 1, 8, 40)])      # D = 8, zero-padded to 64 in bf16
 def test_local_attention_kernel_matches_plain(gen, dtype, b, s, h, hk, d, w):
     q = torch.randn((b, s, h, d), generator=gen).to(dtype).cuda()
     k = torch.randn((b, s, hk, d), generator=gen).to(dtype).cuda()
@@ -366,6 +388,13 @@ def test_local_attention_kernel_takes_strided_views(gen):
     out = ops.local_attention(q, k, v, window=9)
     assert ops.launches()["local_attention"] == before + 1
     plain = ref.local_attention(q, k, v, 9)
+    assert float((out - plain).abs().max()) <= 1e-5
+    # rows one float off 16-byte alignment: copied, then the kernel
+    flat = torch.randn(1 + wide.numel(), generator=gen).cuda()[1:]
+    odd_q = flat.view(wide.shape)[:, :, :4]
+    out = ops.local_attention(odd_q, k, v, window=9)
+    assert ops.launches()["local_attention"] == before + 2
+    plain = ref.local_attention(odd_q, k, v, 9)
     assert float((out - plain).abs().max()) <= 1e-5
     with pytest.raises(ValueError):                     # mixed devices
         ops.local_attention(q, k.cpu(), v, window=9)

@@ -2,6 +2,8 @@
 CUDA kernel is held against on the card) against the JAX package's Pallas
 kernels in interpret mode, bit for bit.  Same seeded numpy inputs on both
 sides; words compared as uint32."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +26,7 @@ from repro.kernels.ref import ref_local_attention, ref_probe
 from repro.kernels.round_kernel import round_sig_pallas
 from repro.kernels.route_kernel import route_pack_pallas, route_unpack_pallas
 from repro.kernels.stencil_kernel import stencil_keys_pallas
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import local_attn_kernel, ops, ref
 
 
 def _words(rng, n, w):
@@ -403,3 +405,79 @@ def test_local_attention_rejects_bad_inputs():
         ops.local_attention(q, q.double(), q, window=4)
     with pytest.raises(ValueError, match="B, S or D"):
         ops.local_attention(q, q[:, :4], q[:, :4], window=4)
+
+
+BF16_BQ, BF16_BK = 128, 64     # csrc/local_attn.cu: kBfBQ, kBfBK
+
+
+def _emulate_bf16_kernel(q, k, v, window):
+    """The bf16 tensor-core kernel's arithmetic on the CPU: per 128-row
+    query tile, the band's keys in tiles of 64 with an online softmax;
+    q.k in float32 from the bf16 inputs, P split into bf16 hi + lo and
+    both products with V summed in float32; the end divides by
+    max(l, 1e-30) and rounds to bf16.  (The kernel's exp2 is the MUFU
+    approximation, ~2^-22 relative, far below the bf16 output's ulp.)"""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                          # (B, H, S, D)
+    kf, vf = (x.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+              for x in (k, v))
+    out = torch.empty((b, h, s, d))
+    for q0 in range(0, s, BF16_BQ):
+        rows = torch.arange(q0, min(s, q0 + BF16_BQ))
+        m = torch.full((b, h, len(rows)), -1e30)
+        l = torch.zeros((b, h, len(rows)))
+        acc = torch.zeros((b, h, len(rows), d))
+        k_hi = min(s, q0 + BF16_BQ)
+        for t0 in range(max(0, q0 - window + 1), k_hi, BF16_BK):
+            keys = torch.arange(t0, min(k_hi, t0 + BF16_BK))
+            sc = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) / math.sqrt(d)
+            valid = ((keys[None, :] <= rows[:, None])
+                     & (rows[:, None] - keys[None, :] < window))
+            sc = torch.where(valid, sc, torch.tensor(-1e30))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(valid, torch.exp(sc - m_new[..., None]),
+                            torch.tensor(0.0))
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            l = l * alpha + p.sum(dim=-1)
+            acc = (acc * alpha[..., None] + hi @ vf[:, :, keys]
+                   + lo @ vf[:, :, keys])
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _bf16_inputs(b, s, h, hk, d, seed):
+    return tuple(torch.from_numpy(x).to(torch.bfloat16)
+                 for x in _attn_inputs(b, s, h, hk, d, seed))
+
+
+@pytest.mark.parametrize("s,w,h,hk,pallas_blocks", [
+    (288, 64, 4, 2, (96, 32)),    # D = 256, G = 2, three query tiles
+    (300, 20, 4, 2, (100, 20)),   # window below the 64-key tile
+    (300, 1, 4, 2, None),         # window 1
+    (300, 65, 2, 1, None)])       # window one above the key tile
+def test_bf16_kernel_arithmetic_within_tolerance(s, w, h, hk, pallas_blocks):
+    """The bf16 kernel's tile-by-tile arithmetic (split P, float32 sums),
+    emulated on the CPU, against the plain version within the unchanged
+    ``local_attn_kernel.tolerance`` (one bf16 ulp at the output's scale),
+    and against ``local_attention_pallas`` in interpret mode where its
+    shape rules allow (S a multiple of bq, window of bk)."""
+    q, k, v = _bf16_inputs(1, s, h, hk, 256, seed=s + w)
+    got = _emulate_bf16_kernel(q, k, v, w)
+    plain = ref.local_attention(q, k, v, w)
+    tol = local_attn_kernel.tolerance(plain)
+    assert got.dtype == torch.bfloat16 and got.shape == plain.shape
+    assert float((got.float() - plain.float()).abs().max()) <= tol
+    if pallas_blocks is not None:
+        bq, bk = pallas_blocks
+        g = h // hk
+        jq, jk, jv = (_per_head(x.float().numpy(), r).astype(jnp.bfloat16)
+                      for x, r in ((q, 1), (k, g), (v, g)))
+        pallas = np.asarray(local_attention_pallas(
+            jq, jk, jv, window=w, bq=bq, bk=bk, interpret=True))
+        pallas = torch.from_numpy(pallas.astype(np.float32)).reshape(
+            1, h, s, 256).permute(0, 2, 1, 3)
+        assert float((got.float() - pallas).abs().max()) <= tol
