@@ -117,6 +117,7 @@ LM_SERVE_PROMPT = 256          # lm-serve prompt tokens, teacher-forced
 LM_SERVE_NEW = 32              # lm-serve greedy tokens
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
+HEAD_START_CYCLES = 400_000    # ~0.2 ms of card time before each timed call
 KERNEL_SOURCES = {
     "route_pack": ("src/repro_torch/kernels/csrc/route.cu",
                    "src/repro/kernels/route_kernel.py:51"),
@@ -250,18 +251,27 @@ def kernel_vs_plain(name, fn_kernel, fn_plain, args) -> float:
     return err
 
 
-def time_cold(fn, args, reps: int | None = None, warmup: int = 3) -> float:
+def time_cold(fn, args, reps: int | None = None, warmup: int = 3,
+              dirty: bool = True) -> float:
     """Median ms of one call, each launched into a cold L2 (a 256 MB
-    buffer is overwritten before it), timed with CUDA events."""
+    buffer is overwritten before it, or with ``dirty=False`` read, which
+    leaves no dirty lines to write back), timed with CUDA events.  A
+    ~0.2 ms spin on the card between the flush and the start event lets
+    the host enqueue the call before the card reaches it, so the
+    wrapper's host time is not counted."""
     import torch
 
     reps = TIMING_REPS if reps is None else reps
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    flush = torch.ones(64 << 20, dtype=torch.int32, device=DEVICE)
     for _ in range(warmup):
         fn(*args)
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if dirty:
+            flush.zero_()
+        else:
+            flush.sum()
+        torch.cuda._sleep(HEAD_START_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -481,11 +491,64 @@ def main_path_capture(cfg_big, gen):
     return st, wcap.calls, rcap.calls, lcap.calls
 
 
+def off_by_one_word(t):
+    """A contiguous copy of ``t`` whose first word sits 4 bytes past a
+    16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def window_slab(gen, nb, kw, vw, n_probe, c):
+    """A slab of ``nb`` rows drawn from six keys (so windows hold equal
+    keys, some equal in every word but the last), with empty, INVALID and
+    corrupted buckets, and ``c`` >= 5 queries whose first windows are fully
+    occupied by other keys, all empty, ending at the slab's last row, cut
+    by the clamp, and F6-shaped (the key INVALID, then failing its
+    checksum, then valid)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    pool = words(gen, 6, kw, "cpu")
+    sk = pool[torch.randint(0, 6, (nb,), generator=gen)]
+    sk[torch.rand(nb, generator=gen) < 0.15, -1] ^= 1
+    sv = words(gen, nb, vw, "cpu")
+    kinds = torch.tensor([0, 1, 3, 2, 1 | (3 << 8)], dtype=torch.int32)
+    sm = kinds[torch.multinomial(torch.tensor([0.25, 0.4, 0.15, 0.05, 0.15]),
+                                 nb, replacement=True, generator=gen)]
+    sk[:n_probe] = words(gen, n_probe, kw, "cpu")
+    sm[:n_probe] = 1
+    sm[nb // 2:nb // 2 + n_probe] = 0
+    f = nb // 4
+    sk[f:f + 3] = pool[0]
+    sm[f:f + 3] = torch.tensor([3, 1, 1], dtype=torch.int32)
+    good = ref.checksum(sk, sv)
+    sc = good ^ (torch.rand(nb, generator=gen) < 0.1).to(torch.int32)
+    sc[f + 1:f + 3] = good[f + 1:f + 3] ^ torch.tensor([1, 0],
+                                                       dtype=torch.int32)
+    q = pool[torch.randint(0, 6, (c,), generator=gen)]
+    q[::5] = words(gen, len(range(0, c, 5)), kw, "cpu")
+    q[4] = pool[0]
+    base = torch.randint(-2, nb - n_probe + 3, (c,), generator=gen).to(
+        torch.int32)
+    base[:5] = torch.tensor([0, nb // 2, nb - n_probe, -3, f])
+    return tuple(t.to(DEVICE) for t in (sk, sv, sm, sc, q, base))
+
+
 def edge_cases(gen):
     """Small inputs like the CPU tests': ragged N and widths, fill rows,
     kept == 0, and a roughened table (INVALID, empty, corrupted
     checksums, a window at B - n_probe, a corrupted bucket shadowing a
-    valid one)."""
+    valid one); shard_apply also on ``window_slab``s (full, empty, clamped
+    and F6 windows, widths off 4 and 2, C off the block size, 40
+    candidates, rows staged past 48 KB of shared memory, slabs one word off
+    16-byte alignment) and checksum on rows of 1 and 95 words, N off the
+    tile, row-strided slices from column 1 and misaligned contiguous rows
+    (the paths of the kernels' redesign)."""
     import torch
 
     from repro_torch.core import DHTConfig, dht_create, dht_write
@@ -499,6 +562,23 @@ def edge_cases(gen):
         cases["checksum"].append((words(gen, n, kw, DEVICE),
                                   words(gen, n, vw, DEVICE)))
         cases["checksum"].append((wide[:, :kw], wide[:, kw:kw + vw]))
+    for n, kw, vw in ((1, 1, 0), (7, 0, 1), (129, 20, 75), (300, 48, 47),
+                      (1000, 7, 5), (2 * N_KEYS + 5, 20, 26)):
+        keys, vals = words(gen, n, kw, DEVICE), words(gen, n, vw, DEVICE)
+        wide = torch.cat([words(gen, n, 1, DEVICE), keys, vals,
+                          words(gen, n, 2, DEVICE)], 1)
+        cases["checksum"] += [
+            (keys, vals), (wide[:, 1:1 + kw], wide[:, 1 + kw:1 + kw + vw]),
+            (off_by_one_word(keys), off_by_one_word(vals))]
+    for kw, vw, n_probe, c in ((20, 26, 6, 203), (7, 5, 4, 77),
+                               (23, 33, 6, 1000), (4, 1, 1, 33),
+                               (20, 26, 40, 5), (300, 200, 6, 100)):
+        sk, sv, sm, sc, q, base = window_slab(gen, 3 * n_probe + 40, kw, vw,
+                                              n_probe, c)
+        cases["shard_apply"] += [
+            (sk, sv, sm, sc, q, base, n_probe),
+            (off_by_one_word(sk), off_by_one_word(sv), sm, sc, q, base,
+             n_probe)]
     edges = torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
                           -float("inf"), float("nan"), 9.995, 0.0999, 1.0],
                          device=DEVICE)

@@ -1,6 +1,7 @@
 """Core of the port: slab layout, hashing, key rounding, routing, the
 one-round op-engine in its three modes, the DHT wrappers, the L1
-locality tier, the surrogate cache and its neighbourhood interpolation."""
+locality tier, the surrogate cache and its neighbourhood interpolation
+(with the stencil and key-rounding functions it is built from)."""
 from .dht import dht_read, dht_read_cached, dht_read_many, dht_write
 from .interp import PROV_EXACT, PROV_INTERP, PROV_MISS, InterpConfig
 from .l1cache import L1Config, L1State, l1_create, l1_flush
@@ -17,6 +18,15 @@ from .layout import (
     pack_floats,
     shard_watermark,
     unpack_floats,
+)
+from .neighbors import (
+    dedup_mask,
+    lattice_step,
+    n_stencil,
+    round_significant,
+    stencil_keys,
+    stencil_offsets,
+    stencil_points,
 )
 from .op_engine import (
     OP_MIGRATE,
@@ -47,14 +57,16 @@ from .surrogate import (
 )
 
 __all__ = [
-    "DHTConfig", "DHTState", "InterpConfig", "L1Config", "L1State",
-    "MODES", "MODE_COARSE", "MODE_FINE", "MODE_LOCKFREE", "OP_MIGRATE",
-    "OP_READ", "OP_WRITE", "OpBatch", "PROV_EXACT", "PROV_INTERP",
-    "PROV_MISS", "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT",
-    "W_SKIP", "W_UPDATE", "dht_create", "dht_execute", "dht_occupancy",
+    "DHTConfig", "DHTState", "InterpConfig", "L1Config", "L1State", "MODES",
+    "MODE_COARSE", "MODE_FINE", "MODE_LOCKFREE", "OP_MIGRATE", "OP_READ",
+    "OP_WRITE", "OpBatch", "PROV_EXACT", "PROV_INTERP", "PROV_MISS",
+    "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP",
+    "W_UPDATE", "dedup_mask", "dht_create", "dht_execute", "dht_occupancy",
     "dht_read", "dht_read_cached", "dht_read_many", "dht_write", "l1_create",
-    "l1_flush", "lookup", "lookup_cached", "lookup_interpolate_or_compute",
-    "lookup_or_compute", "lookup_or_interpolate", "make_keys", "migrate_ops",
-    "mixed_ops", "occupancy", "pack_floats", "read_ops", "shard_watermark",
+    "l1_flush", "lattice_step", "lookup", "lookup_cached",
+    "lookup_interpolate_or_compute", "lookup_or_compute",
+    "lookup_or_interpolate", "make_keys", "migrate_ops", "mixed_ops",
+    "n_stencil", "occupancy", "pack_floats", "read_ops", "round_significant",
+    "shard_watermark", "stencil_keys", "stencil_offsets", "stencil_points",
     "store", "surrogate_create", "unpack_floats", "write_ops",
 ]

@@ -2,15 +2,25 @@
 
 Counterpart of ``repro/kernels/apply_kernel.py`` (``shard_apply_pallas``).
 The kernel takes every virtual shard in one launch: the slab flattened to
-(S*B, .) and absolute window bases.  CUDA tensors only:
+(S*B, .) and absolute window bases.  A block stages its queries' key and
+value rows in shared memory, so a row may be at most :func:`max_width`
+words wide (1,812).  CUDA tensors only:
 ``kernels/ops.py`` routes CPU tensors to ``kernels/ref.shard_apply``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import build
 from .route_kernel import check_cuda, stream_of
+
+
+@functools.cache
+def max_width() -> int:
+    """The widest key + value row (words) the kernel stages."""
+    return build.load("apply").repro_shard_apply_max_width()
 
 
 def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
@@ -31,6 +41,9 @@ def shard_apply(slab_keys: torch.Tensor, slab_vals: torch.Tensor,
             or slab_csum.shape[0] != nb or qkeys.shape[1] != kw
             or base.shape[0] != c or nb == 0 or n_probe < 1):
         raise ValueError("shard_apply: inconsistent shapes")
+    if kw + vw > max_width():
+        raise ValueError(f"shard_apply: row width {kw + vw} above "
+                         f"{max_width()} (a block's shared memory)")
     vals = torch.empty((c, vw), dtype=torch.int32, device=qkeys.device)
     res = torch.empty((c, 4), dtype=torch.int32, device=qkeys.device)
     if c > 0:

@@ -43,6 +43,7 @@ LIBRARIES = {
     "apply": ("apply.cu", {
         "repro_shard_apply": (_P, _P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _P,
                               _P, _P),
+        "repro_shard_apply_max_width": (),
     }),
     "checksum": ("checksum.cu", {
         "repro_checksum": (_P, _L, _P, _L, _P, _L, _I, _I, _P),

@@ -6,10 +6,18 @@ CUDA tensors only: ``kernels/ops.py`` routes CPU tensors to
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
 from .route_kernel import stream_of
+
+
+@functools.cache
+def max_width() -> int:
+    """The widest key + value row (words) a block's tile holds."""
+    return build.load("checksum").repro_checksum_max_width()
 
 
 def _rows(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -38,10 +46,9 @@ def checksum(keys: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.int32, device=keys.device)
     if n == 0:
         return out
-    max_width = build.load("checksum").repro_checksum_max_width()
-    if not 1 <= kw + vw <= max_width:
+    if not 1 <= kw + vw <= max_width():
         raise ValueError(f"checksum: row width {kw + vw} outside "
-                         f"1..{max_width}")
+                         f"1..{max_width()}")
     with torch.cuda.device(keys.device):
         build.launch("checksum", "checksum", "repro_checksum",
                      keys.data_ptr(), keys.stride(0), vals.data_ptr(),

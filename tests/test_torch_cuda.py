@@ -113,6 +113,85 @@ def test_shard_apply_kernel_matches_plain(gen, n_probe):
         assert torch.equal(x, y)
 
 
+def _window_slab(gen, nb, kw, vw, n_probe, c):
+    """A slab of ``nb`` rows drawn from six keys (so windows hold equal
+    keys, some equal in every word but the last), with empty, INVALID and
+    corrupted buckets, and ``c`` >= 5 queries whose first windows are fully
+    occupied by other keys, all empty, ending at the slab's last row, cut
+    by the clamp, and the F6 window (the key INVALID, then failing its
+    checksum, then valid).  CPU tensors."""
+    pool = _words(gen, 6, kw, "cpu")
+    sk = pool[torch.randint(0, 6, (nb,), generator=gen)]
+    sk[torch.rand(nb, generator=gen) < 0.15, -1] ^= 1
+    sv = _words(gen, nb, vw, "cpu")
+    kinds = torch.tensor([0, 1, 3, 2, 1 | (3 << 8)], dtype=torch.int32)
+    sm = kinds[torch.multinomial(torch.tensor([0.25, 0.4, 0.15, 0.05, 0.15]),
+                                 nb, replacement=True, generator=gen)]
+    sk[:n_probe] = _words(gen, n_probe, kw, "cpu")
+    sm[:n_probe] = 1
+    sm[nb // 2:nb // 2 + n_probe] = 0
+    f = nb // 4
+    sk[f:f + 3] = pool[0]
+    sm[f:f + 3] = torch.tensor([3, 1, 1], dtype=torch.int32)
+    good = ref.checksum(sk, sv)
+    sc = good ^ (torch.rand(nb, generator=gen) < 0.1).to(torch.int32)
+    sc[f + 1:f + 3] = good[f + 1:f + 3] ^ torch.tensor([1, 0],
+                                                       dtype=torch.int32)
+    q = pool[torch.randint(0, 6, (c,), generator=gen)]
+    q[::5] = _words(gen, len(range(0, c, 5)), kw, "cpu")
+    q[4] = pool[0]
+    base = torch.randint(-2, nb - n_probe + 3, (c,), generator=gen).to(
+        torch.int32)
+    base[:5] = torch.tensor([0, nb // 2, nb - n_probe, -3, f])
+    return sk, sv, sm, sc, q, base
+
+
+def _off_by_one_word(t):
+    """A contiguous copy of ``t`` whose first word sits 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("kw,vw,n_probe,c", [
+    (20, 26, 6, 203),            # the engine's widths, C off the block size
+    (7, 5, 4, 77),               # widths not multiples of 4 (4-byte paths)
+    (23, 33, 6, 1000),
+    (4, 1, 1, 33),               # one candidate, one-chunk keys
+    (20, 26, 40, 5),             # two 32-candidate segments
+    (300, 200, 6, 100)])         # 64.5 KB of shared memory (opt-in)
+def test_shard_apply_kernel_edge_windows(gen, kw, vw, n_probe, c,
+                                         misaligned):
+    """Bit for bit against the plain version on windows that are full,
+    empty, clamped, at the slab's end, near-equal in the last key word and
+    F6-shaped; with ``misaligned`` the slab's keys and values start one
+    word off a 16-byte boundary (the kernel's 4-byte paths)."""
+    sk, sv, sm, sc, q, base = (t.cuda() for t in _window_slab(
+        gen, 3 * n_probe + 40, kw, vw, n_probe, c))
+    if misaligned:
+        sk, sv = _off_by_one_word(sk), _off_by_one_word(sv)
+    a = apply_kernel.shard_apply(sk, sv, sm, sc, q, base, n_probe)
+    b = ref.shard_apply(sk, sv, sm, sc, q, base, n_probe)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    found, wkind = b[1], b[4]
+    assert {-1, 0, 1} <= set(found.tolist()) or n_probe == 1
+    assert {1, 2, 3} <= set(wkind.tolist())
+
+
+def test_shard_apply_rejects_rows_wider_than_shared_memory(gen):
+    width = apply_kernel.max_width()
+    keys = _words(gen, 8, width - 25)
+    vals = _words(gen, 8, 26)
+    meta = torch.zeros(8, dtype=torch.int32, device="cuda")
+    base = torch.zeros(8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        apply_kernel.shard_apply(keys, vals, meta, meta, keys, base, 6)
+
+
 @pytest.mark.parametrize("validate", [True, False])
 @pytest.mark.parametrize("n_probe", [1, 4, 6])
 def test_probe_kernel_matches_plain(gen, n_probe, validate):
@@ -214,6 +293,25 @@ def test_checksum_kernel_matches_plain(gen, n, kw, vw):
     wide = torch.cat([keys, vals, _words(gen, n, 3)], dim=1)
     assert torch.equal(ops.checksum(wide[:, :kw], wide[:, kw:kw + vw]),
                        ref.checksum(keys, vals))
+
+
+@pytest.mark.parametrize("n,kw,vw", [
+    (1, 1, 0), (7, 0, 1),        # the narrowest rows
+    (129, 20, 75), (300, 48, 47),  # the widest (95 words), N off the tile
+    (1000, 7, 5),                # widths not multiples of 4 or 2
+    (131077, 20, 26)])           # the write pass's widths, a ragged tile
+def test_checksum_kernel_edge_views(gen, n, kw, vw):
+    """Bit for bit against the plain version on contiguous rows (the bulk
+    copies), a row-strided slice starting at column 1 (misaligned, ld !=
+    width) and contiguous rows one word off a 16-byte boundary."""
+    keys, vals = _words(gen, n, kw), _words(gen, n, vw)
+    want = ref.checksum(keys, vals)
+    assert torch.equal(checksum_kernel.checksum(keys, vals), want)
+    wide = torch.cat([_words(gen, n, 1), keys, vals, _words(gen, n, 2)], 1)
+    assert torch.equal(checksum_kernel.checksum(
+        wide[:, 1:1 + kw], wide[:, 1 + kw:1 + kw + vw]), want)
+    assert torch.equal(checksum_kernel.checksum(
+        _off_by_one_word(keys), _off_by_one_word(vals)), want)
 
 
 @pytest.mark.parametrize("sig", [1, 3, 4])

@@ -167,6 +167,149 @@ def test_shard_apply_checksum_reject_no_fallthrough():
 
 
 
+def _roughened_windows(rng, nb, kw, vw, n_probe, c):
+    """A slab of ``nb`` rows drawn from six keys (so windows hold equal
+    keys, some equal in every word but the last), with empty, INVALID and
+    corrupted buckets, and ``c`` queries whose windows cover the edge
+    cases: fully occupied by other keys, all empty, ending at the slab's
+    last row, cut by the clamp at both ends, and query 4's window holding
+    its key INVALID, then with a failing checksum, then valid (F6)."""
+    from repro_torch.core.hashing import checksum32
+
+    pool = _words(rng, 6, kw)
+    sk = pool[rng.integers(0, 6, nb)]
+    sk[rng.random(nb) < 0.15, -1] ^= 1                 # last word differs
+    sv = _words(rng, nb, vw)
+    sm = rng.choice(np.array([0, 1, 3, 2, 1 | (3 << 8)], np.uint32), nb,
+                    p=[0.25, 0.4, 0.15, 0.05, 0.15])
+    sk[:n_probe] = _words(rng, n_probe, kw)          # full of other keys
+    sm[:n_probe] = 1
+    sm[nb // 2:nb // 2 + n_probe] = 0                  # all empty
+    f = nb // 4                 # F6: INVALID copy, failing copy, good copy
+    sk[f:f + 3] = pool[0]
+    sm[f:f + 3] = [3, 1, 1]
+    good = _u(checksum32(_t(sk), _t(sv)))
+    sc = good ^ (rng.random(nb) < 0.1).astype(np.uint32)
+    sc[f + 1:f + 3] = good[f + 1:f + 3] ^ np.array([1, 0], np.uint32)
+    q = pool[rng.integers(0, 6, c)]
+    q[::5] = _words(rng, len(q[::5]), kw)
+    q[4] = pool[0]
+    base = rng.integers(-2, nb - n_probe + 3, c).astype(np.int32)
+    base[:5] = [0, nb // 2, nb - n_probe, -3, f]
+    return sk, sv, sm, sc, q, base
+
+
+def _ffs(x):
+    """__ffs(x) - 1 per element: the lowest set bit's index, -1 for 0."""
+    low = x & (~x + np.uint64(1))
+    return np.where(x == 0, -1,
+                    np.log2(np.maximum(low, 1).astype(np.float64))).astype(
+                        np.int64)
+
+
+def _emulate_apply_decision(sk, sm, q, base, n_probe, kvec, group=4):
+    """``csrc/apply.cu``'s decision, lane by lane: warps of 32 lanes, a
+    group of ``group`` lanes a query; per 32-candidate segment, ballot words
+    of the meta bits, each lane's flat key chunks ``lane + group * t``
+    (``kvec`` words each, stepped as the kernel steps them), the
+    shuffle-XOR OR of the not-equal bits, and __ffs picks.  Returns
+    ``(rsel, wmatch, wfree)`` per query, -1 where none."""
+    nb, kw = sk.shape
+    c = q.shape[0]
+    qpw, batch = 32 // group, 32 // group
+    lane32 = np.arange(32)
+    g, lane = lane32 // group, lane32 % group
+    qi = np.arange(-(-c // qpw))[:, None] * qpw + g[None, :]     # (warps, 32)
+    live = qi < c
+    qi = np.minimum(qi, c - 1)
+    b0 = np.where(live, base[qi].astype(np.int64), 0)
+    u64 = np.uint64
+    gshift = (g * group).astype(u64)
+    kwc = kw // kvec
+    rsel, wmatch, wfree = (np.full(qi.shape, -1) for _ in range(3))
+    for s0 in range(0, n_probe, 32):
+        nseg = min(32, n_probe - s0)
+        occ = np.zeros(qi.shape, u64)
+        inv = np.zeros(qi.shape, u64)
+        for u in range(32 // group):
+            j = lane + group * u
+            m = np.where(live & (j < nseg), sm[np.clip(b0 + s0 + j, 0, nb - 1)],
+                         0).astype(u64)
+            for bit, acc in ((1, occ), (2, inv)):
+                ballot = np.bitwise_or.reduce(
+                    ((m & u64(bit)) != 0).astype(u64) << lane32.astype(u64),
+                    axis=1)
+                acc |= ((ballot[:, None] >> gshift) & u64((1 << group) - 1)
+                        ) << u64(group * u)
+        neq = np.zeros(qi.shape, u64)
+        nch = nseg * kwc
+        for c0 in range(0, max(nch, 1), group * batch):
+            start = c0 + lane                                  # (32,)
+            j, w = start // max(kwc, 1), start % max(kwc, 1)
+            for i in range(batch):
+                ci = start + group * i
+                ok = ci < nch
+                jj = np.where(ok, j, 0)
+                need = ok[None, :] & (((occ >> jj.astype(u64)) & u64(1)) != 0)
+                rows = np.clip(b0 + s0 + jj, 0, nb - 1)
+                cols = (np.where(ok, w, 0) * kvec)[:, None] + np.arange(kvec)
+                differ = (sk[rows[..., None], cols[None, :, :]]
+                          != q[qi[..., None], cols[None, :, :]]).any(-1)
+                neq |= np.where(need & differ, u64(1) << jj.astype(u64), u64(0))
+                w = w + group
+                while (w >= kwc).any() and kwc:
+                    j = np.where(w >= kwc, j + 1, j)
+                    w = np.where(w >= kwc, w - kwc, w)
+        o = 1
+        while o < group:
+            neq |= neq[:, lane32 ^ o]
+            o <<= 1
+        win = u64((1 << nseg) - 1)
+        eq = occ & ~neq
+        hit, vacant = eq & ~inv, (~occ | inv) & win
+        for pick, mask in ((rsel, hit), (wmatch, eq), (wfree, vacant)):
+            f = _ffs(mask)
+            pick[:] = np.where((pick < 0) & (f >= 0), s0 + f, pick)
+    return tuple(x[:, ::group].reshape(-1)[:c] for x in (rsel, wmatch, wfree))
+
+
+@pytest.mark.parametrize("kw,vw,n_probe,kvec", [
+    (20, 26, 6, 4), (20, 26, 6, 1), (7, 5, 4, 1), (4, 2, 1, 4),
+    (20, 26, 40, 4), (23, 33, 6, 1)])
+def test_shard_apply_mask_decision_matches_plain(kw, vw, n_probe, kvec):
+    """The CUDA kernel's bit-mask decision (ballot words -> __ffs picks,
+    16-byte or 4-byte key chunks, 32-candidate segments), emulated on a
+    roughened slab with C not a multiple of a warp's queries, gives
+    ``ref.shard_apply``'s rsel, wsel, wkind, found and value rows."""
+    from repro_torch.core.hashing import checksum32
+    from repro_torch.core.op_engine import W_EVICT, W_INSERT, W_UPDATE
+
+    rng = np.random.default_rng(kw * 100 + n_probe + kvec)
+    nb, c = 3 * n_probe + 40, 203
+    sk, sv, sm, sc, q, base = _roughened_windows(rng, nb, kw, vw, n_probe, c)
+    rsel, wmatch, wfree = _emulate_apply_decision(sk, sm, q, base, n_probe,
+                                                  kvec)
+    idx = np.clip(base.astype(np.int64) + np.maximum(rsel, 0), 0, nb - 1)
+    ok = _u(checksum32(_t(q), _t(sv[idx]))) == sc[idx]
+    found = np.where(rsel < 0, 0, np.where(ok, 1, -1))
+    wsel = np.where(wmatch >= 0, wmatch,
+                    np.where(wfree >= 0, wfree, n_probe - 1))
+    wkind = np.where(wmatch >= 0, W_UPDATE,
+                     np.where(wfree >= 0, W_INSERT, W_EVICT))
+    vals = np.where((found == 1)[:, None], sv[idx], 0)
+    r_val, r_found, r_rsel, r_wsel, r_wkind = ref.shard_apply(
+        _t(sk), _t(sv), _t(sm), _t(sc), _t(q), torch.from_numpy(base),
+        n_probe)
+    np.testing.assert_array_equal(found, r_found.numpy())
+    np.testing.assert_array_equal(np.maximum(rsel, 0), r_rsel.numpy())
+    np.testing.assert_array_equal(wsel, r_wsel.numpy())
+    np.testing.assert_array_equal(wkind, r_wkind.numpy())
+    np.testing.assert_array_equal(vals, _u(r_val))
+    # every branch of the decision occurs
+    assert {-1, 0, 1} <= set(found.tolist())
+    assert {W_UPDATE, W_INSERT, W_EVICT} <= set(wkind.tolist())
+
+
 @pytest.mark.parametrize("validate", [True, False])
 @pytest.mark.parametrize("n_probe,seed", [(6, 0), (6, 1), (1, 2), (4, 3)])
 def test_probe_matches_oracle_and_pallas(n_probe, seed, validate):
