@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""The write pass's two kernels, shard_apply and checksum, built from
-several source trees and timed on the same inputs on one card, in turns.
+"""Kernels of a DHT round built from several source trees and timed on
+the same inputs on one card, in turns: by default the write pass's two,
+shard_apply and checksum; ``--kernels probe,route_unpack`` the read
+round's two.
 
     python benchmarks/torch_write_pass_ab.py --tree new=src/repro_torch/kernels/csrc \\
-        --tree old=DIR [--out FILE]
+        --tree old=DIR [--kernels shard_apply,checksum] [--misaligned] [--out FILE]
 
-Each DIR holds an ``apply.cu`` and a ``checksum.cu`` with the port's C
-interface and the headers they include.  Both are built with the port's
-nvcc flags (one nvcc per source, all at once).  The inputs are those of
+Each DIR holds the sources of the kernels asked for (``apply.cu``,
+``checksum.cu``, ``probe.cu``, ``route.cu``) with the port's C interface
+and the headers they include.  They are built with the port's nvcc flags
+(one nvcc per source, all at once).  The inputs are those of
 ``chip_smoke.py``'s timing phase: the full table (8 x 2^21 buckets of
-192 B) holding 2^16 written keys, and the arguments of a write round's
-first pass captured through the engine.  Every tree's outputs are held
-bit for bit against the plain versions (a tree that differs is reported
-and not timed); times are medians of cold-L2
-launches (``chip_smoke.time_cold``; ``--flush read`` clears the L2 by
-reading instead, so no dirty lines are written back during the launch),
-taken in the order t1..tn, tn..t1, beside the byte bound
-``chip_smoke.py`` computes and a yardstick: the time of one PyTorch call
-that moves part of the same bytes the same way (a streaming float32 sum
-of the checksum's input size; a gather of the value rows shard_apply selects).  Needs one NVIDIA GPU.
+192 B) holding 2^16 written keys, and the arguments captured through the
+engine of a write round's first pass (shard_apply, checksum) or of a read
+round (probe, route_unpack).  Every tree's outputs are held bit for bit
+against the plain versions (a tree that differs is reported and not
+timed); times are medians of cold-L2 launches (``chip_smoke.time_cold``;
+``--flush read`` clears the L2 by reading instead, so no dirty lines are
+written back during the launch), taken in the order t1..tn, tn..t1,
+beside the bound ``chip_smoke.py`` computes and a yardstick: the time of
+one PyTorch call that moves part of the same bytes the same way (a
+streaming float32 sum of the checksum's input size; a gather of the value
+rows shard_apply or probe selects; the route kernels' row gather
+``index_select`` by their index without the fill rows).  ``route_pack``
+(the read round's send leg) can be named too.  ``--misaligned`` hands
+shard_apply and probe a copy of the slab's keys and values one word off
+16-byte alignment, to time their 4-byte paths.  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -38,30 +46,50 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
 KERNELS = {"shard_apply": ("apply", "repro_shard_apply"),
-           "checksum": ("checksum", "repro_checksum")}
+           "checksum": ("checksum", "repro_checksum"),
+           "probe": ("probe", "repro_probe"),
+           "route_unpack": ("route", "repro_route_unpack"),
+           "route_pack": ("route", "repro_route_pack")}
 
 
-def build_tree(label: str, src_dir: Path) -> dict:
-    """``{kernel: ctypes function}`` of the tree in ``src_dir``."""
+def ptxas_summary(log: str) -> list:
+    """The registers and spill lines of an ``nvcc -Xptxas -v`` log, each
+    after the tail of its kernel's mangled name."""
+    out, current = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            current = m.group(1)
+        elif re.search(r"registers|spill", ln):
+            text = ln.split("ptxas info    : ")[-1].strip()
+            out.append(f"{current[-48:]}: {text}")
+    return out
+
+
+def build_tree(label: str, src_dir: Path, kernels: list) -> dict:
+    """``{kernel: ctypes function}`` of ``kernels`` from the tree in
+    ``src_dir``."""
     out = build.BUILD_DIR / "ab" / label
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for lib, fn in KERNELS.values():
+    for lib in {KERNELS[k][0] for k in kernels}:
         so = out / f"{lib}.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(src_dir),
                "-o", str(so), str(src_dir / build.LIBRARIES[lib][0])]
-        procs[lib] = (so, fn, subprocess.Popen(
+        procs[lib] = (so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for kernel, (lib, _fn) in KERNELS.items():
-        so, fn, p = procs[lib]
+    libs = {}
+    for lib, (so, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}/{lib}:\n{log}")
-        print(json.dumps({"tree": label, "lib": lib, "ptxas": [
-            ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-            if re.search(r"registers|spill|smem", ln)]}), flush=True)
-        f = getattr(ctypes.CDLL(str(so)), fn)
+        print(json.dumps({"tree": label, "lib": lib,
+                          "ptxas": ptxas_summary(log)}), flush=True)
+        libs[lib] = ctypes.CDLL(str(so))
+    fns = {}
+    for kernel in kernels:
+        lib, fn = KERNELS[kernel]
+        f = getattr(libs[lib], fn)
         f.argtypes = list(build.LIBRARIES[lib][1][fn])
         f.restype = ctypes.c_int
         fns[kernel] = f
@@ -96,16 +124,48 @@ def callers(fns: dict) -> dict:
         cs.check(err == 0, f"checksum launch failed: {err}")
         return out
 
-    return {"shard_apply": shard_apply, "checksum": checksum}
+    def probe(sk, sv, sm, sc, q, base, n_probe, validate):
+        c, vw = q.shape[0], sv.shape[1]
+        vals = torch.empty((c, vw), dtype=torch.int32, device=q.device)
+        res = torch.empty((c, 2), dtype=torch.int32, device=q.device)
+        err = fns["probe"](
+            sk.data_ptr(), sv.data_ptr(), sm.data_ptr(), sc.data_ptr(),
+            sk.shape[0], q.data_ptr(), base.data_ptr(), c, q.shape[1], vw,
+            n_probe, int(bool(validate)), vals.data_ptr(), res.data_ptr(),
+            stream())
+        cs.check(err == 0, f"probe launch failed: {err}")
+        return vals, res[:, 0], res[:, 1]
+
+    def route_unpack(buf, slot, kept, fill):
+        n, width = slot.shape[0], buf.shape[1]
+        out = torch.empty((n, width), dtype=torch.int32, device=buf.device)
+        err = fns["route_unpack"](
+            buf.data_ptr(), slot.data_ptr(), kept.data_ptr(), fill.data_ptr(),
+            out.data_ptr(), n, buf.shape[0], width, stream())
+        cs.check(err == 0, f"route_unpack launch failed: {err}")
+        return out
+
+    def route_pack(mat, inv, fill):
+        rows, width = inv.shape[0], mat.shape[1]
+        out = torch.empty((rows, width), dtype=torch.int32, device=mat.device)
+        err = fns["route_pack"](
+            mat.data_ptr(), inv.data_ptr(), fill.data_ptr(), out.data_ptr(),
+            mat.shape[0], rows, width, stream())
+        cs.check(err == 0, f"route_pack launch failed: {err}")
+        return out
+
+    return {"shard_apply": shard_apply, "checksum": checksum, "probe": probe,
+            "route_unpack": route_unpack, "route_pack": route_pack}
 
 
 def yardstick(kernel: str, a):
     """One PyTorch call that moves part of the kernel's bytes the same way,
     to read the kernel's time against: checksum, a sum over a buffer of
-    its input's size (a streaming read); shard_apply, the gather of the
-    value rows it selects (scattered rows of the slab).  The sum is taken
-    in float32, whose reduction streams at the card's rate (an int32 sum
-    accumulates in int64 and is slower)."""
+    its input's size (a streaming read); shard_apply and probe, the gather
+    of the value rows they select (scattered rows of the slab); the route
+    kernels, the row gather by their index without the fill rows.  The sum
+    is taken in float32, whose reduction streams at the card's rate (an
+    int32 sum accumulates in int64 and is slower)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -114,8 +174,13 @@ def yardstick(kernel: str, a):
         n = a[0].numel() + a[1].numel()
         buf = torch.ones(n, dtype=torch.float32, device=a[0].device)
         return f"sum of {n} float32 words", lambda b: b.sum(), (buf,)
-    sk, sv, sm, sc, q, base, n_probe = a
-    _v, found, rsel, _w, _k = ref.shard_apply(*a)
+    if kernel in ("route_unpack", "route_pack"):
+        src, idx = a[0], a[1].clamp(min=0).long()
+        return (f"index_select of {idx.numel()} rows of {src.shape[1]} "
+                "words", lambda b, i: torch.index_select(b, 0, i), (src, idx))
+    sk, sv, sm, sc, q, base = a[:6]
+    found, rsel = (ref.shard_apply(*a) if kernel == "shard_apply"
+                   else ref.probe(*a))[1:3]
     idx = (base.long() + rsel.long())[found != 0]
     return (f"index_select of {idx.numel()} value rows",
             lambda v, i: torch.index_select(v, 0, i), (sv, idx))
@@ -131,14 +196,24 @@ def main() -> int:
                     help="clear the L2 before each launch by writing a "
                          "256 MB buffer (chip_smoke.py's timing) or by "
                          "reading one")
+    ap.add_argument("--kernels", default="shard_apply,checksum",
+                    help="comma-separated, of " + ", ".join(KERNELS))
+    ap.add_argument("--misaligned", action="store_true",
+                    help="shard_apply and probe read a copy of the slab's "
+                         "keys and values one word off 16-byte alignment "
+                         "(their 4-byte paths)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
+    unknown = sorted(set(kernels) - set(KERNELS))
+    if unknown:
+        ap.error(f"unknown kernels {unknown}")
     if not torch.cuda.is_available():
         print("torch_write_pass_ab: no CUDA device", file=sys.stderr)
         return 1
     trees = dict(t.split("=", 1) for t in args.tree)
-    calls = {lbl: callers(build_tree(lbl, Path(d))) for lbl, d in
-             trees.items()}
+    calls = {lbl: callers(build_tree(lbl, Path(d), kernels))
+             for lbl, d in trees.items()}
 
     from repro_torch.core import DHTConfig
     from repro_torch.kernels import ref
@@ -147,10 +222,18 @@ def main() -> int:
                     buckets_per_shard=cs.BIG_BUCKETS, n_probe=6,
                     mode="lockfree")
     gen = torch.Generator().manual_seed(0)
-    _st, wcalls, _r, _l = cs.main_path_capture(cfg, gen)
-    inputs = {"shard_apply": wcalls["shard_apply"][0],
-              "checksum": wcalls["checksum"][0]}
-    plain = {"shard_apply": ref.shard_apply, "checksum": ref.checksum}
+    _st, wcalls, rcalls, _l = cs.main_path_capture(cfg, gen)
+    captured = {"shard_apply": wcalls, "checksum": wcalls, "probe": rcalls,
+                "route_unpack": rcalls, "route_pack": rcalls}
+    inputs = {k: captured[k][k][0] for k in kernels}
+    if args.misaligned:
+        for k in {"shard_apply", "probe"} & set(kernels):
+            a = inputs[k]
+            inputs[k] = (cs.off_by_one_word(a[0]), cs.off_by_one_word(a[1]),
+                         *a[2:])
+    plain = {"shard_apply": ref.shard_apply, "checksum": ref.checksum,
+             "probe": ref.probe, "route_unpack": ref.route_unpack,
+             "route_pack": ref.route_pack}
     wrong = {}
     for kernel, a in inputs.items():
         for lbl in trees:
@@ -167,11 +250,19 @@ def main() -> int:
         return cs.time_cold(fn, fargs, dirty=args.flush == "write")
 
     result = {"card": cs.nvidia_smi(), "order": order, "flush": args.flush,
+              "misaligned": args.misaligned,
               "differs_from_plain": sorted(wrong), "kernels": {}}
     for kernel, a in inputs.items():
         if kernel == "shard_apply":
             _v, found, rsel, _w, _k = ref.shard_apply(*a)
             nbytes, nops = cs.bound_shard_apply(*a, (found, rsel))
+        elif kernel == "probe":
+            _v, found, rsel = ref.probe(*a)
+            nbytes, nops = cs.bound_probe(*a, (found, rsel))
+        elif kernel == "route_unpack":
+            nbytes, nops = cs.bound_route_unpack(*a)
+        elif kernel == "route_pack":
+            nbytes, nops = cs.bound_route_pack(*a)
         else:
             nbytes, nops = cs.bound_checksum(*a)
         times = {lbl: [] for lbl in trees}

@@ -214,6 +214,17 @@ class Capture:
         return False
 
 
+class OutOfRange(tuple):
+    """Kernel arguments with source indices before the first or past the
+    last row, which the kernels clamp (their contract) and the plain
+    versions do not take: ``plain`` holds them clamped."""
+
+    def __new__(cls, args, plain):
+        self = super().__new__(cls, args)
+        self.plain = tuple(plain)
+        return self
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over the outputs' values; 0.0 only where every
     output is equal bit for bit (float outputs are compared by their
@@ -243,7 +254,7 @@ def kernel_vs_plain(name, fn_kernel, fn_plain, args) -> float:
 
     a = fn_kernel(*args)
     torch.cuda.synchronize()
-    b = fn_plain(*args)
+    b = fn_plain(*getattr(args, "plain", args))
     torch.cuda.synchronize()
     err = max_abs_err(a, b)
     check(err == 0.0, f"{name}: kernel differs from its plain version "
@@ -548,7 +559,10 @@ def edge_cases(gen):
     candidates, rows staged past 48 KB of shared memory, slabs one word off
     16-byte alignment) and checksum on rows of 1 and 95 words, N off the
     tile, row-strided slices from column 1 and misaligned contiguous rows
-    (the paths of the kernels' redesign)."""
+    (the paths of the kernels' redesign); probe on ``window_slab``s too
+    (one query, 40 candidates, rows past shared memory, misaligned slabs,
+    with and without validation) and route_unpack on odd widths, one word,
+    misaligned buffers, every item dropped and slots out of range."""
     import torch
 
     from repro_torch.core import DHTConfig, dht_create, dht_write
@@ -579,6 +593,18 @@ def edge_cases(gen):
             (sk, sv, sm, sc, q, base, n_probe),
             (off_by_one_word(sk), off_by_one_word(sv), sm, sc, q, base,
              n_probe)]
+    for kw, vw, n_probe, c in ((20, 26, 6, 203), (20, 26, 6, 1), (7, 5, 4, 77),
+                               (4, 1, 1, 33), (20, 26, 40, 203),
+                               (900, 1000, 6, 40)):
+        sk, sv, sm, sc, q, base = window_slab(gen, 3 * n_probe + 40, kw, vw,
+                                              n_probe, max(c, 5))
+        if c == 1:                      # one query: the F6 window
+            q, base = q[4:5], base[4:5]
+        for validate in (True, False):
+            cases["probe"] += [
+                (sk, sv, sm, sc, q, base, n_probe, validate),
+                (off_by_one_word(sk), off_by_one_word(sv), sm, sc, q, base,
+                 n_probe, validate)]
     edges = torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
                           -float("inf"), float("nan"), 9.995, 0.0999, 1.0],
                          device=DEVICE)
@@ -603,6 +629,24 @@ def edge_cases(gen):
         kept = torch.randint(0, 2, (n,), generator=gen).to(torch.int32).to(DEVICE)
         kept[0] = 0
         cases["route_unpack"].append((buf, slot, kept, fill))
+    for n, rows, width in ((37, 29, 3), (300, 513, 1), (101, 64, 131),
+                           (2 * N_KEYS, 4 * N_KEYS, 28)):
+        buf, fill = words(gen, rows, width, DEVICE), words(gen, 1, width,
+                                                          DEVICE)[0]
+        slot = torch.randint(0, rows, (n,), generator=gen).to(
+            torch.int32).to(DEVICE)
+        kept = torch.randint(0, 2, (n,), generator=gen).to(
+            torch.int32).to(DEVICE)
+        past = slot.clone()
+        past[::3] = rows + 2
+        past[1::7] = -1
+        cases["route_unpack"] += [
+            (buf, slot, kept, fill),
+            (off_by_one_word(buf), slot, kept, off_by_one_word(fill)),
+            (buf, slot, torch.zeros_like(kept), fill),          # all dropped
+            OutOfRange((buf, past, torch.ones_like(kept), fill),
+                       (buf, past.clamp(0, rows - 1), torch.ones_like(kept),
+                        fill))]
     for n_probe in (6, 1, 4):
         cfg = DHTConfig(n_shards=1, buckets_per_shard=128, n_probe=n_probe)
         st = dht_create(cfg, device=DEVICE)

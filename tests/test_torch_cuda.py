@@ -223,6 +223,72 @@ def test_probe_kernel_matches_plain(gen, n_probe, validate):
     assert int(a[1][-1]) == (-1 if validate else 1)
 
 
+@pytest.mark.parametrize("validate", [True, False])
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("kw,vw,n_probe,c", [
+    (20, 26, 6, 203),            # the engine's widths, C off the block size
+    (20, 26, 6, 1),              # one query: the F6 window
+    (7, 5, 4, 77),               # widths not multiples of 4 (4-byte paths)
+    (23, 33, 6, 1000),
+    (4, 1, 1, 33),               # one candidate, one-chunk keys
+    (20, 26, 40, 203),           # two 32-candidate segments, early stop
+    (900, 1000, 6, 40)])         # rows past shared memory (unstaged)
+def test_probe_kernel_edge_windows(gen, kw, vw, n_probe, c, misaligned,
+                                   validate):
+    """Bit for bit against the plain version on windows that are full,
+    empty, clamped at both ends, at the slab's end, near-equal in the last
+    key word and F6-shaped; with ``misaligned`` the slab's keys and values
+    start one word off a 16-byte boundary (the kernel's 4-byte paths)."""
+    sk, sv, sm, sc, q, base = (t.cuda() for t in _window_slab(
+        gen, 3 * n_probe + 40, kw, vw, n_probe, max(c, 5)))
+    if c == 1:
+        q, base = q[4:5], base[4:5]
+    if misaligned:
+        sk, sv = _off_by_one_word(sk), _off_by_one_word(sv)
+    a = probe_kernel.probe(sk, sv, sm, sc, q, base, n_probe, validate)
+    b = ref.probe(sk, sv, sm, sc, q, base, n_probe, validate)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert set(b[1].tolist()) <= ({-1, 0, 1} if validate else {0, 1})
+    if validate and c > 1 and n_probe > 1:
+        assert {-1, 0, 1} <= set(b[1].tolist())
+
+
+@pytest.mark.parametrize("case", ["odd", "one", "misaligned", "dropped",
+                                  "past_end"])
+@pytest.mark.parametrize("n,rows,width", [(37, 29, 3), (300, 513, 1),
+                                          (65536, 131072, 28),
+                                          (101, 64, 130)])
+def test_route_unpack_kernel_edges(gen, case, n, rows, width):
+    """Bit for bit against the plain version with an odd width, one word,
+    a reply buffer and fill row one word off their 16-byte alignment (the
+    8- and 4-byte paths), every item dropped, and slots before the first
+    and past the last row (the kernel clamps them)."""
+    if case == "odd":
+        width += 1 - width % 2
+    elif case == "one":
+        width = 1
+    buf = _words(gen, rows, width)
+    fill = _words(gen, 1, width)[0]
+    if case == "misaligned":
+        buf, fill = _off_by_one_word(buf), _off_by_one_word(fill)
+    slot = torch.randint(0, rows, (n,), generator=gen).to(torch.int32).cuda()
+    kept = torch.randint(0, 2, (n,), generator=gen).to(torch.int32).cuda()
+    if case == "dropped":
+        kept.zero_()
+    if case == "past_end":
+        kept.fill_(1)
+        slot[::3] = rows + torch.arange(0, n, 3, device="cuda",
+                                        dtype=torch.int32) % 5
+        slot[1::7] = -1 - torch.arange(1, n, 7, device="cuda",
+                                       dtype=torch.int32) % 3
+    out = route_kernel.route_unpack(buf, slot, kept, fill)
+    assert torch.equal(out, ref.route_unpack(buf, slot.clamp(0, rows - 1),
+                                             kept, fill))
+    if case == "dropped":
+        assert torch.equal(out, fill.expand(n, width))
+
+
 @pytest.mark.parametrize("sets,ways,n", [(1024, 4, 65536), (5, 1, 40),
                                          (16, 8, 300)])
 def test_l1_probe_kernel_matches_plain(gen, sets, ways, n):

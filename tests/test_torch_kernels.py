@@ -4,6 +4,7 @@ kernels in interpret mode, bit for bit.  Same seeded numpy inputs on both
 sides; words compared as uint32."""
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,6 +86,88 @@ def test_route_unpack_matches_pallas(n, rows, width):
     out = ops.route_unpack(_t(buf), torch.from_numpy(slot),
                            torch.from_numpy(kept), _t(fill))
     np.testing.assert_array_equal(_u(out), expect)
+
+
+def _emulate_route_rows(index, n_out, width, align, blocks=None,
+                        threads=256, rows_per_group=4):
+    """``csrc/route.cu``'s row-group mapping, lane by lane: the vector width
+    (16, 8 or 4 bytes, as ``width`` and the buffers' common alignment
+    ``align`` in bytes allow), groups of G lanes owning ``rows_per_group``
+    output rows each, lane u loading row u's index and the group sharing it
+    by a width-G shuffle, chunks c = lane, lane + G, ... of each row, and
+    the grid-stride loop over warps (``blocks`` of ``threads``; default the
+    launcher's grid).  ``index`` maps output rows to source rows (-1: fill).
+    Returns ``(vw, loads, writes, source)``: loads (n_out,) counts the
+    index loads of each row, writes (n_out, width) the stores to each word,
+    source holds the flat source word each one copied (-1 - w for fill
+    word w)."""
+    vw = next(v for v in (4, 2, 1) if width % v == 0 and align % (4 * v) == 0)
+    nv = width // vw
+    lg = 2
+    while (1 << lg) < nv and lg < 5:
+        lg += 1
+    n_groups = -(-n_out // rows_per_group)
+    if blocks is None:
+        blocks = min(-(-(n_groups << lg) // threads), 1 << 20)
+    warps, per_warp = blocks * (threads // 32), 32 >> lg
+    lane = np.arange(32)
+    gl = lane & ((1 << lg) - 1)
+    loads = np.zeros(n_out, np.int64)
+    writes = np.zeros((n_out, width), np.int64)
+    source = np.full((n_out, width), -(1 << 40), np.int64)
+    for warp in range(warps):
+        for wg in range(warp * per_warp, n_groups, warps * per_warp):
+            r0 = (wg + (lane >> lg)) * rows_per_group
+            own = (gl < rows_per_group) & (r0 + gl < n_out)
+            np.add.at(loads, (r0 + gl)[own], 1)
+            mine = np.where(own, index(np.where(own, r0 + gl, 0)), -1)
+            first = lane & ~((1 << lg) - 1)          # the group's lane 0
+            frm = [mine[first + u] for u in range(rows_per_group)]
+            for c in range(nv):
+                at = gl == c % (1 << lg)             # lanes on chunk c
+                for u in range(rows_per_group):
+                    for ln in np.nonzero(at & (r0 + u < n_out))[0]:
+                        row, cols = r0[ln] + u, np.arange(c * vw, c * vw + vw)
+                        writes[row, cols] += 1
+                        src = frm[u][ln]
+                        source[row, cols] = (src * width + cols if src >= 0
+                                             else -1 - cols)
+    return vw, loads, writes, source
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 22, 28, 48, 130])
+@pytest.mark.parametrize("align,grid", [(16, None), (4, None), (16, 1)])
+def test_route_unpack_row_groups_cover_once(width, align, grid):
+    """The row-group kernel that route_unpack shares with route_pack
+    writes every output word exactly once, with the widest vector the
+    width and alignment allow, and the words ``ref.route_unpack`` gives
+    (slot clamped into the buffer, fill where kept == 0); n is not a
+    multiple of a group's rows, and ``grid`` = 1 block of 64 threads
+    drives the grid-stride loop through several turns."""
+    rng = np.random.default_rng(width * 10 + align)
+    n, rows = 37, 29
+    buf = _words(rng, rows, width)
+    slot = rng.integers(-2, rows + 3, size=n).astype(np.int32)
+    kept = rng.integers(0, 2, size=n).astype(np.int32)
+    kept[:2] = 0
+    fill = _words(rng, 1, width)[0]
+
+    def index(r):
+        s = np.clip(slot[r], 0, rows - 1)
+        return np.where(kept[r] == 0, -1, s)
+
+    vw, loads, writes, source = _emulate_route_rows(
+        index, n, width, align, blocks=grid,
+        threads=256 if grid is None else 64)
+    assert vw == next(v for v in (4, 2, 1)
+                      if width % v == 0 and align >= 4 * v)
+    np.testing.assert_array_equal(loads, np.ones_like(loads))
+    np.testing.assert_array_equal(writes, np.ones_like(writes))
+    flat = np.concatenate([buf.reshape(-1), fill[::-1]])   # -1 - w -> fill[w]
+    out = flat[np.where(source >= 0, source, flat.size + source)]
+    expect = ref.route_unpack(_t(buf), torch.from_numpy(
+        np.clip(slot, 0, rows - 1)), torch.from_numpy(kept), _t(fill))
+    np.testing.assert_array_equal(out, _u(expect))
 
 
 def _apply_case(n_probe, seed):
@@ -207,13 +290,18 @@ def _ffs(x):
                         np.int64)
 
 
-def _emulate_apply_decision(sk, sm, q, base, n_probe, kvec, group=4):
-    """``csrc/apply.cu``'s decision, lane by lane: warps of 32 lanes, a
+def _emulate_window(sk, sm, q, base, n_probe, kvec, probe=False, group=4):
+    """The window steps of ``csrc/apply.cu`` (``probe=False``) and
+    ``csrc/probe.cu``, lane by lane: warps of 32 lanes, a
     group of ``group`` lanes a query; per 32-candidate segment, ballot words
     of the meta bits, each lane's flat key chunks ``lane + group * t``
-    (``kvec`` words each, stepped as the kernel steps them), the
-    shuffle-XOR OR of the not-equal bits, and __ffs picks.  Returns
-    ``(rsel, wmatch, wfree)`` per query, -1 where none."""
+    (``kvec`` words each, stepped as the kernel steps them) for the
+    candidates the kernel asks for (shard-apply: occupied; probe: live =
+    occupied & ~INVALID), the shuffle-XOR OR of the not-equal bits, and
+    __ffs picks.  The probe's groups stop asking after the segment with
+    their hit, and a warp leaves the loop when none asks (``__any_sync``).
+    Returns ``(rsel, wmatch, wfree)`` per query, -1 where none, and the
+    meta words (C, n_probe) and key words (C, n_probe) each query loaded."""
     nb, kw = sk.shape
     c = q.shape[0]
     qpw, batch = 32 // group, 32 // group
@@ -227,13 +315,20 @@ def _emulate_apply_decision(sk, sm, q, base, n_probe, kvec, group=4):
     gshift = (g * group).astype(u64)
     kwc = kw // kvec
     rsel, wmatch, wfree = (np.full(qi.shape, -1) for _ in range(3))
+    metas = np.zeros((c, n_probe), np.int64)
+    kwords = np.zeros((c, n_probe), np.int64)
     for s0 in range(0, n_probe, 32):
+        want = live & (rsel < 0) if probe else live
+        if not want.any():                      # every warp left the loop
+            break
         nseg = min(32, n_probe - s0)
         occ = np.zeros(qi.shape, u64)
         inv = np.zeros(qi.shape, u64)
         for u in range(32 // group):
             j = lane + group * u
-            m = np.where(live & (j < nseg), sm[np.clip(b0 + s0 + j, 0, nb - 1)],
+            ask = want & (j < nseg)
+            np.add.at(metas, (qi[ask], (s0 + j[None, :] + 0 * qi)[ask]), 1)
+            m = np.where(ask, sm[np.clip(b0 + s0 + j, 0, nb - 1)],
                          0).astype(u64)
             for bit, acc in ((1, occ), (2, inv)):
                 ballot = np.bitwise_or.reduce(
@@ -241,6 +336,7 @@ def _emulate_apply_decision(sk, sm, q, base, n_probe, kvec, group=4):
                     axis=1)
                 acc |= ((ballot[:, None] >> gshift) & u64((1 << group) - 1)
                         ) << u64(group * u)
+        need = occ & ~inv if probe else occ
         neq = np.zeros(qi.shape, u64)
         nch = nseg * kwc
         for c0 in range(0, max(nch, 1), group * batch):
@@ -250,12 +346,14 @@ def _emulate_apply_decision(sk, sm, q, base, n_probe, kvec, group=4):
                 ci = start + group * i
                 ok = ci < nch
                 jj = np.where(ok, j, 0)
-                need = ok[None, :] & (((occ >> jj.astype(u64)) & u64(1)) != 0)
+                load = ok[None, :] & (((need >> jj.astype(u64)) & u64(1)) != 0)
+                np.add.at(kwords, (qi[load], (s0 + jj[None, :] + 0 * qi)[load]),
+                          kvec)
                 rows = np.clip(b0 + s0 + jj, 0, nb - 1)
                 cols = (np.where(ok, w, 0) * kvec)[:, None] + np.arange(kvec)
                 differ = (sk[rows[..., None], cols[None, :, :]]
                           != q[qi[..., None], cols[None, :, :]]).any(-1)
-                neq |= np.where(need & differ, u64(1) << jj.astype(u64), u64(0))
+                neq |= np.where(load & differ, u64(1) << jj.astype(u64), u64(0))
                 w = w + group
                 while (w >= kwc).any() and kwc:
                     j = np.where(w >= kwc, j + 1, j)
@@ -270,7 +368,8 @@ def _emulate_apply_decision(sk, sm, q, base, n_probe, kvec, group=4):
         for pick, mask in ((rsel, hit), (wmatch, eq), (wfree, vacant)):
             f = _ffs(mask)
             pick[:] = np.where((pick < 0) & (f >= 0), s0 + f, pick)
-    return tuple(x[:, ::group].reshape(-1)[:c] for x in (rsel, wmatch, wfree))
+    picks = tuple(x[:, ::group].reshape(-1)[:c] for x in (rsel, wmatch, wfree))
+    return picks, metas, kwords
 
 
 @pytest.mark.parametrize("kw,vw,n_probe,kvec", [
@@ -287,8 +386,7 @@ def test_shard_apply_mask_decision_matches_plain(kw, vw, n_probe, kvec):
     rng = np.random.default_rng(kw * 100 + n_probe + kvec)
     nb, c = 3 * n_probe + 40, 203
     sk, sv, sm, sc, q, base = _roughened_windows(rng, nb, kw, vw, n_probe, c)
-    rsel, wmatch, wfree = _emulate_apply_decision(sk, sm, q, base, n_probe,
-                                                  kvec)
+    rsel, wmatch, wfree = _emulate_window(sk, sm, q, base, n_probe, kvec)[0]
     idx = np.clip(base.astype(np.int64) + np.maximum(rsel, 0), 0, nb - 1)
     ok = _u(checksum32(_t(q), _t(sv[idx]))) == sc[idx]
     found = np.where(rsel < 0, 0, np.where(ok, 1, -1))
@@ -308,6 +406,65 @@ def test_shard_apply_mask_decision_matches_plain(kw, vw, n_probe, kvec):
     # every branch of the decision occurs
     assert {-1, 0, 1} <= set(found.tolist())
     assert {W_UPDATE, W_INSERT, W_EVICT} <= set(wkind.tolist())
+
+
+@pytest.mark.parametrize("kw,vw,n_probe,kvec,validate", [
+    (20, 26, 6, 4, True), (20, 26, 40, 4, True), (20, 26, 1, 4, False),
+    (20, 26, 4, 1, False), (7, 5, 4, 1, True), (23, 33, 40, 1, False)])
+def test_probe_mask_decision_matches_plain(kw, vw, n_probe, kvec, validate):
+    """The read-probe kernel's decision (``csrc/probe.cu``: ballot words ->
+    live mask -> batched key chunks of the live candidates -> shuffle-OR ->
+    __ffs per 32-candidate segment, stopping after the segment with the
+    hit), emulated on a roughened slab (an INVALID copy of a key shadowing
+    a key-equal one, a failing checksum, windows cut by the clamp at both
+    ends, C not a multiple of a warp's queries), gives ``ref.probe``'s
+    found, rsel and value rows, and the JAX oracle ``ref_probe``'s on the
+    windows inside the slab.  Keys are loaded only for live candidates, and
+    nothing after the segment of a query's hit."""
+    from repro_torch.core.hashing import checksum32
+
+    rng = np.random.default_rng(kw * 100 + n_probe + kvec + validate)
+    nb, c = 3 * n_probe + 40, 203
+    sk, sv, sm, sc, q, base = _roughened_windows(rng, nb, kw, vw, n_probe, c)
+    (rsel, _wm, _wf), metas, kwords = _emulate_window(
+        sk, sm, q, base, n_probe, kvec, probe=True)
+    idx = np.clip(base.astype(np.int64) + np.maximum(rsel, 0), 0, nb - 1)
+    found = (rsel >= 0).astype(np.int64)
+    if validate:
+        ok = _u(checksum32(_t(q), _t(sv[idx]))) == sc[idx]
+        found = np.where(rsel < 0, 0, np.where(ok, 1, -1))
+    vals = np.where((found == 1)[:, None], sv[idx], 0)
+    r_val, r_found, r_rsel = ref.probe(
+        _t(sk), _t(sv), _t(sm), _t(sc), _t(q), torch.from_numpy(base),
+        n_probe, validate_checksum=validate)
+    np.testing.assert_array_equal(found, r_found.numpy())
+    np.testing.assert_array_equal(np.maximum(rsel, 0), r_rsel.numpy())
+    np.testing.assert_array_equal(vals, _u(r_val))
+    # the JAX package's oracle on the windows inside the slab (it wraps
+    # negative indices), jitted: one compile instead of one an operation
+    inside = (base >= 0) & (base + n_probe <= nb)
+    o_val, o_has, o_slot = jax.jit(ref_probe, static_argnums=(6, 7))(
+        *(jnp.asarray(a) for a in (sk, sv, sm, sc, q,
+                                   np.clip(base, 0, nb - n_probe))),
+        n_probe, validate)
+    np.testing.assert_array_equal(vals[inside], np.asarray(o_val)[inside])
+    np.testing.assert_array_equal((found == 1)[inside],
+                                  np.asarray(o_has)[inside])
+    np.testing.assert_array_equal(np.where(found == 1, base + rsel, -1)[inside],
+                                  np.asarray(o_slot)[inside])
+    # what the kernel loads: each candidate's meta word once up to the end
+    # of the hit's segment (the whole window without a hit), and the key of
+    # exactly the live ones among them
+    cand = np.clip(base[:, None].astype(np.int64) + np.arange(n_probe), 0,
+                   nb - 1)
+    lv = ((sm[cand] & 1) != 0) & ((sm[cand] & 2) == 0)
+    seg_end = np.where(rsel >= 0, (rsel // 32 + 1) * 32, n_probe)
+    scanned = np.arange(n_probe)[None, :] < seg_end[:, None]
+    np.testing.assert_array_equal(metas, scanned.astype(np.int64))
+    np.testing.assert_array_equal(kwords, np.where(scanned & lv, kw, 0))
+    if n_probe > 32:        # the stop skipped live candidates of segment 2
+        assert (lv & ~scanned).any()
+    assert set(found.tolist()) == ({-1, 0, 1} if validate else {0, 1})
 
 
 @pytest.mark.parametrize("validate", [True, False])
