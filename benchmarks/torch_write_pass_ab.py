@@ -2,31 +2,42 @@
 """Kernels of a DHT round built from several source trees and timed on
 the same inputs on one card, in turns: by default the write pass's two,
 shard_apply and checksum; ``--kernels probe,route_unpack`` the read
-round's two.
+round's two; ``--kernels hash64,stencil_keys`` the key front end.
 
     python benchmarks/torch_write_pass_ab.py --tree new=src/repro_torch/kernels/csrc \\
-        --tree old=DIR [--kernels shard_apply,checksum] [--misaligned] [--out FILE]
+        --tree old=DIR [--kernels shard_apply,checksum] [--misaligned] \\
+        [--trace] [--out FILE]
 
 Each DIR holds the sources of the kernels asked for (``apply.cu``,
-``checksum.cu``, ``probe.cu``, ``route.cu``) with the port's C interface
-and the headers they include.  They are built with the port's nvcc flags
-(one nvcc per source, all at once).  The inputs are those of
-``chip_smoke.py``'s timing phase: the full table (8 x 2^21 buckets of
-192 B) holding 2^16 written keys, and the arguments captured through the
-engine of a write round's first pass (shard_apply, checksum) or of a read
-round (probe, route_unpack).  Every tree's outputs are held bit for bit
-against the plain versions (a tree that differs is reported and not
-timed); times are medians of cold-L2 launches (``chip_smoke.time_cold``;
-``--flush read`` clears the L2 by reading instead, so no dirty lines are
-written back during the launch), taken in the order t1..tn, tn..t1,
-beside the bound ``chip_smoke.py`` computes and a yardstick: the time of
-one PyTorch call that moves part of the same bytes the same way (a
-streaming float32 sum of the checksum's input size; a gather of the value
-rows shard_apply or probe selects; the route kernels' row gather
-``index_select`` by their index without the fill rows).  ``route_pack``
-(the read round's send leg) can be named too.  ``--misaligned`` hands
-shard_apply and probe a copy of the slab's keys and values one word off
-16-byte alignment, to time their 4-byte paths.  Needs one NVIDIA GPU.
+``checksum.cu``, ``probe.cu``, ``route.cu``, ``hash.cu``, ``stencil.cu``)
+with the port's C interface and the headers they include; a
+``stencil.cu`` whose launcher still takes the (M, 2) enumeration table is
+called as its wrapper called it, with the table copied to the card on
+every call.  They are built with the port's nvcc flags (one nvcc per
+source, all at once).  The inputs are those of ``chip_smoke.py``'s timing
+phase: the full table (8 x 2^21 buckets of 192 B) holding 2^16 written
+keys, and the arguments captured through the engine of a write round's
+first pass (shard_apply, checksum), of a read round (probe, route_unpack,
+hash64) or of the interp phase's neighbourhood round on a second full
+table (stencil_keys: 2,978 centres, 22 entries of 20 words).  Every
+tree's outputs are held bit for bit against the plain versions (a tree
+that differs is reported and not timed); times are medians of cold-L2
+launches (``chip_smoke.time_cold``; ``--flush read`` clears the L2 by
+reading instead, so no dirty lines are written back during the launch),
+taken in the order t1..tn, tn..t1, beside the bound ``chip_smoke.py``
+computes and a yardstick: the time of one PyTorch call that moves part of
+the same bytes the same way (a streaming float32 sum of the checksum's or
+hash64's input size; a zero fill of stencil_keys' output size; a gather
+of the value rows shard_apply or probe selects; the route kernels' row
+gather ``index_select`` by their index without the fill rows).
+``route_pack`` (the read round's send leg) can be named too.
+``--misaligned`` hands shard_apply, probe and hash64 a copy of their key
+rows (and the slab's values) one word off 16-byte alignment, to time
+their 4-byte paths.  ``--trace`` also runs each tree's call of hash64 and
+stencil_keys through ``chip_smoke.trace_cold`` (the event interval beside
+the device activities, runtime calls, copies and syncs torch.profiler
+finds inside it) and profiles one neighbourhood round of the installed
+package (``chip_smoke.stencil_round_profile``).  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -49,7 +60,18 @@ KERNELS = {"shard_apply": ("apply", "repro_shard_apply"),
            "checksum": ("checksum", "repro_checksum"),
            "probe": ("probe", "repro_probe"),
            "route_unpack": ("route", "repro_route_unpack"),
-           "route_pack": ("route", "repro_route_pack")}
+           "route_pack": ("route", "repro_route_pack"),
+           "hash64": ("hash", "repro_hash64"),
+           "stencil_keys": ("stencil", "repro_stencil_keys")}
+# the older stencil launcher: (x, table, keys, base, n, d, m, kw, sig, span,
+# stream), the (M, 2) enumeration table copied by the wrapper on each call
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+STENCIL_TABLE_ARGS = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _P)
+
+
+def takes_table(src_dir: Path) -> bool:
+    """Whether the tree's stencil launcher takes the enumeration table."""
+    return "const void* offsets" in (src_dir / "stencil.cu").read_text()
 
 
 def ptxas_summary(log: str) -> list:
@@ -91,6 +113,9 @@ def build_tree(label: str, src_dir: Path, kernels: list) -> dict:
         lib, fn = KERNELS[kernel]
         f = getattr(libs[lib], fn)
         f.argtypes = list(build.LIBRARIES[lib][1][fn])
+        if kernel == "stencil_keys" and takes_table(src_dir):
+            f.argtypes = list(STENCIL_TABLE_ARGS)
+            f.takes_table = True
         f.restype = ctypes.c_int
         fns[kernel] = f
     return fns
@@ -99,6 +124,8 @@ def build_tree(label: str, src_dir: Path, kernels: list) -> dict:
 def callers(fns: dict) -> dict:
     """The wrappers' launch sequences around one tree's C functions."""
     import torch
+
+    from repro_torch.core.neighbors import n_stencil, stencil_offsets
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -154,8 +181,54 @@ def callers(fns: dict) -> dict:
         cs.check(err == 0, f"route_pack launch failed: {err}")
         return out
 
+    def hash64(keys):
+        n, kw = keys.shape
+        out = torch.empty((n, 2), dtype=torch.int32, device=keys.device)
+        err = fns["hash64"](keys.data_ptr(), out.data_ptr(), n, kw, stream())
+        cs.check(err == 0, f"hash64 launch failed: {err}")
+        return out
+
+    def stencil_keys(x, sig, kw, radius, coarse, n_buckets, n_probe):
+        n, d = x.shape
+        m = n_stencil(d, radius, coarse)
+        keys = torch.empty((n, m, kw), dtype=torch.int32, device=x.device)
+        base = torch.empty((n, m), dtype=torch.int32, device=x.device)
+        span = max(n_buckets - n_probe + 1, 1)
+        f = fns["stencil_keys"]
+        if getattr(f, "takes_table", False):
+            table = torch.tensor(stencil_offsets(d, radius, coarse),
+                                 dtype=torch.int32, device=x.device)
+            err = f(x.data_ptr(), table.data_ptr(), keys.data_ptr(),
+                    base.data_ptr(), n, d, m, kw, sig, span, stream())
+        else:
+            err = f(x.data_ptr(), keys.data_ptr(), base.data_ptr(), n, d,
+                    radius, int(coarse), kw, sig, span, stream())
+        cs.check(err == 0, f"stencil_keys launch failed: {err}")
+        return keys, base
+
     return {"shard_apply": shard_apply, "checksum": checksum, "probe": probe,
-            "route_unpack": route_unpack, "route_pack": route_pack}
+            "route_unpack": route_unpack, "route_pack": route_pack,
+            "hash64": hash64, "stencil_keys": stencil_keys}
+
+
+def interp_round(cfg):
+    """The interp phase's round (a): a second full table holding the 2n
+    points that bracket chip_smoke's 2,978 centres; returns the surrogate
+    pieces and the captured ``stencil_keys`` arguments."""
+    from repro_torch.core import (InterpConfig, SurrogateConfig,
+                                  lookup_or_interpolate, store,
+                                  surrogate_create)
+    from repro_torch.kernels import ops
+
+    scfg = SurrogateConfig(n_inputs=10, n_outputs=13, sig_digits=3, dht=cfg)
+    icfg = InterpConfig(radius=1, coarse_tier=True)
+    st = surrogate_create(scfg, device=cs.DEVICE)
+    centres, nbrs = cs._bracketed(scfg, cs.INTERP_CENTRES, cs.DEVICE,
+                                  seed=11)
+    st, _ = store(scfg, st, nbrs, cs.interp_fn(nbrs))
+    with cs.Capture(ops) as cap:
+        lookup_or_interpolate(scfg, st, centres, icfg)
+    return (scfg, st, centres, icfg), cap.calls["stencil_keys"][0]
 
 
 def yardstick(kernel: str, a):
@@ -170,10 +243,17 @@ def yardstick(kernel: str, a):
 
     from repro_torch.kernels import ref
 
-    if kernel == "checksum":
-        n = a[0].numel() + a[1].numel()
+    if kernel in ("checksum", "hash64"):
+        n = sum(x.numel() for x in a)
         buf = torch.ones(n, dtype=torch.float32, device=a[0].device)
         return f"sum of {n} float32 words", lambda b: b.sum(), (buf,)
+    if kernel == "stencil_keys":
+        n, d = a[0].shape
+        m = 1 + 2 * a[3] * d + int(a[4])
+        buf = torch.empty(n * m * (a[2] + 1), dtype=torch.int32,
+                          device=a[0].device)
+        return (f"zero fill of {buf.numel()} int32 words",
+                lambda b: b.zero_(), (buf,))
     if kernel in ("route_unpack", "route_pack"):
         src, idx = a[0], a[1].clamp(min=0).long()
         return (f"index_select of {idx.numel()} rows of {src.shape[1]} "
@@ -199,9 +279,12 @@ def main() -> int:
     ap.add_argument("--kernels", default="shard_apply,checksum",
                     help="comma-separated, of " + ", ".join(KERNELS))
     ap.add_argument("--misaligned", action="store_true",
-                    help="shard_apply and probe read a copy of the slab's "
-                         "keys and values one word off 16-byte alignment "
-                         "(their 4-byte paths)")
+                    help="shard_apply, probe and hash64 read a copy of "
+                         "their key rows (and the slab's values) one word "
+                         "off 16-byte alignment (their 4-byte paths)")
+    ap.add_argument("--trace", action="store_true",
+                    help="trace hash64's and stencil_keys' event intervals "
+                         "and one neighbourhood round with torch.profiler")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     kernels = args.kernels.split(",")
@@ -224,16 +307,22 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     _st, wcalls, rcalls, _l = cs.main_path_capture(cfg, gen)
     captured = {"shard_apply": wcalls, "checksum": wcalls, "probe": rcalls,
-                "route_unpack": rcalls, "route_pack": rcalls}
-    inputs = {k: captured[k][k][0] for k in kernels}
+                "route_unpack": rcalls, "route_pack": rcalls,
+                "hash64": rcalls}
+    inputs = {k: captured[k][k][0] for k in kernels if k in captured}
+    if "stencil_keys" in kernels:
+        surrogate, inputs["stencil_keys"] = interp_round(cfg)
     if args.misaligned:
         for k in {"shard_apply", "probe"} & set(kernels):
             a = inputs[k]
             inputs[k] = (cs.off_by_one_word(a[0]), cs.off_by_one_word(a[1]),
                          *a[2:])
+        if "hash64" in kernels:
+            inputs["hash64"] = (cs.off_by_one_word(inputs["hash64"][0]),)
     plain = {"shard_apply": ref.shard_apply, "checksum": ref.checksum,
              "probe": ref.probe, "route_unpack": ref.route_unpack,
-             "route_pack": ref.route_pack}
+             "route_pack": ref.route_pack, "hash64": ref.hash64,
+             "stencil_keys": ref.stencil_keys}
     wrong = {}
     for kernel, a in inputs.items():
         for lbl in trees:
@@ -263,6 +352,10 @@ def main() -> int:
             nbytes, nops = cs.bound_route_unpack(*a)
         elif kernel == "route_pack":
             nbytes, nops = cs.bound_route_pack(*a)
+        elif kernel == "hash64":
+            nbytes, nops = cs.bound_hash64(*a)
+        elif kernel == "stencil_keys":
+            nbytes, nops = cs.bound_stencil_keys(*a)
         else:
             nbytes, nops = cs.bound_checksum(*a)
         times = {lbl: [] for lbl in trees}
@@ -273,6 +366,12 @@ def main() -> int:
             "shapes": [list(x.shape) for x in a if hasattr(x, "shape")],
             "ms": times, "bound_ms": cs.bound_ms(nbytes, nops)[0],
             "yardstick": {"what": what, "ms": timer(fn, fargs)}}
+        if args.trace and kernel in ("hash64", "stencil_keys"):
+            result["kernels"][kernel]["trace"] = {
+                lbl: cs.trace_cold(calls[lbl][kernel], a) for lbl in trees}
+    if args.trace and "stencil_keys" in kernels:
+        result["stencil_round_profile"] = cs.stencil_round_profile(
+            *surrogate)
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:

@@ -14,9 +14,13 @@ and decode), checks the results, and times every kernel.  One JSON line per phas
 2. build   - nvcc for sm_90a, one process per source, with ptxas reports;
 3. kernels - every kernel against its plain version, bit for bit, on the
              inputs of a real full-size write and read round plus small
-             edge cases (the rounding and stencil kernels are also held
-             against their plain versions in phases 5 and 7, on the
-             inputs those paths give them);
+             edge cases (hash64 also at N = 2^16 and off the block, KW 1
+             to the wrapper's limit, rows one word off alignment;
+             stencil_keys at D 1/10/17, radius 0/1/3, coarse on and off,
+             KW 7/20/23/2D, n 1/64/2,978, span 1, sig 1/3/4, on 0, -0,
+             denormals, +-inf, nan and the F1 band; the rounding and
+             stencil kernels are also held against their plain versions
+             in phases 5 and 7, on the inputs those paths give them);
 4. dht     - S=8 x B=2^21 buckets of 192 B (3.2 GB): seeded 2^16-key
              write, read, 95/5 mixed and migrate rounds; dropped must be 0,
              every read must hit, the checksum kernel must launch once per
@@ -32,11 +36,14 @@ and decode), checks the results, and times every kernel.  One JSON line per phas
              table, 2,978 query centres whose +-1-step neighbours along
              dim 0 are stored, D = 10, radius 1 + coarse tier, so 65,516
              stencil probes in one round: every row must interpolate,
-             within 5% of the stored function; (b) the same construction
-             at B=2^16 on the card and on the CPU through both forms of
-             lookup_interpolate_or_compute: keys, found flags, provenance
-             and slab words equal, outputs at rtol 1e-5; (c) the POET twin
-             with --interp beside phase 6's plain run;
+             within 5% of the stored function, and one more round under
+             torch.profiler: its stencil_keys call must launch its kernel
+             with no host-to-device copy and no sync; (b) the same
+             construction at B=2^16 on the card and on the CPU through
+             both forms of lookup_interpolate_or_compute: keys, found
+             flags, provenance and slab words equal, outputs at rtol
+             1e-5; (c) the POET twin with --interp beside phase 6's
+             plain run;
 8. l1      - the locality tier: (a) l1-full: the full table holding 2^20
              keys, an L1 of 1024 sets x 4 ways, 8 Zipf(1.1) and 8 uniform
              batches of 2^16 reads, 2^12 keys rewritten after every second
@@ -69,7 +76,9 @@ and decode), checks the results, and times every kernel.  One JSON line per phas
 10. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
-             local-attention kernel beside its operation bound).
+             local-attention kernel beside its operation bound); hash64
+             and stencil_keys also traced (trace_cold): their own device
+             time beside the event interval.
 
 Then the ``kernels`` line (launch counts per phase; every kernel must
 launch in every phase whose path calls it), the card's name and power
@@ -291,6 +300,136 @@ def time_cold(fn, args, reps: int | None = None, warmup: int = 3,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_events(run):
+    """The events of ``run()`` under torch.profiler (CPU and CUDA
+    activities, CUPTI), the card synchronised before the profile ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return prof.events()
+
+
+def range_contents(events, label: str) -> list:
+    """What each host range named ``label`` (``record_function``) holds:
+    the device activities launched from inside it (kernels and copies:
+    calls and ms by name), the CUDA runtime calls made inside it, its host
+    ms, and the counts that matter for a kernel wrapper: host-to-device
+    copies, memcpy calls and synchronisations."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    gpu = [e for e in events if e.device_type != cpu]
+    out = []
+    for r in events:
+        if r.name != label or r.device_type != cpu:
+            continue
+        t0, t1 = r.time_range.start, r.time_range.end
+        device, runtime, launched = {}, {}, set()
+        for e in events:
+            if (e.device_type != cpu or e.time_range.start < t0
+                    or e.time_range.end > t1):
+                continue
+            if e is not r and e.name.startswith("cu"):
+                runtime[e.name] = runtime.get(e.name, 0) + 1
+                launched.add(e.id)
+        # a device activity shares its CUPTI correlation id with the
+        # runtime call that issued it (a kernel launched through ctypes
+        # has no PyTorch op to be attached to)
+        for e in gpu:
+            if e.id in launched:
+                calls, us = device.get(e.name, (0, 0.0))
+                device[e.name] = (calls + 1, us + e.time_range.end
+                                  - e.time_range.start)
+        out.append({
+            "host_ms": (t1 - t0) / 1e3,
+            "device": {n[:90]: {"calls": c, "ms": us / 1e3}
+                       for n, (c, us) in device.items()},
+            "device_ms": sum(us for _c, us in device.values()) / 1e3,
+            "runtime": runtime,
+            "htod_copies": sum(c for n, (c, _us) in device.items()
+                               if "HtoD" in n),
+            "memcpy_calls": sum(c for n, c in runtime.items()
+                                if n.startswith("cudaMemcpy")),
+            "syncs": sum(c for n, c in runtime.items()
+                         if "Synchronize" in n)})
+    return out
+
+
+def trace_cold(fn, args, reps: int = 5) -> dict:
+    """``time_cold``'s interval under torch.profiler: each launch's CUDA
+    event interval beside what the trace puts inside it (the device
+    activities, their ms, runtime calls, copies, syncs); ``gap_ms`` is
+    the interval less the device activities in it.  Medians over
+    ``reps``; the profiler's own host cost is inside these intervals,
+    so ``time_cold`` stays the kernel time that is reported."""
+    import torch
+    from torch.profiler import record_function
+
+    flush = torch.ones(64 << 20, dtype=torch.int32, device=DEVICE)
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    intervals = []
+
+    def run():
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(HEAD_START_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with record_function("timed_interval"):
+                start.record()
+                fn(*args)
+                end.record()
+            end.synchronize()
+            intervals.append(start.elapsed_time(end))
+
+    ranges = range_contents(profiled_events(run), "timed_interval")
+    names = sorted({n for r in ranges for n in r["device"]})
+    med = statistics.median
+    device_ms = med(r["device_ms"] for r in ranges) if ranges else None
+    return {
+        "interval_ms": med(intervals), "interval_ms_all": intervals,
+        "device_ms": device_ms if ranges else "not measured",
+        "device": {n: med(r["device"].get(n, {"ms": 0.0})["ms"]
+                          for r in ranges) for n in names},
+        "gap_ms": (med(intervals) - device_ms) if ranges else None,
+        "host_ms": med(r["host_ms"] for r in ranges) if ranges else None,
+        "runtime": ranges[0]["runtime"] if ranges else {},
+        "htod_copies": max((r["htod_copies"] for r in ranges), default=None),
+        "syncs": max((r["syncs"] for r in ranges), default=None)}
+
+
+def stencil_round_profile(scfg, st, centres, icfg) -> dict:
+    """One neighbourhood round (``lookup_or_interpolate``) under
+    torch.profiler with its ``stencil_keys`` call inside a range: what
+    that call launched on the card and what it made the host do."""
+    from torch.profiler import record_function
+
+    from repro_torch.core import lookup_or_interpolate
+    from repro_torch.kernels import ops
+
+    orig = ops.stencil_keys
+
+    def ranged(*a, **kw):
+        with record_function("stencil_keys_call"):
+            return orig(*a, **kw)
+
+    ops.stencil_keys = ranged
+    try:
+        events = profiled_events(
+            lambda: lookup_or_interpolate(scfg, st, centres, icfg))
+    finally:
+        ops.stencil_keys = orig
+    ranges = range_contents(events, "stencil_keys_call")
+    check(len(ranges) == 1, f"stencil profile: {len(ranges)} calls traced")
+    return ranges[0]
 
 
 # ---------------------------------------------------------------------------
@@ -568,9 +707,16 @@ def edge_cases(gen):
     from repro_torch.core import DHTConfig, dht_create, dht_write
     from repro_torch.core.hashing import base_bucket, hash64
 
+    from repro_torch.kernels import hash_kernel
+
     cases = {name: [] for name in KERNEL_SOURCES}
-    for n, kw in ((1, 20), (7, 4), (300, 33), (1000, 20)):
-        cases["hash64"].append((words(gen, n, kw, DEVICE),))
+    for n, kw in ((1, 20), (7, 4), (300, 33), (1000, 20), (N_KEYS, 20),
+                  (N_KEYS + 77, 20), (129, 1), (129, 3), (129, 8),
+                  (257, hash_kernel.max_kw())):
+        keys = words(gen, n, kw, DEVICE)
+        cases["hash64"].append((keys,))
+        if kw in (4, 8, 20):           # one word off: the 4-byte path
+            cases["hash64"].append((off_by_one_word(keys),))
     for n, kw, vw in ((1, 20, 26), (7, 4, 1), (300, 33, 17)):
         wide = words(gen, n, kw + vw + 3, DEVICE)
         cases["checksum"].append((words(gen, n, kw, DEVICE),
@@ -610,11 +756,20 @@ def edge_cases(gen):
                          device=DEVICE)
     for sig in (1, 3, 4):
         cases["round_sig"].append((edges, sig))
-    x = (10.0 ** (torch.rand((64, 10), generator=gen) * 6 - 3)).to(DEVICE)
-    x[0, :3] = torch.tensor([9.99, 0.0999, 0.0])
-    for radius, coarse, kw in ((1, True, 20), (2, False, 20), (3, True, 23),
-                               (1, True, 7)):
-        cases["stencil_keys"].append((x, 3, kw, radius, coarse, 1 << 16, 6))
+    for d in (1, 10, 17):
+        x = stencil_edge_rows(gen, INTERP_CENTRES, d)
+        for radius in (0, 1, 3):
+            for coarse in (True, False):
+                for kw in sorted({7, 20, 23, 2 * d}):
+                    full = (radius, coarse, kw) == (1, True, 20)
+                    rows = x if full else x[:64]
+                    cases["stencil_keys"].append(
+                        (rows, 3, kw, radius, coarse, 1 << 16, 6))
+        cases["stencil_keys"] += [
+            (x[:1], 3, 20, 1, True, 1 << 16, 6),          # one row
+            (x[:64], 3, 20, 1, True, 6, 6),               # span 1
+            (x[:64], 1, 20, 3, True, 1 << 16, 6),         # sig 1
+            (x[:64], 4, 23, 1, True, 1000, 6)]
     for n, rows, width in ((1, 16, 1), (80, 64, 22), (37, 96, 48),
                            (61, 32, 28)):
         mat = words(gen, n, width, DEVICE)
@@ -691,6 +846,28 @@ def edge_cases(gen):
             flags[s, 0], flags[s, 1] = False, True
         cases["l1_probe"].append((lkeys, lvals, flags, q, set_idx))
     return cases
+
+
+def stencil_edge_rows(gen, n: int, d: int):
+    """(n, d) float32 queries over 1e-3..1e3 of either sign whose first
+    words are 0, -0, two denormals, +-inf, nan and values within 3 ulps of
+    10^k for k = -3..3 (the F1 band, where the card's bits must still
+    equal the plain version's on the card)."""
+    import torch
+
+    x = (10.0 ** (torch.rand((n, d), generator=gen) * 6 - 3)
+         * torch.where(torch.rand((n, d), generator=gen) < 0.5, -1.0, 1.0))
+    x = x.to(torch.float32)
+    p = torch.tensor([10.0 ** k for k in range(-3, 4)],
+                     dtype=torch.float32).view(torch.int32)
+    band = (p[:, None] + torch.arange(-3, 4, dtype=torch.int32)[None, :]
+            ).view(torch.float32).reshape(-1)
+    special = torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
+                            -float("inf"), float("nan")])
+    head = torch.cat([special, band, -band])
+    flat = x.reshape(-1)
+    flat[:min(head.numel(), flat.numel())] = head[:flat.numel()]
+    return x.to(DEVICE)
 
 
 def kernel_pairs():
@@ -1111,6 +1288,17 @@ def phase_interp(cfg_big, errs, poet_plain):
     for _ in range(INTERP_REPS - 1):
         st, out, prov, stats = timed_round()
     launches_a = ops.launches()
+    prof = stencil_round_profile(scfg, st, centres, icfg)
+    kernel_ms = [v["ms"] for k, v in prof["device"].items()
+                 if "stencil_keys_kernel" in k]
+    emit("interp_stencil_profile", call="stencil_keys in one round",
+         htod_copies=prof["htod_copies"], memcpy_calls=prof["memcpy_calls"],
+         syncs=prof["syncs"], kernel_device_ms=kernel_ms,
+         host_ms=prof["host_ms"], runtime=prof["runtime"])
+    check(len(kernel_ms) == 1, "interp: the profile saw no stencil kernel")
+    check(prof["htod_copies"] == 0 and prof["memcpy_calls"] == 0
+          and prof["syncs"] == 0,
+          f"interp: stencil_keys copied from the host or waited {prof}")
     truth = interp_fn(centres)
     rel = float(((out - truth).abs() / (truth.abs() + 1e-9)).max())
     n_interp = int((prov == PROV_INTERP).sum())
@@ -1863,6 +2051,9 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls):
             "library_ms": None if lib is None else time_cold(lib(args), args),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops,
         }
+        if name in ("hash64", "stencil_keys"):
+            # the kernel's own device time beside the event interval
+            out[name]["traced"] = trace_cold(kern, args)
     # the write round's send leg (L = 48) beside the read round's (L = 22)
     wargs = wcalls["route_pack"][0]
     nbytes, nops = bound_route_pack(*wargs)

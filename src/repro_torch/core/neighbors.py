@@ -7,8 +7,9 @@ row, the centre (its own rounded point), a star stencil of +-1..radius
 lattice steps per dimension (each point re-rounded), and optionally the
 coarse-tier point (the centre rounded at ``sig_digits - 1``, re-expressed
 on the ``sig_digits`` lattice).  The order is the static list
-:func:`stencil_offsets`, shared with the stencil kernel
-(``kernels/csrc/stencil.cu``), which must match these keys bit for bit.
+:func:`stencil_offsets`, which the stencil kernel
+(``kernels/csrc/stencil.cu``) derives in closed form from the entry
+index; its keys must match these bit for bit.
 
 Keys must be the same function of the input in both packages, or the
 lattice splits and a stored result is never found again.  Two steps of

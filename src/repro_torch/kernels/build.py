@@ -53,7 +53,8 @@ LIBRARIES = {
         "repro_round_sig": (_P, _P, _L, _I, _P),
     }),
     "stencil": ("stencil.cu", {
-        "repro_stencil_keys": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _P),
+        "repro_stencil_keys": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _L, _P),
+        "repro_stencil_keys_max_dims": (),
     }),
     "probe": ("probe.cu", {
         "repro_probe": (_P, _P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _P,

@@ -8,13 +8,22 @@
 // about 800 per key, far below the ALUs' rate for the bytes moved.  At the
 // main path's 65536 keys that is 5.8 MB, under 2 us at HBM rate.
 //
-// Design: one thread per key, 128 keys per block.  A thread reading its
-// own key row would stride KW words across the warp, so the block first
-// copies its 128 x KW tile into shared memory with consecutive threads on
-// consecutive words (coalesced), then each thread runs both chains over
-// its row.  The shared row stride is KW rounded up to odd, so the 32 rows
-// a warp reads in one step fall in 32 different banks.  The pair is
-// written as one 8-byte store.
+// Design: one thread per key, 128 keys per block, and at 65,536 keys one
+// wave of ~16 warps an SM, so the kernel pays one memory latency and its
+// launch, and what matters is how much of that latency each thread keeps
+// in flight.  Where KW % 4 == 0 and the keys are 16-byte aligned (every
+// row then is too), a thread loads its row straight into registers as
+// KW / 4 16-byte vectors, all issued before the first chain step; the
+// 32 rows a warp reads lie side by side, so the sectors one load
+// instruction misses are the next instructions' hits in L1.  The word
+// premix (k * C1, rotl 15, * C2) does not depend on h, so the whole key is
+// premixed first and the hi and lo chains then run interleaved, two
+// independent chains of KW dependent steps.  KW = 20, the main path's
+// width, is a template instantiation, so both chains unroll; other widths
+// that allow vectors run the same loop over a runtime chunk count.  Every
+// other width or alignment takes 4-byte loads of its own row (the L1
+// again serves the warp's neighbouring rows).  The pair is written as
+// one 8-byte store.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -25,43 +34,106 @@ REPRO_DEFINE_ERROR_STRING()
 namespace {
 
 constexpr int kThreads = 128;
+// The widest key the wrapper takes (its contract; the kernels themselves
+// would take any width).
+constexpr int kMaxKw = 48 * 1024 / 4 / kThreads - 1;
 
-__global__ void hash64_kernel(const uint32_t* __restrict__ keys,
-                              uint2* __restrict__ out, int64_t n, int kw) {
-  extern __shared__ uint32_t tile[];
-  const int stride = kw | 1;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kThreads;
-  const int64_t left = n - row0;
-  const int rows = left < kThreads ? static_cast<int>(left) : kThreads;
-  const uint32_t* src = keys + row0 * kw;
-  for (int i = threadIdx.x; i < rows * kw; i += kThreads) {
-    const int r = i / kw;
-    tile[r * stride + (i - r * kw)] = src[i];
-  }
-  __syncthreads();
-  if (threadIdx.x >= rows) return;
-  const uint32_t* k = tile + threadIdx.x * stride;
+__device__ __forceinline__ void fold4(uint4 v, uint32_t& hi, uint32_t& lo) {
+  const uint32_t k0 = repro::murmur_premix(v.x);
+  const uint32_t k1 = repro::murmur_premix(v.y);
+  const uint32_t k2 = repro::murmur_premix(v.z);
+  const uint32_t k3 = repro::murmur_premix(v.w);
+  hi = repro::murmur_mix(hi, k0);
+  lo = repro::murmur_mix(lo, k0);
+  hi = repro::murmur_mix(hi, k1);
+  lo = repro::murmur_mix(lo, k1);
+  hi = repro::murmur_mix(hi, k2);
+  lo = repro::murmur_mix(lo, k2);
+  hi = repro::murmur_mix(hi, k3);
+  lo = repro::murmur_mix(lo, k3);
+}
+
+__device__ __forceinline__ uint2 finish(uint32_t hi, uint32_t lo, int kw) {
+  return make_uint2(repro::murmur_finish(hi, kw),
+                    repro::murmur_finish(lo, kw));
+}
+
+// KW a multiple of 4 known at compile time: every load issued first
+template <int KW>
+__global__ void __launch_bounds__(kThreads)
+    hash64_vec_kernel(const uint4* __restrict__ keys,
+                      uint2* __restrict__ out, int64_t n) {
+  constexpr int kChunks = KW / 4;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (row >= n) return;
+  const uint4* src = keys + row * kChunks;
+  uint4 v[kChunks];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) v[c] = __ldg(src + c);
   uint32_t hi = repro::kSeedHi;
   uint32_t lo = repro::kSeedLo;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) fold4(v[c], hi, lo);
+  out[row] = finish(hi, lo, KW);
+}
+
+// KW a multiple of 4 at run time
+__global__ void __launch_bounds__(kThreads)
+    hash64_vec_any_kernel(const uint4* __restrict__ keys,
+                          uint2* __restrict__ out, int64_t n, int chunks) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (row >= n) return;
+  const uint4* src = keys + row * chunks;
+  uint32_t hi = repro::kSeedHi;
+  uint32_t lo = repro::kSeedLo;
+#pragma unroll 4
+  for (int c = 0; c < chunks; ++c) fold4(__ldg(src + c), hi, lo);
+  out[row] = finish(hi, lo, chunks * 4);
+}
+
+// any KW and alignment: 4-byte loads
+__global__ void __launch_bounds__(kThreads)
+    hash64_words_kernel(const uint32_t* __restrict__ keys,
+                        uint2* __restrict__ out, int64_t n, int kw) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (row >= n) return;
+  const uint32_t* src = keys + row * kw;
+  uint32_t hi = repro::kSeedHi;
+  uint32_t lo = repro::kSeedLo;
+#pragma unroll 4
   for (int i = 0; i < kw; ++i) {
-    hi = repro::murmur_step(hi, k[i]);
-    lo = repro::murmur_step(lo, k[i]);
+    const uint32_t k = repro::murmur_premix(__ldg(src + i));
+    hi = repro::murmur_mix(hi, k);
+    lo = repro::murmur_mix(lo, k);
   }
-  out[row0 + threadIdx.x] =
-      make_uint2(repro::murmur_finish(hi, kw), repro::murmur_finish(lo, kw));
+  out[row] = finish(hi, lo, kw);
 }
 
 }  // namespace
 
-// Largest KW whose 128-row tile fits the default 48 KB of shared memory.
-extern "C" int repro_hash64_max_kw() { return 48 * 1024 / 4 / kThreads - 1; }
+extern "C" int repro_hash64_max_kw() { return kMaxKw; }
 
 extern "C" int repro_hash64(const void* keys, void* out, long long n, int kw,
                             void* stream) {
+  if (kw < 1 || kw > kMaxKw) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int blocks =
       static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-  const size_t smem = static_cast<size_t>(kThreads) * (kw | 1) * 4;
-  hash64_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<uint2*>(out), n, kw);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<uint2*>(out);
+  const bool vec = kw % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(keys) & 15u) == 0;
+  if (vec && kw == 20) {
+    hash64_vec_kernel<20><<<blocks, kThreads, 0, s>>>(
+        static_cast<const uint4*>(keys), o, n);
+  } else if (vec) {
+    hash64_vec_any_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const uint4*>(keys), o, n, kw / 4);
+  } else {
+    hash64_words_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(keys), o, n, kw);
+  }
   return static_cast<int>(cudaGetLastError());
 }

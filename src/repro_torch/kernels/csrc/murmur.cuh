@@ -20,13 +20,24 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
-__device__ __forceinline__ uint32_t murmur_step(uint32_t h, uint32_t k) {
+// The two halves of a step: the word's premix, which does not depend on
+// h (so a kernel can premix a whole key before either chain), and the
+// chain step that folds a premixed word into h.  A zero word premixes to
+// zero.
+__device__ __forceinline__ uint32_t murmur_premix(uint32_t k) {
   k *= 0xCC9E2D51u;
   k = rotl32(k, 15);
-  k *= 0x1B873593u;
-  h ^= k;
+  return k * 0x1B873593u;
+}
+
+__device__ __forceinline__ uint32_t murmur_mix(uint32_t h, uint32_t km) {
+  h ^= km;
   h = rotl32(h, 13);
   return h * 5u + 0xE6546B64u;
+}
+
+__device__ __forceinline__ uint32_t murmur_step(uint32_t h, uint32_t k) {
+  return murmur_mix(h, murmur_premix(k));
 }
 
 __device__ __forceinline__ uint32_t murmur_finish(uint32_t h, int n_words) {

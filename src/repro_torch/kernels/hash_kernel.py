@@ -6,10 +6,18 @@ CUDA tensors only: ``kernels/ops.py`` routes CPU tensors to
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
 from .route_kernel import check_cuda, stream_of
+
+
+@functools.cache
+def max_kw() -> int:
+    """The widest key (words) the wrapper takes."""
+    return build.load("hash").repro_hash64_max_kw()
 
 
 def hash64(keys: torch.Tensor) -> torch.Tensor:
@@ -19,9 +27,8 @@ def hash64(keys: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, 2), dtype=torch.int32, device=keys.device)
     if n == 0:
         return out
-    max_kw = build.load("hash").repro_hash64_max_kw()
-    if not 1 <= kw <= max_kw:
-        raise ValueError(f"hash64: key width {kw} outside 1..{max_kw}")
+    if not 1 <= kw <= max_kw():
+        raise ValueError(f"hash64: key width {kw} outside 1..{max_kw()}")
     with torch.cuda.device(keys.device):
         build.launch("hash64", "hash", "repro_hash64", keys.data_ptr(),
                      out.data_ptr(), n, kw, stream_of(keys))

@@ -1,18 +1,28 @@
 """Wrapper of the fused stencil-key CUDA kernel (``csrc/stencil.cu``).
 
 Counterpart of ``repro/kernels/stencil_kernel.py``
-(``stencil_keys_pallas``).  The enumeration order is
-``core/neighbors.stencil_offsets``, handed to the kernel as an (M, 2)
-int32 table.  CUDA tensors only: ``kernels/ops.py`` routes CPU tensors
-to ``kernels/ref.stencil_keys``.
+(``stencil_keys_pallas``).  The kernel derives each entry's (dim, offset)
+of ``core/neighbors.stencil_offsets`` from the entry index, so a call
+copies nothing from the host and never waits for the card.  A warp keeps
+the coordinates that reach the key, ``min(D, ceil(KW / 2))``, in shared
+memory: at most :func:`max_dims`.  CUDA tensors only: ``kernels/ops.py``
+routes CPU tensors to ``kernels/ref.stencil_keys``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..core.neighbors import stencil_offsets
+from ..core.neighbors import n_stencil
 from . import build
 from .route_kernel import check_cuda, stream_of
+
+
+@functools.cache
+def max_dims() -> int:
+    """The most coordinates a key can hold, ``min(D, ceil(KW / 2))``."""
+    return build.load("stencil").repro_stencil_keys_max_dims()
 
 
 def stencil_keys(x: torch.Tensor, sig_digits: int, key_words: int,
@@ -24,9 +34,10 @@ def stencil_keys(x: torch.Tensor, sig_digits: int, key_words: int,
     if radius < 0 or key_words < 1:
         raise ValueError("stencil_keys: need radius >= 0 and key_words >= 1")
     n, d = x.shape
-    table = torch.tensor(stencil_offsets(d, radius, coarse_tier),
-                         dtype=torch.int32, device=x.device).reshape(-1)
-    m = table.shape[0] // 2
+    if min(d, (key_words + 1) // 2) > max_dims():
+        raise ValueError(f"stencil_keys: keys of more than {max_dims()} "
+                         "coordinates")
+    m = n_stencil(d, radius, coarse_tier)
     keys = torch.empty((n, m, key_words), dtype=torch.int32, device=x.device)
     base = torch.empty((n, m), dtype=torch.int32, device=x.device)
     if n == 0:
@@ -34,7 +45,7 @@ def stencil_keys(x: torch.Tensor, sig_digits: int, key_words: int,
     span = max(n_buckets - n_probe + 1, 1)
     with torch.cuda.device(x.device):
         build.launch("stencil_keys", "stencil", "repro_stencil_keys",
-                     x.data_ptr(), table.data_ptr(), keys.data_ptr(),
-                     base.data_ptr(), n, d, m, key_words, int(sig_digits),
+                     x.data_ptr(), keys.data_ptr(), base.data_ptr(), n, d,
+                     radius, int(coarse_tier), key_words, int(sig_digits),
                      span, stream_of(x))
     return keys, base

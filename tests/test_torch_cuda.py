@@ -64,6 +64,21 @@ def test_hash64_kernel_matches_plain(gen, n, kw):
     assert torch.equal(hash_kernel.hash64(keys), ref.hash64(keys))
 
 
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("n,kw", [(65536 + 77, 20), (129, 1), (129, 3),
+                                  (129, 4), (129, 8), (1000, 33), (257, 0)])
+def test_hash64_kernel_edges(gen, n, kw, misaligned):
+    """Bit for bit on the 16-byte paths (KW % 4 == 0, aligned rows; KW 20
+    unrolled), the 4-byte path (other widths, and rows one word off
+    alignment), N off the block and the widest key the wrapper takes
+    (kw 0 here)."""
+    kw = kw or hash_kernel.max_kw()
+    keys = _words(gen, n, kw)
+    if misaligned:
+        keys = _off_by_one_word(keys)
+    assert torch.equal(hash_kernel.hash64(keys), ref.hash64(keys))
+
+
 @pytest.mark.parametrize("n,rows,width", [(1, 16, 1), (80, 64, 22),
                                           (65536, 131072, 48), (50, 77, 21),
                                           (300, 513, 28), (9, 1001, 48),
@@ -389,8 +404,8 @@ def test_round_sig_kernel_matches_plain(gen, sig):
     sign = torch.where(torch.rand(1_000_000, generator=gen) < 0.5, -1.0, 1.0)
     p = torch.tensor([10.0 ** k for k in range(-37, 38)],
                      dtype=torch.float32).view(torch.int32)
-    band = (p[:, None] + torch.arange(-64, 65)[None, :]).view(
-        torch.float32).reshape(-1)
+    band = (p[:, None] + torch.arange(-64, 65, dtype=torch.int32)[None, :]
+            ).view(torch.float32).reshape(-1)
     edges = torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
                           -float("inf"), float("nan"), 1.0])
     x = torch.cat([edges, band, -band, (mag * sign).to(torch.float32)])
@@ -412,6 +427,78 @@ def test_stencil_keys_kernel_matches_plain(gen, radius, coarse, n):
     a = stencil_kernel.stencil_keys(x, *args)
     b = ref.stencil_keys(x, *args)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _stencil_rows(gen, n, d):
+    """Queries over 1e-3..1e3 of either sign whose first words are 0, -0,
+    denormals, +-inf, nan and values within 3 ulps of 10^-3..10^3."""
+    x = (10.0 ** (torch.rand((n, d), generator=gen) * 6 - 3)
+         * torch.where(torch.rand((n, d), generator=gen) < 0.5, -1.0, 1.0))
+    x = x.to(torch.float32)
+    p = torch.tensor([10.0 ** k for k in range(-3, 4)],
+                     dtype=torch.float32).view(torch.int32)
+    band = (p[:, None] + torch.arange(-3, 4, dtype=torch.int32)[None, :]
+            ).view(torch.float32).reshape(-1)
+    head = torch.cat([torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
+                                    -float("inf"), float("nan")]),
+                      band, -band])
+    flat = x.reshape(-1)
+    k = min(head.numel(), flat.numel())
+    flat[:k] = head[:k]
+    return x.cuda()
+
+
+@pytest.mark.parametrize("coarse", [True, False])
+@pytest.mark.parametrize("radius", [0, 1, 3])
+@pytest.mark.parametrize("d", [1, 10, 17])
+def test_stencil_keys_kernel_edges(gen, d, radius, coarse):
+    """Bit for bit against the plain version on the card, specials and the
+    F1 band included, for KW below 2D (truncated), 2D, above it (padding)
+    and odd, n = 1 and 64, span 1 and sig 1, 3 and 4."""
+    x = _stencil_rows(gen, 64, d)
+    for kw in sorted({7, 20, 23, 2 * d}):
+        for args in ((x, 3, kw, radius, coarse, 1 << 16, 6),
+                     (x[:1], 3, kw, radius, coarse, 1 << 16, 6),
+                     (x, 1, kw, radius, coarse, 6, 6),
+                     (x, 4, kw, radius, coarse, 1000, 6)):
+            a = stencil_kernel.stencil_keys(*args)
+            b = ref.stencil_keys(*args)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (
+                kw, tuple(args[0].shape), args[1], args[5])
+
+
+def test_stencil_keys_second_call_makes_no_host_copy(gen):
+    """A second call on the same shapes copies nothing from the host and
+    does not wait for the card: torch.profiler finds no Memcpy HtoD and no
+    memcpy or synchronize runtime call inside it, and does find its
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = _stencil_rows(gen, 2978, 10)
+    args = (x, 3, 20, 1, True, 1 << 21, 6)
+    stencil_kernel.stencil_keys(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("second_call"):
+            stencil_kernel.stencil_keys(*args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    (rng,) = [e for e in events if e.name == "second_call"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    inside = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e is not rng and e.name.startswith("cu")
+              and rng.time_range.start <= e.time_range.start
+              and e.time_range.end <= rng.time_range.end]
+    ids = {e.id for e in inside}
+    device = [e.name for e in events
+              if e.device_type != torch.autograd.DeviceType.CPU
+              and e.id in ids]
+    assert any("stencil_keys_kernel" in n for n in device), device
+    assert not [n for n in device if "HtoD" in n], device
+    assert not [e.name for e in inside
+                if "Memcpy" in e.name or "Synchronize" in e.name]
 
 
 def test_interp_on_card_matches_cpu(gen):
@@ -505,6 +592,9 @@ def test_kernel_wrappers_reject_bad_inputs(gen):
         ops.checksum(_words(gen, 4, 20), _words(gen, 4, 26, "cpu"))
     with pytest.raises(ValueError):                      # not 2-d
         stencil_kernel.stencil_keys(torch.ones(4).cuda(), 3, 20)
+    wide = stencil_kernel.max_dims() + 1                 # key too wide
+    with pytest.raises(ValueError):
+        stencil_kernel.stencil_keys(torch.ones(2, wide).cuda(), 3, 2 * wide)
     keys = _words(gen, 8, 20)
     with pytest.raises(ValueError):                      # base rows differ
         probe_kernel.probe(keys, _words(gen, 8, 26), keys[:, 0].contiguous(),

@@ -613,6 +613,197 @@ def test_stencil_keys_matches_pallas(radius, coarse, d, key_words):
         assert 0 <= int(tb.min()) and int(tb.max()) <= 4096 - 6
 
 
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _rotl(x, r):
+    return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & _M32
+
+
+def _premix(k):
+    """murmur.cuh's murmur_premix on uint64-held uint32 words."""
+    k = (k * np.uint64(0xCC9E2D51)) & _M32
+    return (_rotl(k, 15) * np.uint64(0x1B873593)) & _M32
+
+
+def _mix(h, km):
+    """murmur.cuh's murmur_mix: fold a premixed word into the chain."""
+    h = _rotl(h ^ km, 13)
+    return (h * np.uint64(5) + np.uint64(0xE6546B64)) & _M32
+
+
+def _finish(h, n_words):
+    h = h ^ np.uint64(4 * n_words)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x85EBCA6B)) & _M32
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(0xC2B2AE35)) & _M32
+    return h ^ (h >> np.uint64(16))
+
+
+def _emulate_hash64(keys, aligned=True):
+    """csrc/hash.cu: where KW % 4 == 0 and the rows are aligned, each row
+    arrives as KW / 4 16-byte chunks, all loaded before the chains, every
+    word premixed first, then the hi and lo chains step interleaved;
+    otherwise word by word from 4-byte loads."""
+    n, kw = keys.shape
+    k = keys.astype(np.uint64)
+    if aligned and kw % 4 == 0:
+        chunks = [k[:, 4 * c:4 * c + 4] for c in range(kw // 4)]
+        words = np.concatenate(chunks, axis=1)      # the registers
+    else:
+        words = k
+    pre = _premix(words)
+    hi = np.full(n, 0x9E3779B9, np.uint64)
+    lo = np.full(n, 0x85EBCA77, np.uint64)
+    for i in range(kw):
+        hi = _mix(hi, pre[:, i])
+        lo = _mix(lo, pre[:, i])
+    return np.stack([_finish(hi, kw), _finish(lo, kw)], -1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("kw", range(1, 41))
+def test_hash64_premixed_chains_match_plain(kw):
+    """The kernel's premix-then-chain order and its 16-byte chunking (KW %
+    4 == 0), and the 4-byte path, against ref.hash64 and the Pallas
+    kernel, N off the kernels' blocks."""
+    keys = _words(np.random.default_rng(700 + kw), 37, kw)
+    expect = np.asarray(hash64_pallas(jnp.asarray(keys), interpret=True))
+    np.testing.assert_array_equal(_u(ref.hash64(_t(keys))), expect)
+    for aligned in (True, False):
+        np.testing.assert_array_equal(_emulate_hash64(keys, aligned), expect)
+
+
+def _entry_dim(e, d, m, coarse):
+    """csrc/stencil.cu's entry_dim: entry e's (dim, offset) in closed
+    form (-1 the centre, -2 the coarse tier)."""
+    if e == 0:
+        return -1, 0
+    if coarse and e == m - 1:
+        return -2, 0
+    j = e - 1
+    r = j // (2 * d) + 1
+    rem = j - (r - 1) * 2 * d
+    return rem >> 1, (-r if rem & 1 else r)
+
+
+@pytest.mark.parametrize("coarse", [True, False])
+@pytest.mark.parametrize("radius", [0, 1, 2, 3])
+def test_stencil_entry_closed_form_matches_offsets(radius, coarse):
+    """The kernel's entry -> (dim, off) map is the enumeration of both
+    packages' stencil_offsets, for D 1..12."""
+    from repro.core.neighbors import stencil_offsets as j_offsets
+    from repro_torch.core.neighbors import n_stencil, stencil_offsets
+
+    for d in range(1, 13):
+        m = n_stencil(d, radius, coarse)
+        got = [_entry_dim(e, d, m, coarse) for e in range(m)]
+        assert got == stencil_offsets(d, radius, coarse), (d, radius)
+        assert got == j_offsets(d, radius, coarse), (d, radius)
+
+
+def _emulate_stencil(x, sig, kw, radius, coarse, n_buckets, n_probe,
+                     misalign=0):
+    """csrc/stencil.cu's decomposition: per row, once, the centre c, its
+    re-rounding rr, the coarse value and the lattice step of the first Dk
+    = min(D, ceil(KW / 2)) coordinates; per entry only the shifted
+    coordinate is rounded; the lo chain skips the premix of zero words;
+    the keys of up to 32 entries are stored as one run of 16-byte chunks
+    between 4-byte ends (all 4-byte where the output sits ``misalign``
+    words off 16-byte alignment).  Checks every output word is stored
+    once; returns (keys, base) as numpy uint32 / int32."""
+    from repro_torch.core.neighbors import lattice_step, round_significant
+
+    n, d = x.shape
+    m = 1 + 2 * radius * d + int(coarse)
+    dk = min(d, (kw + 1) // 2)
+    xt = torch.from_numpy(x[:, :dk])
+    c = round_significant(xt, sig)
+    per_row = {-1: c, -2: round_significant(round_significant(c, sig - 1),
+                                            sig)}
+    rr = round_significant(c, sig)
+    step = lattice_step(c, sig)
+    bits = {k: v.numpy().view(np.uint32) for k, v in per_row.items()}
+    rr_bits = rr.numpy().view(np.uint32)
+    entry = np.zeros((n, m, dk), np.uint32)
+    dims = []
+    for e in range(m):
+        dim, off = _entry_dim(e, d, m, coarse)
+        dims.append(dim)
+        entry[:, e] = bits[dim] if dim < 0 else rr_bits
+        if 0 <= dim < dk:
+            shifted = round_significant(c[:, dim] + off * step[:, dim], sig)
+            entry[:, e, dim] = shifted.numpy().view(np.uint32)
+    span = max(n_buckets - n_probe + 1, 1)
+    h = np.full((n, m), 0x85EBCA77, np.uint64)
+    for k in range(dk):
+        h = _mix(h, _premix(entry[:, :, k].astype(np.uint64)))
+        if 2 * k + 1 < kw:
+            h = _mix(h, np.uint64(0))
+    for _ in range(2 * dk, kw):
+        h = _mix(h, np.uint64(0))
+    base = (_finish(h, kw) % np.uint64(span)).astype(np.int32)
+
+    # every word of the output from (row, entry, j), as key_word builds it
+    t = np.arange(n * m * kw)
+    row, rest = np.divmod(t, m * kw)
+    el, j = np.divmod(rest, kw)
+    k = np.minimum(j >> 1, max(dk - 1, 0))
+    value = entry[row, el, k] if dk else np.zeros(t.size, np.uint32)
+    words = np.where((j & 1) | (j >> 1 >= dk), np.uint32(0), value)
+    # which words each 32-entry run's stores cover
+    stored = np.zeros(n * m * kw + misalign, np.int64)
+    for r in range(n):
+        for e0 in range(0, m, 32):
+            w0 = misalign + (r * m + e0) * kw
+            w1 = misalign + (r * m + min(m, e0 + 32)) * kw
+            a = b = w1
+            if misalign == 0:
+                a = min(w1, (w0 + 3) & ~3)
+                b = max(a, w1 & ~3)
+            stored[w0:a] += 1                        # 4-byte head
+            stored[b:w1] += 1                        # 4-byte tail
+            assert a % 4 == 0 and (b - a) % 4 == 0 or misalign
+            stored[a:b] += 1                         # 16-byte chunks
+    assert (stored[misalign:] == 1).all()
+    return words.reshape(n, m, kw), base
+
+
+@pytest.mark.parametrize("kw,d,radius,coarse,pallas", [
+    (7, 10, 1, True, True), (20, 10, 1, True, True),
+    (23, 3, 3, False, True), (20, 17, 1, True, False)])
+def test_stencil_row_shared_work_matches_plain(kw, d, radius, coarse, pallas):
+    """The per-row shared work, the closed-form entries, the chain and the
+    16-byte runs (aligned and one word off) against ref.stencil_keys on
+    seeded inputs with 0, -0, a denormal, +-inf, nan and values within 64
+    ulps of powers of ten, and against the Pallas kernel away from that
+    band (F1): KW below 2D (truncated), equal to it and above it (zero
+    padding); D = 17 against the plain version only (the Pallas kernel
+    takes ~9 s to interpret it)."""
+    rng = np.random.default_rng(31 * kw + d)
+    x = (10.0 ** rng.uniform(-3, 3, size=(5, d))
+         * rng.choice([-1, 1], size=(5, d))).astype(np.float32)
+    x.reshape(-1)[:9] = [0.0, -0.0, 1e-40, np.inf, -np.inf, np.nan, 9.99,
+                         0.0999, 1.0]
+    band = _decade_band()
+    near = band[rng.integers(0, band.size, size=(3, d))]
+    args = (3, kw, radius, coarse, 4096, 6)
+    for rows in (x, np.concatenate([x, near])):
+        tk, tb = ref.stencil_keys(torch.from_numpy(rows), *args)
+        for misalign in (0, 1):
+            ek, eb = _emulate_stencil(rows, *args, misalign=misalign)
+            np.testing.assert_array_equal(ek, _u(tk))
+            np.testing.assert_array_equal(eb, tb.numpy())
+    if not pallas:
+        return
+    jk, jb = stencil_keys_pallas(jnp.asarray(x), 3, kw, interpret=True,
+                                 radius=radius, coarse_tier=coarse,
+                                 n_buckets=4096, n_probe=6)
+    ek, eb = _emulate_stencil(x, *args)
+    np.testing.assert_array_equal(ek, np.asarray(jk))
+    np.testing.assert_array_equal(eb, np.asarray(jb))
+
+
 def test_library_name_covers_every_shared_header(tmp_path, monkeypatch):
     """A change to any ``csrc/*.cuh`` renames every library, so a build
     made against the old header is never loaded."""
