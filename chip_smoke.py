@@ -126,6 +126,9 @@ LM_SERVE_PROMPT = 256          # lm-serve prompt tokens, teacher-forced
 LM_SERVE_NEW = 32              # lm-serve greedy tokens
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
+# kernels whose own device time the timing phase reports beside the event
+# interval (torch.profiler, ``trace_cold``)
+TRACED = ("hash64", "stencil_keys", "round_sig", "l1_probe")
 HEAD_START_CYCLES = 400_000    # ~0.2 ms of card time before each timed call
 KERNEL_SOURCES = {
     "route_pack": ("src/repro_torch/kernels/csrc/route.cu",
@@ -393,13 +396,16 @@ def trace_cold(fn, args, reps: int = 5) -> dict:
     ranges = range_contents(profiled_events(run), "timed_interval")
     names = sorted({n for r in ranges for n in r["device"]})
     med = statistics.median
-    device_ms = med(r["device_ms"] for r in ranges) if ranges else None
+    # a trace that holds no device activity measured nothing (CUPTI does
+    # not always deliver them): no device time, rather than 0
+    seen = bool(names)
+    device_ms = med(r["device_ms"] for r in ranges) if seen else None
     return {
         "interval_ms": med(intervals), "interval_ms_all": intervals,
-        "device_ms": device_ms if ranges else "not measured",
+        "device_ms": device_ms if seen else "not measured",
         "device": {n: med(r["device"].get(n, {"ms": 0.0})["ms"]
                           for r in ranges) for n in names},
-        "gap_ms": (med(intervals) - device_ms) if ranges else None,
+        "gap_ms": (med(intervals) - device_ms) if seen else None,
         "host_ms": med(r["host_ms"] for r in ranges) if ranges else None,
         "runtime": ranges[0]["runtime"] if ranges else {},
         "htod_copies": max((r["htod_copies"] for r in ranges), default=None),
@@ -408,28 +414,39 @@ def trace_cold(fn, args, reps: int = 5) -> dict:
 
 def stencil_round_profile(scfg, st, centres, icfg) -> dict:
     """One neighbourhood round (``lookup_or_interpolate``) under
-    torch.profiler with its ``stencil_keys`` call inside a range: what
-    that call launched on the card and what it made the host do."""
+    torch.profiler with its ``stencil_keys`` call and its plain
+    ``lattice_step`` (the step at each centre's magnitude) each inside a
+    range: what the stencil call launched on the card and made the host
+    do, and under ``"lattice_step"`` the sums over the ``lattice_step``
+    calls (one on the card; the plain stencil calls it again)."""
     from torch.profiler import record_function
 
-    from repro_torch.core import lookup_or_interpolate
+    from repro_torch.core import lookup_or_interpolate, neighbors
     from repro_torch.kernels import ops
 
-    orig = ops.stencil_keys
+    orig = ops.stencil_keys, neighbors.lattice_step
 
-    def ranged(*a, **kw):
-        with record_function("stencil_keys_call"):
-            return orig(*a, **kw)
+    def ranged(fn, label):
+        def call(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return call
 
-    ops.stencil_keys = ranged
+    ops.stencil_keys = ranged(orig[0], "stencil_keys_call")
+    neighbors.lattice_step = ranged(orig[1], "lattice_step_call")
     try:
         events = profiled_events(
             lambda: lookup_or_interpolate(scfg, st, centres, icfg))
     finally:
-        ops.stencil_keys = orig
+        ops.stencil_keys, neighbors.lattice_step = orig
     ranges = range_contents(events, "stencil_keys_call")
-    check(len(ranges) == 1, f"stencil profile: {len(ranges)} calls traced")
-    return ranges[0]
+    steps = range_contents(events, "lattice_step_call")
+    check(len(ranges) == 1 and steps,
+          f"stencil profile: {len(ranges)} stencil and {len(steps)} "
+          "lattice_step calls traced")
+    keys = ("htod_copies", "memcpy_calls", "syncs", "host_ms", "device_ms")
+    return {**ranges[0], "lattice_step": {
+        "calls": len(steps), **{k: sum(r[k] for r in steps) for k in keys}}}
 
 
 # ---------------------------------------------------------------------------
@@ -700,8 +717,11 @@ def edge_cases(gen):
     tile, row-strided slices from column 1 and misaligned contiguous rows
     (the paths of the kernels' redesign); probe on ``window_slab``s too
     (one query, 40 candidates, rows past shared memory, misaligned slabs,
-    with and without validation) and route_unpack on odd widths, one word,
-    misaligned buffers, every item dropped and slots out of range."""
+    with and without validation), route_unpack on odd widths, one word,
+    misaligned buffers, every item dropped and slots out of range;
+    round_sig on values one word off alignment, inputs of 1-5 values and
+    one decade; l1_probe on KW 7, VW 25 and 28, misaligned query rows, 8
+    and 40 ways and set indices out of range."""
     import torch
 
     from repro_torch.core import DHTConfig, dht_create, dht_write
@@ -754,8 +774,16 @@ def edge_cases(gen):
     edges = torch.tensor([0.0, -0.0, 1e-40, -1e-45, float("inf"),
                           -float("inf"), float("nan"), 9.995, 0.0999, 1.0],
                          device=DEVICE)
+    # the keys' values: the 16-byte path, a view one word off alignment
+    # (the 4-byte path), the n % 4 tail and inputs shorter than a vector,
+    # and one decade, [1, 10)
+    flat = torch.cat([edges, key_values(5000).reshape(-1).to(DEVICE)])
+    decade = key_values(4100, (0.0, 1.0)).reshape(-1).to(DEVICE)
     for sig in (1, 3, 4):
-        cases["round_sig"].append((edges, sig))
+        cases["round_sig"] += [(edges, sig), (flat[1:], sig),
+                               (decade, sig), (decade[1:], sig)]
+        cases["round_sig"] += [(flat[o:o + m], sig) for m in (1, 3, 5, 4097)
+                               for o in (0, 1)]
     for d in (1, 10, 17):
         x = stencil_edge_rows(gen, INTERP_CENTRES, d)
         for radius in (0, 1, 3):
@@ -829,22 +857,35 @@ def edge_cases(gen):
         for validate in (True, False):
             cases["probe"].append((*slab, q, base.contiguous(), n_probe,
                                    validate))
-    for sets, ways, n in ((1024, 4, 4096), (5, 1, 40), (16, 8, 300)):
-        lkeys = words(gen, sets * ways, 20, DEVICE).reshape(sets, ways, 20)
-        lvals = words(gen, sets * ways, 26, DEVICE).reshape(sets, ways, 26)
+    # l1_probe: 16- and 4-byte key chunks (KW 20, 7; query rows one word
+    # off alignment), 16-, 8- and 4-byte value copies (VW 28, 26, 25), more
+    # ways than a group's four lanes (8; 40, two mask segments) and set
+    # indices out of range
+    for sets, ways, n, kw, vw in ((1024, 4, 4096, 20, 26), (5, 1, 40, 20, 26),
+                                  (16, 8, 300, 20, 26), (16, 8, 300, 7, 25),
+                                  (64, 4, 1000, 20, 28), (7, 40, 200, 20, 26)):
+        lkeys = words(gen, sets * ways, kw, DEVICE).reshape(sets, ways, kw)
+        lvals = words(gen, sets * ways, vw, DEVICE).reshape(sets, ways, vw)
         flags = torch.randint(0, 2, (sets, ways), generator=gen).to(
             torch.bool).to(DEVICE)
         set_idx = torch.randint(0, sets, (n,), generator=gen).to(
             torch.int32).to(DEVICE)
         way = torch.randint(0, ways, (n,), generator=gen).to(DEVICE)
         q = lkeys[set_idx.long(), way].clone()
-        q[::2] = words(gen, (n + 1) // 2, 20, DEVICE)
+        q[::2] = words(gen, (n + 1) // 2, kw, DEVICE)
         if ways > 1:       # the key in two ways, the first one incoherent
             s = int(set_idx[1])
             lkeys[s, 1] = lkeys[s, 0]
             q[1] = lkeys[s, 0]
             flags[s, 0], flags[s, 1] = False, True
-        cases["l1_probe"].append((lkeys, lvals, flags, q, set_idx))
+        past = set_idx.clone()
+        past[::3] = sets + 2
+        past[1::7] = -1
+        cases["l1_probe"] += [
+            (lkeys, lvals, flags, q, set_idx),
+            (lkeys, lvals, flags, off_by_one_word(q), set_idx),
+            OutOfRange((lkeys, lvals, flags, q, past),
+                       (lkeys, lvals, flags, q, past.clamp(0, sets - 1)))]
     return cases
 
 
@@ -1066,6 +1107,20 @@ def phase_dht(cfg_big):
     return launches
 
 
+def key_values(n: int, decades: tuple[float, float] = (-30.0, 30.0)):
+    """(n / 10, 10) float32 chemistry inputs of either sign whose
+    magnitudes are log-uniform over ``decades`` (generator seed 5): the
+    keys phase's values, and the inputs its rounding kernel is timed on."""
+    import torch
+
+    gen = torch.Generator().manual_seed(5)
+    lo, hi = decades
+    mag = 10.0 ** (torch.rand(n, generator=gen, dtype=torch.float64)
+                   * (hi - lo) + lo)
+    sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0)
+    return (mag * sign).to(torch.float32).reshape(-1, 10)
+
+
 def phase_keys(errs):
     import numpy as np
     import torch
@@ -1074,12 +1129,8 @@ def phase_keys(errs):
     from repro_torch.kernels import ops
 
     cfg = SurrogateConfig(sig_digits=3)
-    gen = torch.Generator().manual_seed(5)
     n = KEY_VALUES
-    mag = 10.0 ** (torch.rand(n, generator=gen, dtype=torch.float64) * 60
-                   - 30)
-    sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0)
-    x = (mag * sign).to(torch.float32).reshape(-1, 10)
+    x = key_values(n)
     x_dev = x.to(DEVICE)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -1291,14 +1342,18 @@ def phase_interp(cfg_big, errs, poet_plain):
     prof = stencil_round_profile(scfg, st, centres, icfg)
     kernel_ms = [v["ms"] for k, v in prof["device"].items()
                  if "stencil_keys_kernel" in k]
+    step = prof["lattice_step"]
     emit("interp_stencil_profile", call="stencil_keys in one round",
          htod_copies=prof["htod_copies"], memcpy_calls=prof["memcpy_calls"],
          syncs=prof["syncs"], kernel_device_ms=kernel_ms,
-         host_ms=prof["host_ms"], runtime=prof["runtime"])
+         host_ms=prof["host_ms"], runtime=prof["runtime"],
+         lattice_step=step)
     check(len(kernel_ms) == 1, "interp: the profile saw no stencil kernel")
     check(prof["htod_copies"] == 0 and prof["memcpy_calls"] == 0
           and prof["syncs"] == 0,
           f"interp: stencil_keys copied from the host or waited {prof}")
+    check(step["htod_copies"] == 0 and step["memcpy_calls"] == 0,
+          f"interp: lattice_step copied from the host {step}")
     truth = interp_fn(centres)
     rel = float(((out - truth).abs() / (truth.abs() + 1e-9)).max())
     n_interp = int((prov == PROV_INTERP).sum())
@@ -2051,7 +2106,7 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls):
             "library_ms": None if lib is None else time_cold(lib(args), args),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops,
         }
-        if name in ("hash64", "stencil_keys"):
+        if name in TRACED:
             # the kernel's own device time beside the event interval
             out[name]["traced"] = trace_cold(kern, args)
     # the write round's send leg (L = 48) beside the read round's (L = 22)

@@ -33,6 +33,8 @@ their plain versions.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -58,15 +60,22 @@ _POW10_BITS = (
     0x77F684DF, 0x799A130C, 0x7B4097CE, 0x7CF0BDC2, 0x7E967699,
 )
 _POW10_F32 = np.array(_POW10_BITS, np.uint32).view(np.float32)
+# f32(1 / ln 10) as a Python float: exact in float32, so a float32 tensor
+# times it is the product with the f32 constant, with no tensor to copy
 _INV_LN10 = float(np.float32(1.0 / np.log(10.0)))
+
+
+@functools.cache
+def _pow10_table(device: torch.device) -> torch.Tensor:
+    """The pow10 table on ``device``, copied there once."""
+    return torch.from_numpy(_POW10_F32).to(device)
 
 
 def pow10(e: torch.Tensor) -> torch.Tensor:
     """10^e for integral float e, clamped to [-38, 38], with the
     reference's bits."""
-    table = torch.from_numpy(_POW10_F32).to(e.device)
     idx = torch.clamp(e, -38.0, 38.0).to(torch.int64) + 38
-    return table[idx]
+    return _pow10_table(e.device)[idx]
 
 
 def stencil_offsets(n_dims: int, radius: int,
@@ -96,8 +105,7 @@ def _decade(x: torch.Tensor):
     finite = torch.isfinite(x)
     tiny = absx < TINY_F32
     safe = torch.where(finite & ~tiny, absx, torch.ones_like(absx))
-    inv_ln10 = torch.tensor(_INV_LN10, dtype=torch.float32, device=x.device)
-    return finite, tiny, torch.floor(torch.log(safe) * inv_ln10)
+    return finite, tiny, torch.floor(torch.log(safe) * _INV_LN10)
 
 
 def round_significant(x: torch.Tensor, sig_digits: int) -> torch.Tensor:

@@ -304,28 +304,45 @@ def test_route_unpack_kernel_edges(gen, case, n, rows, width):
         assert torch.equal(out, fill.expand(n, width))
 
 
-@pytest.mark.parametrize("sets,ways,n", [(1024, 4, 65536), (5, 1, 40),
-                                         (16, 8, 300)])
-def test_l1_probe_kernel_matches_plain(gen, sets, ways, n):
-    lkeys = _words(gen, sets * ways, 20).reshape(sets, ways, 20)
-    lvals = _words(gen, sets * ways, 26).reshape(sets, ways, 26)
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("sets,ways,n,kw,vw", [
+    (1024, 4, 65536, 20, 26), (5, 1, 40, 20, 26), (16, 8, 300, 20, 26),
+    (16, 8, 300, 7, 25), (64, 4, 1000, 20, 28), (7, 40, 200, 20, 26)])
+def test_l1_probe_kernel_matches_plain(gen, sets, ways, n, kw, vw, misaligned):
+    """Bit for bit on the 16-byte key chunks (KW % 4 == 0) and the 4-byte
+    ones (KW 7, or query rows one word off 16-byte alignment), value rows
+    of 25, 26 and 28 words (the 4-, 8- and 16-byte copies), more ways
+    than a group's four lanes (8, and 40: two mask segments), a key in two
+    ways whose first is incoherent, and set indices out of range (the
+    kernel clamps them)."""
+    lkeys = _words(gen, sets * ways, kw).reshape(sets, ways, kw)
+    lvals = _words(gen, sets * ways, vw).reshape(sets, ways, vw)
     flags = torch.randint(0, 2, (sets, ways), generator=gen).bool().cuda()
     set_idx = torch.randint(0, sets, (n,), generator=gen).to(
         torch.int32).cuda()
     way = torch.randint(0, ways, (n,), generator=gen).cuda()
     q = lkeys[set_idx.long(), way].clone()
-    q[::2] = _words(gen, (n + 1) // 2, 20)
+    q[::2] = _words(gen, (n + 1) // 2, kw)
     flags[set_idx[3].long(), way[3]] = True      # query 3 hits
     if ways > 1:             # key in two ways, the first one incoherent
         s = int(set_idx[1])
         lkeys[s, 1] = lkeys[s, 0]
         q[1] = lkeys[s, 0]
         flags[s, 0], flags[s, 1] = False, True
+    if misaligned:
+        q = _off_by_one_word(q)
     for f in (flags, flags.to(torch.uint8)):
         a = l1_kernel.l1_probe(lkeys, lvals, f, q, set_idx)
         b = ref.l1_probe(lkeys, lvals, flags, q, set_idx)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert bool(a[0].any()) and not bool(a[0].all())
+    past = set_idx.clone()
+    past[::3] = sets + torch.arange(0, n, 3, device="cuda",
+                                    dtype=torch.int32) % 5
+    past[1::7] = -1
+    a = l1_kernel.l1_probe(lkeys, lvals, flags, q, past)
+    b = ref.l1_probe(lkeys, lvals, flags, q, past.clamp(0, sets - 1))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_cached_read_on_card_matches_cpu(gen):
@@ -414,6 +431,14 @@ def test_round_sig_kernel_matches_plain(gen, sig):
     b = round_significant(x, sig)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert (a[:4].view(torch.int32) == 0).all()            # +0
+    # the 4-byte path (a view one word off 16-byte alignment), the n % 4
+    # tail and inputs shorter than a vector, and one decade, [1, 10)
+    one_decade = (10.0 ** torch.rand(4099, generator=gen)).cuda()
+    flat = x.reshape(-1)
+    for y in (flat[1:], flat[1:4098], one_decade, one_decade[1:],
+              *(flat[o:o + m] for m in (1, 3, 5, 4097) for o in (0, 1))):
+        assert torch.equal(round_kernel.round_sig(y, sig).view(torch.int32),
+                           round_significant(y, sig).view(torch.int32))
 
 
 @pytest.mark.parametrize("radius,coarse,n", [(1, True, 2978), (2, False, 64),

@@ -3,6 +3,8 @@ CUDA kernel is held against on the card) against the JAX package's Pallas
 kernels in interpret mode, bit for bit.  Same seeded numpy inputs on both
 sides; words compared as uint32."""
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -588,6 +590,265 @@ def test_round_sig_matches_pallas(sig):
     b = ops.round_sig(torch.from_numpy(band), sig).numpy()
     assert int((a.view(np.uint32) != b.view(np.uint32)).sum()) == {
         3: 6, 4: 2}[sig]
+
+
+# csrc/round.cu: kThreads, kVecs, kBlocksPerSm (the grid: SMs x blocks)
+ROUND_THREADS, ROUND_VECS, ROUND_BLOCKS_PER_SM, SMS = 256, 4, 4, 132
+CSRC = Path(ops.__file__).resolve().parent / "csrc"
+
+
+def test_round_sig_shared_table_lookup_matches_plain():
+    """csrc/round.cu's lookup: the 77 words its blocks copy into shared
+    memory (siground.cuh's table) are the plain version's; for every
+    exponent e, -45..45 (clamped to [-38, 38]), word idx = int(clamp(e)) +
+    38 is pow10(e) and word 76 - idx is pow10(-e), bit for bit; a warp's
+    lookup takes at most three bank passes (banks hold words b, b + 32,
+    b + 64)."""
+    from repro_torch.core.neighbors import _POW10_BITS, pow10
+
+    text = (CSRC / "siground.cuh").read_text()
+    body = text[text.index("kPow10Bits[77] = {"):]
+    body = body[:body.index("};")]
+    table = np.array([int(h, 16) for h in
+                      re.findall(r"0x([0-9A-Fa-f]{8})u", body)], np.uint32)
+    np.testing.assert_array_equal(table, np.array(_POW10_BITS, np.uint32))
+    e = np.arange(-45, 46).astype(np.float32)
+    idx = np.clip(e, -38, 38).astype(np.int64) + 38
+    for got, want in ((table[idx], e), (table[76 - idx], -e)):
+        np.testing.assert_array_equal(
+            got, _u(pow10(torch.from_numpy(want)).view(torch.int32)))
+    rng = np.random.default_rng(0)
+    for _ in range(200):                      # warps of random exponents
+        w = rng.integers(0, 77, size=32)
+        passes = max(len(set(w[w % 32 == b])) for b in range(32))
+        assert passes <= 3
+    assert np.bincount(np.arange(77) % 32).max() == 3
+
+
+def _round_split(n, offset):
+    """Element coverage of csrc/round.cu's launch on n values starting
+    ``offset`` words past a 16-byte boundary (the output, from
+    ``empty_like``, is aligned): float4 vectors where both buffers are
+    aligned, else 4-byte words; tiles of kThreads * kVecs vectors over a
+    grid of at most SMs * kBlocksPerSm blocks, grid-stride; the first
+    block's threads take the n % 4 tail.  Returns the count of each
+    element's visits, indices past n counted at n."""
+    width = 4 if offset == 0 else 1
+    nv = n // width
+    per_block = ROUND_THREADS * ROUND_VECS * width
+    blocks = min(max(-(-n // per_block), 1), SMS * ROUND_BLOCKS_PER_SM)
+    tile = ROUND_THREADS * ROUND_VECS
+    lanes = (np.arange(ROUND_VECS)[:, None] * ROUND_THREADS
+             + np.arange(ROUND_THREADS)[None, :]).ravel()
+    seen = []
+    for b in range(blocks):
+        for t0 in range(b * tile, nv, blocks * tile):
+            i = t0 + lanes
+            i = i[i < nv]
+            seen.append((i[:, None] * width + np.arange(width)).ravel())
+    if width > 1:
+        t = np.arange(ROUND_THREADS)
+        seen.append(nv * width + t[t < n - nv * width])
+    idx = np.concatenate(seen) if seen else np.zeros(0, np.int64)
+    return np.bincount(np.minimum(idx, n), minlength=n + 1)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_round_sig_split_covers_every_value_once(offset):
+    """csrc/round.cu's vector body, its n % 4 tail and its 4-byte path
+    for inputs that start a word in (``x.reshape(-1)[1:]``) visit each of
+    n values exactly once and nothing past them, for n = 0..9 and an n
+    whose grid-stride loop turns more than once on both paths."""
+    big = 2 * SMS * ROUND_BLOCKS_PER_SM * ROUND_THREADS * ROUND_VECS * 4 + 7
+    for n in [*range(10), big]:
+        counts = _round_split(n, offset)
+        np.testing.assert_array_equal(counts[:n], np.ones(n, np.int64))
+        assert counts[n] == 0
+
+
+# csrc/l1.cu: kGroup, kSeg, kBatch, kQueries, kThreads, kCopy
+L1_GROUP, L1_SEG, L1_BATCH = 4, 32, 4
+L1_QUERIES, L1_THREADS, L1_COPY = 32, 128, 4
+
+
+def _emulate_l1_decision(lkeys, flags, q, set_idx, key16):
+    """csrc/l1.cu's step 2, group by group: lane w of a query's group
+    loads the flag and first key chunk of ways w, w + 4, ... of the
+    clamped set (a segment of 32 ways at a time), further chunks kBatch
+    at a time only while equal; a ballot of the coherent key-equal ways
+    and __ffs give the first.  Returns (way or -1, chunks loaded per
+    (query, way))."""
+    sets, ways, kw = lkeys.shape
+    kk = 4 if key16 else 1                    # words a chunk
+    kwc = kw // kk
+    n = q.shape[0]
+    s = np.clip(set_idx, 0, sets - 1)
+    first = np.full(n, -1, np.int64)
+    loaded = np.zeros((n, ways), np.int64)
+    for i in range(n):
+        qc = q[i].reshape(kwc, kk)
+        for s0 in range(0, ways, L1_SEG):
+            if first[i] >= 0:
+                break
+            nseg = min(ways - s0, L1_SEG)
+            ok = 0
+            for lane in range(L1_GROUP):
+                for u in range(-(-nseg // L1_GROUP)):
+                    j = lane + L1_GROUP * u
+                    if j >= nseg:
+                        continue
+                    w = s0 + j
+                    lc = lkeys[s[i], w].reshape(kwc, kk)
+                    loaded[i, w] += min(kwc, 1)            # flag, head
+                    eq = bool(flags[s[i], w]) and (
+                        kwc == 0 or (lc[0] == qc[0]).all())
+                    c0 = 1
+                    while eq and c0 < kwc:                 # while equal
+                        got = lc[c0:c0 + L1_BATCH]
+                        loaded[i, w] += len(got)
+                        eq = bool((got == qc[c0:c0 + L1_BATCH]).all())
+                        c0 += L1_BATCH
+                    ok |= int(eq) << j                     # ballot bit
+            if ok:
+                first[i] = s0 + (ok & -ok).bit_length() - 1  # __ffs - 1
+    return first, loaded
+
+
+def _l1_case(rng, sets, ways, n, kw, vw):
+    """Lines, flags and queries: stored keys, foreign keys, keys equal to
+    a line but for a word in the middle (the chunk compare's batches), a
+    key in two ways of its set whose first is incoherent, and set
+    indices before the first and past the last set (clamped)."""
+    lkeys = _words(rng, sets * ways, kw).reshape(sets, ways, kw)
+    lvals = _words(rng, sets * ways, vw).reshape(sets, ways, vw)
+    flags = rng.integers(0, 2, size=(sets, ways)).astype(bool)
+    set_idx = rng.integers(0, sets, size=n).astype(np.int32)
+    way = rng.integers(0, ways, size=n)
+    q = np.array(lkeys[set_idx, way])
+    q[0::4] = _words(rng, len(range(0, n, 4)), kw)
+    q[1::4, kw // 2] ^= 1
+    flags[set_idx[2::4], way[2::4]] = True
+    if ways > 1:
+        s = set_idx[3]
+        lkeys[s, 1] = lkeys[s, 0]
+        q[3] = lkeys[s, 0]
+        flags[s, 0], flags[s, 1] = False, True
+    past = set_idx.copy()
+    past[5::7] = sets + rng.integers(0, 3, size=len(range(5, n, 7)))
+    past[6::11] = -1 - rng.integers(0, 3, size=len(range(6, n, 11)))
+    return lkeys, lvals, flags, q, set_idx, past
+
+
+@pytest.mark.parametrize("ways,kw,key16", [
+    (1, 20, True), (4, 20, True), (8, 20, True), (8, 7, False),
+    (4, 20, False), (40, 20, True)])
+def test_l1_probe_group_decision_matches_plain(ways, kw, key16):
+    """csrc/l1.cu's decision (flags and first chunks of a group's ways,
+    ballot, __ffs; more ways than the group's four lanes at 8, and two
+    32-way segments at 40) gives ``ref.l1_probe``'s hits and values on
+    clamped set indices, and the JAX oracle's and the Pallas kernel's
+    (interpret mode) on the queries whose sets are in range; a line's
+    further key chunks are loaded only when it is coherent and its first
+    chunk equal, and a hit's whole key is loaded."""
+    from repro.kernels.l1_kernel import l1_probe_pallas
+    from repro.kernels.ref import ref_l1_probe
+
+    rng = np.random.default_rng(ways * 100 + kw + key16)
+    sets, n, vw = 6, 40, 26
+    lkeys, lvals, flags, q, set_idx, past = _l1_case(rng, sets, ways, n, kw,
+                                                     vw)
+    first, loaded = _emulate_l1_decision(lkeys, flags, q, past, key16)
+    s = np.clip(past, 0, sets - 1)
+    hit = first >= 0
+    vals = np.where(hit[:, None], lvals[s, np.maximum(first, 0)], 0)
+    r_hit, r_val = ref.l1_probe(_t(lkeys), _t(lvals), torch.from_numpy(flags),
+                                _t(q), torch.from_numpy(s.astype(np.int32)))
+    np.testing.assert_array_equal(hit, r_hit.numpy())
+    np.testing.assert_array_equal(vals, _u(r_val))
+    inside = (past >= 0) & (past < sets)
+    assert not inside.all() and hit.any() and not hit.all()
+    j = [jnp.asarray(a) for a in (lkeys, lvals, flags, q[inside],
+                                  past[inside])]
+    for o_hit, o_val in (ref_l1_probe(*j), l1_probe_pallas(*j,
+                                                           interpret=True)):
+        np.testing.assert_array_equal(hit[inside], np.asarray(o_hit))
+        np.testing.assert_array_equal(vals[inside], np.asarray(o_val))
+    if ways > 1:                  # the first way incoherent: the second
+        assert first[3] == 1
+    kk = 4 if key16 else 1
+    lines = lkeys[s]                                     # (n, ways, kw)
+    head_eq = (lines[:, :, :kk] == q[:, None, :kk]).all(-1) & flags[s]
+    scanned = loaded > 0
+    assert (loaded[scanned & ~head_eq] == 1).all()       # the head only
+    assert (loaded[np.arange(n)[hit], first[hit]] == kw // kk).all()
+    if kw // kk > 1 + L1_BATCH:                          # a later batch
+        assert (loaded[scanned & head_eq] < kw // kk).any()
+
+
+def _emulate_l1_copy(lvals, line, rows, vw, align):
+    """csrc/l1.cu's step 3 for one block's tile of ``rows`` queries: the
+    flat (rows, VW) output written as vectors of the widest width VW and
+    the alignment allow, thread t taking vectors t, t + kThreads, ...
+    (kCopy a turn), row = c // nv.  Returns (vector width, writes per
+    word, tile)."""
+    vv = next(v for v in (4, 2, 1) if vw % v == 0 and align % (4 * v) == 0)
+    nv = vw // vv
+    flat = lvals.reshape(-1)
+    writes = np.zeros(rows * vw, np.int64)
+    out = np.zeros(rows * vw, np.uint32)
+    total = rows * nv
+    for t in range(L1_THREADS):
+        for c0 in range(t, total, L1_THREADS * L1_COPY):
+            for u in range(L1_COPY):
+                c = c0 + u * L1_THREADS
+                if c >= total:
+                    continue
+                row = c // nv
+                words = c * vv + np.arange(vv)
+                writes[words] += 1
+                if line[row] >= 0:
+                    out[words] = flat[line[row] * vw + (c - row * nv) * vv
+                                      + np.arange(vv)]
+    return vv, writes, out.reshape(rows, vw)
+
+
+@pytest.mark.parametrize("vw,align", [(25, 16), (26, 16), (28, 16),
+                                      (28, 4), (26, 4)])
+@pytest.mark.parametrize("rows", [L1_QUERIES, 5])
+def test_l1_probe_tile_copy_covers_once(vw, align, rows):
+    """csrc/l1.cu's tile copy writes each output word of a block's tile
+    exactly once, with 16-byte vectors at VW 28, 8-byte at 26 and 4-byte
+    at 25 or where the value rows are off alignment, and the words of
+    each query's hit line (zeros for a miss), for a full tile and the
+    ragged last one."""
+    rng = np.random.default_rng(vw * 10 + align + rows)
+    lvals = _words(rng, 24, vw)
+    line = rng.integers(-1, 24, size=rows)
+    line[:2] = -1
+    vv, writes, out = _emulate_l1_copy(lvals, line, rows, vw, align)
+    assert vv == {(25, 16): 1, (26, 16): 2, (28, 16): 4, (28, 4): 1,
+                  (26, 4): 1}[(vw, align)]
+    np.testing.assert_array_equal(writes, np.ones(rows * vw, np.int64))
+    np.testing.assert_array_equal(
+        out, np.where(line[:, None] >= 0, lvals[np.maximum(line, 0)], 0))
+
+
+def test_pow10_table_copied_once_per_device():
+    """The plain rounding copies the pow10 table to a device once, and
+    later calls index that copy (on the card: no host-to-device copy in
+    ``lattice_step``); the bits are the table's."""
+    from repro_torch.core import neighbors
+
+    e = torch.arange(-40.0, 41.0)
+    a = neighbors.pow10(e)
+    table = neighbors._pow10_table(e.device)
+    b = neighbors.pow10(e * 0 + 3)
+    assert neighbors._pow10_table(e.device) is table
+    np.testing.assert_array_equal(
+        _u(a.view(torch.int32)),
+        np.array(neighbors._POW10_BITS, np.uint32)[
+            np.clip(np.arange(-40, 41), -38, 38) + 38])
+    assert bool((b == 1000.0).all())
 
 
 @pytest.mark.parametrize("radius,coarse,d,key_words", [
