@@ -58,7 +58,20 @@ and decode), checks the results, and times every kernel.  One JSON line per phas
              equal card/CPU; (d) lookup_cached on 2^16 POET-shaped rows
              from 4,096 chemistry states, equal to lookup, the second call
              served from the L1;
-9. lm      - gemma3-12b: (a) the local-attention kernel against its
+9. pipeline - the issue/commit pipeline: (a) pipeline-full: the full
+             table, POET's surrogate config (10 inputs, 13 outputs, sig
+             3), a Zipf(1.1) and a uniform stream of 16 batches of 2^16
+             rows through lookup_or_compute_pipelined at depth 1 and 2 on
+             fresh tables: outputs, found flags, counts and slab digests
+             equal, forwarding on the Zipf stream, nothing dropped or
+             re-issued; the miss compute is a value function on the card
+             plus a host stall modelled as 1.5 measured read+write
+             rounds; the walls, the depth-2 read commits' overlap and the
+             host syncs of each kind of issue half printed; (b)
+             pipeline-parity: a depth-2 Zipf stream at B=2^16 in the
+             three modes, card against CPU; (c) the POET twin with
+             --pipeline beside phase 6's plain run;
+10. lm     - gemma3-12b: (a) the local-attention kernel against its
              plain version at the prefill shape (B=2, S=4096, H=16, Hk=8,
              D=256, window 1024) in bf16 and float32 and at edge shapes,
              within local_attn_kernel.tolerance (f32 1e-5; bf16 one ulp
@@ -73,7 +86,7 @@ and decode), checks the results, and times every kernel.  One JSON line per phas
              steps (the ring buffer wraps) within 2e-2; (d) lm-parity:
              the reduced model on the card against the CPU, forward and
              40 decode steps at rtol/atol 1e-4;
-10. timing - each kernel, its plain version and the nearest single
+11. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
              local-attention kernel beside its operation bound); hash64
@@ -117,6 +130,12 @@ L1_REWRITES = 1 << 12          # keys rewritten after every second batch
 MODE_KEYS = 2048               # keys of the modes-parity stream
 MODE_BATCH = 256               # its write batch (coarse: a round per write)
 POET_STATES = 4096             # distinct chemistry states in l1 (d)
+PIPE_BATCHES = 16              # batches of N_KEYS rows per pipeline stream
+PIPE_ZIPF_IDS = 1 << 20        # Zipf(1.1) ids of the pipeline stream
+PIPE_UNIFORM_IDS = 1 << 22     # uniform ids (nearly every row misses)
+PIPE_STALL_RATIO = 1.5         # modelled solver stall / read+write round
+PIPE_PARITY_ROWS = 1 << 12     # rows per batch of the card/CPU stream
+PIPE_PARITY_BATCHES = 4
 LM_ARCH = "gemma3-12b"         # full width and depth (48 layers, bf16)
 LM_BATCH = 2                   # prompts per call
 LM_PREFILL = 4096              # prefill tokens per prompt
@@ -154,12 +173,12 @@ KERNEL_SOURCES = {
 }
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
-ENGINE_PHASES = ("dht", "poet", "interp", "l1")
+ENGINE_PHASES = ("dht", "poet", "interp", "l1", "pipeline")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
     "checksum": ENGINE_PHASES, "probe": ENGINE_PHASES,
-    "round_sig": ("keys", "poet", "interp", "l1"),
+    "round_sig": ("keys", "poet", "interp", "l1", "pipeline"),
     "stencil_keys": ("interp",), "l1_probe": ("l1",),
     "local_attention": ("lm",),
 }
@@ -1708,6 +1727,304 @@ def phase_l1(cfg_big, errs):
 # the lm phase: gemma3-12b prefill and decode, local layers on the kernel
 # ---------------------------------------------------------------------------
 
+def zipf_ids(gen, n: int, universe: int, s: float = 1.1):
+    """(n,) int64 Zipf(s) ranks over [0, universe), by inverse CDF over a
+    seeded torch generator's uniforms, so the stream does not depend on
+    numpy's version (F7 in ROADMAP.md)."""
+    import torch
+
+    w = torch.arange(1, universe + 1, dtype=torch.float64) ** -s
+    cdf = torch.cumsum(w, 0)
+    u = torch.rand(n, generator=gen, dtype=torch.float64) * cdf[-1]
+    return torch.searchsorted(cdf, u).clamp(max=universe - 1)
+
+
+def pipe_inputs(ids, device):
+    """(n,) ids -> (n, 10) float32 POET-shaped inputs whose values carry 3
+    significant digits (100..999), so key rounding keeps them and
+    distinct ids give distinct keys."""
+    import torch
+
+    x = torch.full((ids.shape[0], 10), 5.0, dtype=torch.float32)
+    for j in range(3):
+        x[:, j] = (100 + (ids // 900 ** j) % 900).to(torch.float32)
+    x[:, 9] = 0.25
+    return x.to(device)
+
+
+def pipe_value(x):
+    """The pipeline streams' stored function: (n, 10) -> (n, 13), exact
+    in float32 (a doubling and a +1)."""
+    return x[:, list(range(10)) + [0, 1, 2]] * 2.0 + 1.0
+
+
+def slab_digest(st) -> list:
+    """Position-weighted sums (int64, wrapping) of the words of the four
+    slab arrays (without the dump row): equal tables give equal
+    digests."""
+    import torch
+
+    out = []
+    for t in (st.keys, st.vals, st.meta, st.csum):
+        flat = t.reshape(-1)
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for lo in range(0, flat.numel(), 1 << 26):
+            x = flat[lo:lo + (1 << 26)].to(torch.int64) & 0xFFFFFFFF
+            w = torch.arange(lo, lo + x.numel(), dtype=torch.int64,
+                             device=flat.device) * 2 + 1
+            acc += (x * w).sum()
+        out.append(int(acc))
+    return out
+
+
+def issue_syncs(issue):
+    """Host syncs the card reports while ``issue()`` runs (sync debug
+    mode): their count, the Python lines that made them, and the handle
+    ``issue()`` returned."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rnd = issue()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return len(sites), sites, rnd
+
+
+def _pipe_syncs(scfg):
+    """Syncs of each kind of issue half at N_KEYS rows on the full table:
+    a read, a read through a non-empty pending filter, a write and a
+    95/5 mixed round; and of the read's commit half."""
+    import torch
+
+    from repro_torch.core import (PendingWrites, dht_commit, dht_issue,
+                                  dht_read_async, dht_read_commit,
+                                  dht_write_async, dht_write_commit,
+                                  make_keys, mixed_ops, surrogate_create)
+
+    st = surrogate_create(scfg, device=DEVICE)
+    gen = torch.Generator().manual_seed(41)
+    keys = make_keys(scfg, pipe_inputs(torch.randint(
+        0, PIPE_UNIFORM_IDS, (N_KEYS,), generator=gen), DEVICE))
+    vals = words(gen, N_KEYS, scfg.dht.val_words, DEVICE)
+    op = (torch.rand(N_KEYS, generator=gen) < 0.05).to(torch.int32).to(
+        DEVICE)
+    pend = PendingWrites(scfg.dht.val_words)
+    pend.promise(keys[: N_KEYS // 2])
+    pend.publish(keys[: N_KEYS // 2], vals[: N_KEYS // 2])
+    out, sites = {}, {}
+    out["write"], sites["write"], w = issue_syncs(
+        lambda: dht_write_async(st, keys, vals))
+    dht_write_commit(w)
+    out["read"], sites["read"], r = issue_syncs(
+        lambda: dht_read_async(st, keys))
+    torch.cuda.synchronize()
+    out["read_commit"], sites["read_commit"], _ = issue_syncs(
+        lambda: dht_read_commit(r))
+    out["read_pending"], sites["read_pending"], r = issue_syncs(
+        lambda: dht_read_async(st, keys, pending=pend))
+    dht_read_commit(r)
+    out["mixed_95_5"], sites["mixed_95_5"], m = issue_syncs(
+        lambda: dht_issue(st, mixed_ops(op, keys, vals),
+                          kinds=("read", "write")))
+    dht_commit(m)
+    del st
+    return out, sites
+
+
+def _pipe_full(cfg_big):
+    """(a) pipeline-full: depth 1 against depth 2 on the full table."""
+    import torch
+
+    from repro_torch.core import (SurrogateConfig, dht_read, dht_write,
+                                  lookup_or_compute_pipelined, make_keys,
+                                  pack_floats, surrogate_create)
+    from repro_torch.core import dht as dht_mod
+
+    scfg = SurrogateConfig(n_inputs=10, n_outputs=13, sig_digits=3,
+                           dht=cfg_big)
+    # calibrate the modelled solver stall on one read + write round
+    st = surrogate_create(scfg, device=DEVICE)
+    gen = torch.Generator().manual_seed(40)
+    x = pipe_inputs(torch.randint(0, PIPE_UNIFORM_IDS, (N_KEYS,),
+                                  generator=gen), DEVICE)
+    keys, vals = make_keys(scfg, x), pack_floats(pipe_value(x), 26)
+    round_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dht_read(st, keys)
+        dht_write(st, keys, vals)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    t_round = min(round_ms[1:]) / 1e3
+    stall = PIPE_STALL_RATIO * t_round
+    del st
+
+    def compute(inp):
+        out = pipe_value(inp)          # measured: the card's value function
+        time.sleep(stall)              # modelled: the solver's wall time
+        return out
+
+    commits = []
+    orig_commit = dht_mod.dht_read_commit
+
+    def noted_commit(rnd):
+        res = orig_commit(rnd)
+        commits.append(rnd.telemetry)
+        return res
+
+    gen = torch.Generator().manual_seed(42)
+    streams = {
+        "zipf": [zipf_ids(gen, N_KEYS, PIPE_ZIPF_IDS)
+                 for _ in range(PIPE_BATCHES)],
+        "uniform": [torch.randint(0, PIPE_UNIFORM_IDS, (N_KEYS,),
+                                  generator=gen)
+                    for _ in range(PIPE_BATCHES)]}
+    result = {}
+    for dist, ids in streams.items():
+        batches = [pipe_inputs(i, DEVICE) for i in ids]
+        runs = {}
+        for depth in (1, 2):
+            st = surrogate_create(scfg, device=DEVICE)
+            commits.clear()
+            torch.cuda.synchronize()
+            dht_mod.dht_read_commit = noted_commit
+            try:
+                t0 = time.perf_counter()
+                st, outs, founds, stats = lookup_or_compute_pipelined(
+                    scfg, st, batches, compute, depth=depth)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                dht_mod.dht_read_commit = orig_commit
+            runs[depth] = {
+                "wall_s": wall, "stats": stats, "digest": slab_digest(st),
+                "outs": torch.stack(outs).view(torch.int32),
+                "found": torch.stack(founds),
+                "overlap": [c["overlap_frac"] for c in commits],
+                "commit_wait_us": [c["commit_wait_us"] for c in commits]}
+            del st, outs, founds
+        one, two = runs[1], runs[2]
+        same = {"outputs": torch.equal(one["outs"], two["outs"]),
+                "found": torch.equal(one["found"], two["found"]),
+                "slab_digest": one["digest"] == two["digest"]}
+        for k in ("hits", "misses", "stored"):
+            same[k] = one["stats"][k] == two["stats"][k]
+        s2 = two["stats"]
+        result[dist] = {
+            "batches": PIPE_BATCHES, "rows": N_KEYS,
+            "wall_s_depth1": one["wall_s"], "wall_s_depth2": two["wall_s"],
+            "stats_depth1": one["stats"], "stats_depth2": s2,
+            "equal": same,
+            "depth2_read_commits": len(two["overlap"]),
+            "depth2_overlap_frac_mean": statistics.mean(two["overlap"]),
+            "depth2_commit_wait_us_median": statistics.median(
+                two["commit_wait_us"])}
+        check(all(same.values()), f"pipeline-full {dist}: depth 1 and "
+                                  f"depth 2 differ {same}")
+        check(s2["requeued"] == 0 and one["stats"]["requeued"] == 0,
+              f"pipeline-full {dist}: rows re-issued")
+        check(dist != "zipf" or s2["forwarded"] > 0,
+              "pipeline-full zipf: nothing was forwarded")
+        del runs, one, two, batches
+    syncs, sites = _pipe_syncs(scfg)
+    emit("pipeline_full", S=cfg_big.n_shards, B=cfg_big.buckets_per_shard,
+         sig_digits=scfg.sig_digits,
+         measured="the walls, the card's value function, the overlap",
+         modelled=f"a host sleep of {stall * 1e3:.3f} ms per miss batch "
+                  f"({PIPE_STALL_RATIO} x the read+write round)",
+         read_write_round_ms=round_ms, streams=result,
+         syncs_per_issue_half=syncs, sync_sites=sites)
+
+
+def _pipe_stream(mode, device):
+    """(b) the depth-2 Zipf stream at B=2^16 on ``device``: outputs,
+    found flags, stats and slab words."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import (DHTConfig, SurrogateConfig,
+                                  lookup_or_compute_pipelined,
+                                  surrogate_create)
+
+    scfg = SurrogateConfig(n_inputs=10, n_outputs=13, sig_digits=3,
+                           dht=DHTConfig(n_shards=8, mode=mode,
+                                         buckets_per_shard=SMALL_BUCKETS))
+    gen = torch.Generator().manual_seed(43)
+    batches = [pipe_inputs(zipf_ids(gen, PIPE_PARITY_ROWS, PIPE_ZIPF_IDS),
+                           device) for _ in range(PIPE_PARITY_BATCHES)]
+    st = surrogate_create(scfg, device=device)
+    st, outs, founds, stats = lookup_or_compute_pipelined(
+        scfg, st, batches, pipe_value, depth=2)
+    return (state_to_numpy(st), torch.stack(outs).view(torch.int32).cpu(),
+            torch.stack(founds).cpu(), stats)
+
+
+def phase_pipeline(cfg_big, poet_plain):
+    import torch
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_poet_reactive_transport import PoetConfig, run_simulation
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    _pipe_full(cfg_big)
+
+    parity = {}
+    for mode in ("lockfree", "fine", "coarse"):
+        card, cpu = _pipe_stream(mode, DEVICE), _pipe_stream(mode, "cpu")
+        eq = {"slab": all((card[0][k] == cpu[0][k]).all() for k in cpu[0]),
+              "outputs": torch.equal(card[1], cpu[1]),
+              "found": torch.equal(card[2], cpu[2]),
+              "stats": card[3] == cpu[3]}
+        parity[mode] = {"equal": eq, "stats": card[3]}
+        check(all(eq.values()), f"pipeline-parity {mode}: card and CPU "
+                                f"differ {eq}")
+        check(card[3]["forwarded"] > 0,
+              f"pipeline-parity {mode}: nothing was forwarded")
+    emit("pipeline_parity", B=SMALL_BUCKETS, rows=PIPE_PARITY_ROWS,
+         batches=PIPE_PARITY_BATCHES, depth=2, modes=parity)
+
+    # (c) the POET twin with --pipeline, beside phase 6's plain run
+    cfg = PoetConfig(n_steps=POET_STEPS, use_pipeline=True)
+    torch.cuda.synchronize()
+    res = run_simulation(cfg, use_dht=True, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    conc = res["conc"]
+    check(conc.shape == (cfg.nx * cfg.ny, 9)
+          and bool(torch.isfinite(conc).all()), "pipeline poet: bad conc")
+    for k in ("hits", "misses"):
+        check(res[k] == poet_plain[k], f"pipeline poet: {k} {res[k]} "
+                                       f"against {poet_plain[k]} plain")
+    # the pipelined driver solves a whole batch when it holds a miss (as
+    # the reference's does), the plain loop only the missed rows
+    check(res["chem_calls"] >= poet_plain["chem_calls"],
+          "pipeline poet: fewer solver rows than missed rows")
+    emit("pipeline_poet", grid=[cfg.nx, cfg.ny],
+         n_steps=f"{cfg.n_steps} of {PoetConfig.n_steps}",
+         hits=res["hits"], misses=res["misses"],
+         chem_calls=res["chem_calls"], wall_s=res["wall_s"],
+         plain={k: poet_plain[k] for k in ("hits", "misses", "chem_calls",
+                                           "wall_s")},
+         max_abs_dconc_vs_plain=float(
+             (conc - poet_plain["conc"]).abs().max()),
+         note="the twin's chemistry is launch-bound on the card (F8): "
+              "this wall is not a pipeline measurement; solver rows count "
+              "whole batches holding a miss, as in the reference")
+    return launches
+
+
 def _attn_case(gen, b, s, h, hk, d, dtype):
     import torch
 
@@ -2175,6 +2492,7 @@ def main() -> int:
     del _ref
     launches["interp"], icalls = phase_interp(cfg_big, errs, poet_plain)
     launches["l1"] = phase_l1(cfg_big, errs)
+    launches["pipeline"] = phase_pipeline(cfg_big, poet_plain)
     tols: dict[str, float] = {}        # the bit-exact kernels: 0
     launches["lm"], acalls = phase_lm(errs, tols)
     timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls)

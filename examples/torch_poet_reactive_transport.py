@@ -1,6 +1,6 @@
 """POET-analogue coupled reactive transport with the DHT as surrogate model,
 on the PyTorch port (twin of ``examples/poet_reactive_transport.py``: the
-plain DHT path and ``--interp``; no pipelining).
+plain DHT path, ``--interp`` and ``--pipeline``).
 
 Physics: a 2-D grid, explicit upwind advection with constant flux and
 magnesium chloride injected at the top-left boundary; per-cell kinetic
@@ -14,10 +14,14 @@ host, looked up in fixed-size padded batches, and only the misses go to
 the solver, whose results are written back.  With ``--interp`` each
 lookup is a neighbourhood query (``lookup_or_interpolate``): a cell whose
 own rounded state is not cached but whose lattice neighbours are takes
-their inverse-distance blend instead of a solver call.
+their inverse-distance blend instead of a solver call.  With
+``--pipeline`` the lookups go through ``lookup_or_compute_pipelined``:
+the read round of bucket B+1 is issued before the solver computes
+bucket B's misses, so the round runs on the card while the host waits on
+the chemistry.
 
     PYTHONPATH=src python examples/torch_poet_reactive_transport.py \
-        [--interp] [--device cpu]
+        [--interp | --pipeline] [--device cpu]
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from repro_torch.core import (
     SurrogateConfig,
     dht_read,
     dht_write,
+    lookup_or_compute_pipelined,
     lookup_or_interpolate,
     make_keys,
     pack_floats,
@@ -74,6 +79,10 @@ class PoetConfig:
     interp_radius: int = 1
     interp_max_dist: float = 2.0
     interp_min_neighbors: int = 2
+    # pipelined issue/commit engine: probe the next read bucket while the
+    # solver computes the previous bucket's misses
+    use_pipeline: bool = False
+    pipeline_depth: int = 2
 
 
 def initial_state(cfg: PoetConfig, device) -> torch.Tensor:
@@ -161,6 +170,78 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _bucketed_lookup(cfg, scfg, icfg, table, uniq_rows, dev):
+    """One step's lookups in fixed-size padded buckets, then the misses
+    through the solver in buckets and written back.  Returns
+    ``(outputs, found, exact, solver calls, mismatches)``."""
+    nu = uniq_rows.shape[0]
+    out_u = np.zeros((nu, N_OUT), np.float32)
+    found_np = np.zeros((nu,), bool)
+    exact_np = np.zeros((nu,), bool)
+    chem_calls = mismatches = 0
+    for lo in range(0, nu, READ_BUCKET):
+        hi_ = min(lo + READ_BUCKET, nu)
+        upad = np.zeros((READ_BUCKET, N_IN), np.float32)
+        upad[: hi_ - lo] = uniq_rows[lo:hi_]
+        uvalid = torch.zeros(READ_BUCKET, dtype=torch.bool, device=dev)
+        uvalid[: hi_ - lo] = True
+        x = torch.from_numpy(upad).to(dev)
+        if cfg.use_interp:
+            # exact hit, or IDW over cached lattice neighbours: both skip
+            # the solver for this row
+            table, out_f, prov, rstats = lookup_or_interpolate(
+                scfg, table, x, icfg, valid=uvalid)
+            pv = prov[: hi_ - lo].cpu().numpy()
+            found_np[lo:hi_] = pv != PROV_MISS
+            exact_np[lo:hi_] = pv == PROV_EXACT
+            out_u[lo:hi_] = out_f[: hi_ - lo].cpu().numpy()
+        else:
+            table, vals_w, found, rstats = dht_read(
+                table, make_keys(scfg, x), uvalid)
+            found_np[lo:hi_] = found[: hi_ - lo].cpu().numpy()
+            exact_np[lo:hi_] = found_np[lo:hi_]
+            vw = vals_w[: hi_ - lo].cpu().numpy()
+            out_u[lo:hi_] = np.ascontiguousarray(
+                vw[:, 0:2 * N_OUT:2]).view(np.float32)
+        mismatches += int(rstats["mismatches"])
+    miss_idx = np.nonzero(~found_np)[0]
+    for lo in range(0, miss_idx.size, MISS_BUCKET):
+        sel = miss_idx[lo:lo + MISS_BUCKET]
+        pad = np.zeros(MISS_BUCKET, np.int64)
+        pad[: sel.size] = sel
+        sub_in = torch.from_numpy(uniq_rows[pad]).to(dev)
+        sub = chemistry(sub_in, cfg.solver_iters)
+        chem_calls += int(sel.size)
+        out_u[sel] = sub[: sel.size].cpu().numpy()
+        valid = torch.zeros(MISS_BUCKET, dtype=torch.bool, device=dev)
+        valid[: sel.size] = True
+        table, _ = dht_write(table, make_keys(scfg, sub_in),
+                             pack_floats(sub, scfg.dht.val_words), valid)
+    return out_u, found_np, exact_np, chem_calls, mismatches
+
+
+def _pipelined_lookup(cfg, scfg, table, uniq_rows, dev):
+    """One step's lookups through the pipelined driver: bucket B+1's read
+    round is in flight while the solver computes bucket B's misses.  As
+    in the reference example, the solver takes a whole bucket whenever
+    it holds a miss.  Returns ``(outputs, found, solver calls)``."""
+    nu = uniq_rows.shape[0]
+    batches = [torch.from_numpy(uniq_rows[lo:lo + READ_BUCKET]).to(dev)
+               for lo in range(0, nu, READ_BUCKET)]
+    chem_calls = 0
+
+    def chem_counted(x):
+        nonlocal chem_calls
+        chem_calls += int(x.shape[0])
+        return chemistry(x, cfg.solver_iters)
+
+    _, outs, founds, _ = lookup_or_compute_pipelined(
+        scfg, table, batches, chem_counted, depth=cfg.pipeline_depth)
+    out_u = torch.cat(outs).cpu().numpy()
+    found_np = torch.cat(founds).cpu().numpy()
+    return out_u, found_np, chem_calls
+
+
 def run_simulation(cfg: PoetConfig, use_dht: bool = True, *,
                    device: str | torch.device | None = None,
                    verbose: bool = False) -> dict:
@@ -208,54 +289,21 @@ def run_simulation(cfg: PoetConfig, use_dht: bool = True, *,
             rounded = group_key(inputs).cpu().numpy()
             uniq_rows, inv = np.unique(rounded, axis=0, return_inverse=True)
             inv = inv.reshape(-1)
-            nu = uniq_rows.shape[0]
-            out_u = np.zeros((nu, N_OUT), np.float32)
-            found_np = np.zeros((nu,), bool)
-            exact_np = np.zeros((nu,), bool)
-            for lo in range(0, nu, READ_BUCKET):
-                hi_ = min(lo + READ_BUCKET, nu)
-                upad = np.zeros((READ_BUCKET, N_IN), np.float32)
-                upad[: hi_ - lo] = uniq_rows[lo:hi_]
-                uvalid = torch.zeros(READ_BUCKET, dtype=torch.bool,
-                                     device=dev)
-                uvalid[: hi_ - lo] = True
-                x = torch.from_numpy(upad).to(dev)
-                if cfg.use_interp:
-                    # exact hit, or IDW over cached lattice neighbours:
-                    # both skip the solver for this row
-                    table, out_f, prov, rstats = lookup_or_interpolate(
-                        scfg, table, x, icfg, valid=uvalid)
-                    pv = prov[: hi_ - lo].cpu().numpy()
-                    found_np[lo:hi_] = pv != PROV_MISS
-                    exact_np[lo:hi_] = pv == PROV_EXACT
-                    out_u[lo:hi_] = out_f[: hi_ - lo].cpu().numpy()
-                else:
-                    table, vals_w, found, rstats = dht_read(
-                        table, make_keys(scfg, x), uvalid)
-                    found_np[lo:hi_] = found[: hi_ - lo].cpu().numpy()
-                    exact_np[lo:hi_] = found_np[lo:hi_]
-                    vw = vals_w[: hi_ - lo].cpu().numpy()
-                    out_u[lo:hi_] = np.ascontiguousarray(
-                        vw[:, 0:2 * N_OUT:2]).view(np.float32)
-                mismatches += int(rstats["mismatches"])
+            if cfg.use_pipeline and not cfg.use_interp:
+                out_u, found_np, n_chem = _pipelined_lookup(
+                    cfg, scfg, table, uniq_rows, dev)
+                # forwarded rows count as exact hits, like the synchronous
+                # schedule they equal bit for bit
+                exact_np = found_np
+            else:
+                out_u, found_np, exact_np, n_chem, n_mm = _bucketed_lookup(
+                    cfg, scfg, icfg, table, uniq_rows, dev)
+                mismatches += n_mm
+            chem_calls += n_chem
             # per-cell accounting (the paper counts per-request hits)
             hits += int(exact_np[inv].sum())
             interp_hits += int((found_np & ~exact_np)[inv].sum())
             misses += int((~found_np[inv]).sum())
-            miss_idx = np.nonzero(~found_np)[0]
-            for lo in range(0, miss_idx.size, MISS_BUCKET):
-                sel = miss_idx[lo:lo + MISS_BUCKET]
-                pad = np.zeros(MISS_BUCKET, np.int64)
-                pad[: sel.size] = sel
-                sub_in = torch.from_numpy(uniq_rows[pad]).to(dev)
-                sub = chemistry(sub_in, cfg.solver_iters)
-                chem_calls += int(sel.size)
-                out_u[sel] = sub[: sel.size].cpu().numpy()
-                valid = torch.zeros(MISS_BUCKET, dtype=torch.bool, device=dev)
-                valid[: sel.size] = True
-                table, _ = dht_write(
-                    table, make_keys(scfg, sub_in),
-                    pack_floats(sub, scfg.dht.val_words), valid)
             out = torch.from_numpy(out_u[inv]).to(dev)
         _sync(dev)
         t_chem += time.perf_counter() - tc
@@ -292,14 +340,18 @@ def main():
     ap.add_argument("--interp", action="store_true",
                     help="resolve near-miss states by stencil interpolation "
                          "over cached lattice neighbours")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="pipelined issue/commit engine: probe the next "
+                         "read bucket while the solver computes the "
+                         "previous bucket's misses")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     args = ap.parse_args()
 
-    cfg = PoetConfig(use_interp=args.interp)
+    cfg = PoetConfig(use_interp=args.interp, use_pipeline=args.pipeline)
     print(f"grid {cfg.nx}x{cfg.ny}, {cfg.n_steps} steps, "
           f"sig_digits={cfg.sig_digits}, interp={cfg.use_interp}, "
-          f"device={args.device}")
+          f"pipeline={cfg.use_pipeline}, device={args.device}")
     ref = run_simulation(cfg, use_dht=False, device=args.device)
     print(f"reference (no DHT): {ref['wall_s']:.2f}s "
           f"({ref['chem_calls']} chemistry calls)")

@@ -1,8 +1,22 @@
 """Core of the port: slab layout, hashing, key rounding, routing, the
-one-round op-engine in its three modes, the DHT wrappers, the L1
-locality tier, the surrogate cache and its neighbourhood interpolation
-(with the stencil and key-rounding functions it is built from)."""
-from .dht import dht_read, dht_read_cached, dht_read_many, dht_write
+one-round op-engine in its three modes and its issue/commit halves, the
+DHT wrappers (synchronous and split), the pipelining store buffer and
+round queue, the L1 locality tier, the surrogate cache with its
+pipelined driver and its neighbourhood interpolation (with the stencil
+and key-rounding functions it is built from).  ``core.async_sim`` is the
+host-level torn-read simulator and the issue/commit oracle."""
+from .dht import (
+    dht_read,
+    dht_read_async,
+    dht_read_cached,
+    dht_read_commit,
+    dht_read_many,
+    dht_read_many_async,
+    dht_read_many_commit,
+    dht_write,
+    dht_write_async,
+    dht_write_commit,
+)
 from .interp import PROV_EXACT, PROV_INTERP, PROV_MISS, InterpConfig
 from .l1cache import L1Config, L1State, l1_create, l1_flush
 from .layout import (
@@ -37,19 +51,24 @@ from .op_engine import (
     W_INSERT,
     W_SKIP,
     W_UPDATE,
+    InFlightRound,
     OpBatch,
+    dht_commit,
     dht_execute,
+    dht_issue,
     migrate_ops,
     mixed_ops,
     read_ops,
     write_ops,
 )
+from .pipeline import PendingWrites, RoundQueue
 from .surrogate import (
     SurrogateConfig,
     lookup,
     lookup_cached,
     lookup_interpolate_or_compute,
     lookup_or_compute,
+    lookup_or_compute_pipelined,
     lookup_or_interpolate,
     make_keys,
     store,
@@ -57,16 +76,21 @@ from .surrogate import (
 )
 
 __all__ = [
-    "DHTConfig", "DHTState", "InterpConfig", "L1Config", "L1State", "MODES",
-    "MODE_COARSE", "MODE_FINE", "MODE_LOCKFREE", "OP_MIGRATE", "OP_READ",
-    "OP_WRITE", "OpBatch", "PROV_EXACT", "PROV_INTERP", "PROV_MISS",
+    "DHTConfig", "DHTState", "InFlightRound", "InterpConfig", "L1Config",
+    "L1State", "MODES", "MODE_COARSE", "MODE_FINE", "MODE_LOCKFREE",
+    "OP_MIGRATE", "OP_READ", "OP_WRITE", "OpBatch", "PROV_EXACT",
+    "PROV_INTERP", "PROV_MISS", "PendingWrites", "RoundQueue",
     "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP",
-    "W_UPDATE", "dedup_mask", "dht_create", "dht_execute", "dht_occupancy",
-    "dht_read", "dht_read_cached", "dht_read_many", "dht_write", "l1_create",
-    "l1_flush", "lattice_step", "lookup", "lookup_cached",
+    "W_UPDATE", "dedup_mask", "dht_commit", "dht_create", "dht_execute",
+    "dht_issue", "dht_occupancy", "dht_read", "dht_read_async",
+    "dht_read_cached", "dht_read_commit", "dht_read_many",
+    "dht_read_many_async", "dht_read_many_commit", "dht_write",
+    "dht_write_async", "dht_write_commit", "l1_create", "l1_flush",
+    "lattice_step", "lookup", "lookup_cached",
     "lookup_interpolate_or_compute", "lookup_or_compute",
-    "lookup_or_interpolate", "make_keys", "migrate_ops", "mixed_ops",
-    "n_stencil", "occupancy", "pack_floats", "read_ops", "round_significant",
-    "shard_watermark", "stencil_keys", "stencil_offsets", "stencil_points",
-    "store", "surrogate_create", "unpack_floats", "write_ops",
+    "lookup_or_compute_pipelined", "lookup_or_interpolate", "make_keys",
+    "migrate_ops", "mixed_ops", "n_stencil", "occupancy", "pack_floats",
+    "read_ops", "round_significant", "shard_watermark", "stencil_keys",
+    "stencil_offsets", "stencil_points", "store", "surrogate_create",
+    "unpack_floats", "write_ops",
 ]

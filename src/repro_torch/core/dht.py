@@ -1,12 +1,14 @@
 """DHT read/write wrappers over the one-round engine (PyTorch port of the
-``dht_read``/``dht_write``/``dht_read_many``/``dht_read_cached`` part of
-``repro.core.dht``).
+single-device part of ``repro.core.dht``).
 
 Each call is one engine round (``core/op_engine.dht_execute``) on the
 single-device virtual-shard backend; :func:`dht_read_cached` serves the
 coherent part of a batch from the L1 cache (``core/l1cache.py``) first.
-The table and the cache are updated in place.  The dual-epoch,
-replicated and issue/commit forms belong to later slices and raise.
+The ``*_async``/``*_commit`` pairs are the two halves of the same rounds
+(``dht_issue``/``dht_commit``): the async half enqueues the round and
+returns, the commit half waits for it.  The table and the cache are
+updated in place.  The dual-epoch and replicated forms belong to later
+slices and raise.
 """
 from __future__ import annotations
 
@@ -21,9 +23,12 @@ from .op_engine import (
     W_EVICT,
     W_INSERT,
     W_UPDATE,
+    InFlightRound,
     OpBatch,
     _owner_epoch,
+    dht_commit,
     dht_execute,
+    dht_issue,
     read_ops,
     write_ops,
 )
@@ -71,6 +76,27 @@ def _ones(keys: torch.Tensor) -> torch.Tensor:
     return torch.ones(keys.shape[0], dtype=torch.bool, device=keys.device)
 
 
+def dht_write_async(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
+                    valid: torch.Tensor | None = None, *, axis_name=None,
+                    l1_meta: bool = False) -> InFlightRound:
+    """Issue a write round without waiting (the first half of
+    :func:`dht_write`); pair with :func:`dht_write_commit`."""
+    if axis_name is not None:
+        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
+    if valid is None:
+        valid = _ones(keys)
+    rnd = dht_issue(state, write_ops(keys, vals, valid), kinds=("write",),
+                    l1_meta=l1_meta)
+    rnd.meta["l1_meta"] = l1_meta
+    return rnd
+
+
+def dht_write_commit(rnd: InFlightRound) -> tuple[DHTState, dict]:
+    """Commit an issued write round -> ``(state', stats)``."""
+    state, _, _vals, _found, code, es = dht_commit(rnd)
+    return state, _write_stats(code, es, l1_meta=rnd.meta["l1_meta"])
+
+
 def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
               valid: torch.Tensor | None = None, *, l1_meta: bool = False,
               max_retries: int = 0) -> tuple[DHTState, dict]:
@@ -103,6 +129,36 @@ def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
             torch.int32)
         valid = retry
     return state, total
+
+
+def dht_read_async(state: DHTState, keys: torch.Tensor,
+                   valid: torch.Tensor | None = None, *, axis_name=None,
+                   l1_meta: bool = False, pending=None) -> InFlightRound:
+    """Issue a read round without waiting (the first half of
+    :func:`dht_read`); pair with :func:`dht_read_commit`.  ``pending``
+    is an optional ``core.pipeline.PendingWrites`` hazard filter: rows
+    whose key has a promised-but-unissued write are served by forwarding
+    at commit instead of probing a table that does not hold the value
+    yet."""
+    if axis_name is not None:
+        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
+    if valid is None:
+        valid = _ones(keys)
+    rnd = dht_issue(state, read_ops(keys, valid), kinds=("read",),
+                    l1_meta=l1_meta, pending=pending)
+    rnd.meta["valid"] = valid
+    rnd.meta["l1_meta"] = l1_meta
+    return rnd
+
+
+def dht_read_commit(rnd: InFlightRound
+                    ) -> tuple[DHTState, torch.Tensor, torch.Tensor, dict]:
+    """Commit an issued read round -> ``(state', vals, found, stats)``.
+    Forwarded rows count as hits: their value is bit for bit what the
+    synchronous schedule would have read."""
+    state, _, vals, found, _code, es = dht_commit(rnd)
+    return state, vals, found, _read_stats(rnd.meta["valid"], found, es,
+                                           l1_meta=rnd.meta["l1_meta"])
 
 
 def dht_read(state: DHTState, keys: torch.Tensor,
@@ -208,12 +264,27 @@ def dht_read_many_dual(state, prev, keys, valid=None, *, axis_name=None):
     raise routing.not_ported("dht_read_many_dual", "11")
 
 
-def dht_read_many_async(state, keys, valid=None, *, axis_name=None,
-                        l1_meta=False, pending=None):
-    """Issue half of the multi-key read (issue/commit, a later slice)."""
-    raise routing.not_ported("dht_read_many_async", "10")
+def dht_read_many_async(state: DHTState, keys: torch.Tensor,
+                        valid: torch.Tensor | None = None, *, axis_name=None,
+                        l1_meta: bool = False, pending=None) -> InFlightRound:
+    """Issue a multi-key (n, m, KW) read round without waiting; pair with
+    :func:`dht_read_many_commit`."""
+    if axis_name is not None:
+        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
+    n, m = keys.shape[0], keys.shape[1]
+    flat, vflat = routing.flatten_fanout(keys, valid)
+    rnd = dht_read_async(state, flat, vflat, l1_meta=l1_meta,
+                         pending=pending)
+    rnd.meta["fanout"] = (n, m)
+    return rnd
 
 
-def dht_read_many_commit(rnd):
-    """Commit half of the multi-key read (issue/commit, a later slice)."""
-    raise routing.not_ported("dht_read_many_commit", "10")
+def dht_read_many_commit(rnd: InFlightRound
+                         ) -> tuple[DHTState, torch.Tensor, torch.Tensor,
+                                    dict]:
+    """Commit an issued multi-key read -> ``(state', vals (n, m, VW),
+    found (n, m), stats)``."""
+    state, val, found, stats = dht_read_commit(rnd)
+    n, m = rnd.meta["fanout"]
+    return (state, routing.unflatten_fanout(val, n, m),
+            routing.unflatten_fanout(found, n, m), stats)

@@ -28,14 +28,25 @@ The slab is updated in place (see ``core/layout.py``).  Winner resolution
 and slab updates are plain torch: ``scatter_reduce("amax")`` and index
 writes, both aimed at the dump row where the reference drops an item.
 
+Issue/commit split: :func:`dht_execute` is ``dht_commit(dht_issue(...))``.
+:func:`dht_issue` enqueues the whole round, every read and write of the
+slab included, on the current stream, records a CUDA event after its
+last launch and returns an :class:`InFlightRound`.  :func:`dht_commit`
+waits on that event alone (never on the whole device), resolves
+pending-write forwards (``core/pipeline.py``) and returns the classic
+tuple.  The stream's launch order stands in for the reference's
+dataflow through the returned state: a round issued after another sees
+its effects.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): dual-epoch ``prev``, the ring, self-traffic elision,
-``pending`` forwarding and the issue/commit split.
+item): dual-epoch ``prev``, the ring, self-traffic elision and
+replication.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import time
+from typing import Any, Sequence
 
 import torch
 
@@ -366,8 +377,7 @@ def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
 def _check_supported(state: DHTState, kinds, **later) -> None:
     if state.cfg.n_replicas > 1:
         raise routing.not_ported("k-successor replication", "12")
-    items = {"prev": "11", "axis_name": "7", "elide_self": "7",
-             "pending": "10"}
+    items = {"prev": "11", "axis_name": "7", "elide_self": "7"}
     for name, value in later.items():
         if value not in (None, False):
             raise routing.not_ported(f"dht_execute({name}=...)", items[name])
@@ -375,11 +385,49 @@ def _check_supported(state: DHTState, kinds, **later) -> None:
         raise ValueError(f"kinds must be a non-empty subset of {KINDS}")
 
 
-def dht_execute(state: DHTState, ops: OpBatch, *,
-                kinds: Sequence[str] = KINDS, capacity: int | None = None,
-                prev=None, axis_name=None, hashes=None, placement=None,
-                l1_meta: bool = False, elide_self=None, pending=None):
-    """Execute an op-tagged request batch in ONE routing round.
+@dataclasses.dataclass
+class InFlightRound:
+    """An issued-but-uncommitted engine round: the handle
+    :func:`dht_commit` takes.
+
+    ``state`` is the round's table (the input state, updated in place by
+    work already on the stream); the next round may be issued against it
+    at once.  ``event`` is recorded after the round's last launch (None
+    on the CPU, where the round has finished when issue returns).
+    ``conflict``/``pending``/``keys`` carry the pending-write hazard:
+    rows masked out of the probe at issue because a promised write to
+    their key was not issued yet, resolved at commit from the pending
+    table's published values.  ``mix`` counts the round's requests per
+    kind (0-d tensors), forwarded rows included.  ``telemetry`` is
+    filled at commit: ``issue_us``, ``hidden_us`` (host time between
+    issue returning and commit being called), ``commit_wait_us`` and
+    ``overlap_frac`` (hidden over the round's whole duration).  ``meta``
+    is free-form wrapper state."""
+
+    state: DHTState
+    vals: torch.Tensor
+    found: torch.Tensor
+    code: torch.Tensor
+    estats: dict[str, Any]
+    mix: dict[str, torch.Tensor]
+    t_start: float
+    t_issued: float
+    event: Any = None
+    pending: Any = None
+    conflict: torch.Tensor | None = None
+    keys: torch.Tensor | None = None
+    committed: bool = False
+    telemetry: dict[str, float] = dataclasses.field(default_factory=dict)
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+def dht_issue(state: DHTState, ops: OpBatch, *,
+              kinds: Sequence[str] = KINDS, capacity: int | None = None,
+              prev=None, axis_name=None, hashes=None, placement=None,
+              l1_meta: bool = False, elide_self=None,
+              pending=None) -> InFlightRound:
+    """Issue an op-tagged request batch as ONE routing round and return
+    without waiting for its results: the issue half of the engine.
 
     ``hashes`` / ``placement`` take a precomputed ``(hi, lo)`` hash pair
     and ``(dest, epoch)``.  ``l1_meta=True`` piggybacks the locality
@@ -389,20 +437,45 @@ def dht_execute(state: DHTState, ops: OpBatch, *,
     before and after the round), as int32 bit-views; 3 reply lanes, no
     extra round.
 
-    Returns the reference's tuple ``(state', prev', vals, found, code,
-    estats)``; ``state'`` is ``state`` updated in place and ``prev'`` is
-    None.  ``estats`` has the reference's keys; values derived from the
-    data are 0-d tensors on the state's device, static geometry and the
-    host-side counts (``rounds``, ``lock_tokens``) are int."""
+    ``pending`` (a ``core.pipeline.PendingWrites``, uniform read rounds
+    only): rows whose key has a promised-but-unissued write are masked
+    out of the probe (no bin slot, no wire), still count in the round's
+    ``mix``, and are served at commit by forwarding the published value.
+
+    Every slab access of the round is enqueued here, in stream order, so
+    a read issued before a write never sees it, and one issued after
+    does.  The host still waits inside this half where the round's
+    shape needs a device value: the capacity plan reads the largest bin
+    (``routing.plan_capacity``), every write pass reads whether a row is
+    still active, the locked schedules read each shard's round count,
+    and the ``pending`` filter reads the size of its row match.
+
+    The reference may issue two rounds against one input state and get
+    two branches; the port's table is one buffer, so a second round
+    issued against the same state sees the first's effects.  Between
+    two reads those are at most INVALID flags of torn buckets, which a
+    synchronous run never has.
+
+    Returns an :class:`InFlightRound` for :func:`dht_commit`.  Commit
+    rounds in issue order when a ``pending`` filter is in play."""
+    t_start = time.perf_counter()
     kinds = tuple(kinds)
     _check_supported(state, kinds, prev=prev, axis_name=axis_name,
-                     elide_self=elide_self, pending=pending)
+                     elide_self=elide_self)
     cfg = state.cfg
     do_write = ("write" in kinds) or ("migrate" in kinds)
     if do_write and ops.vals is None:
         raise ValueError("write/migrate batches need a value lane")
     if ops.op is None and len(kinds) != 1:
         raise ValueError("untagged batches must be uniform-kind")
+    conflict = None
+    if pending is not None:
+        if kinds != ("read",) or ops.op is not None:
+            raise ValueError(
+                "pending-write filtering applies to uniform read rounds")
+        if len(pending):
+            conflict = pending.conflicts(ops.keys, ops.valid)
+            ops = OpBatch(keys=ops.keys, valid=ops.valid & ~conflict)
 
     binned, base, used_prologue = _route_ops(state, ops, capacity, hashes,
                                              placement)
@@ -468,12 +541,84 @@ def dht_execute(state: DHTState, ops: OpBatch, *,
         estats["bucket_gen"] = items[3]
         estats["wmark_pre"] = blocks[4]
         estats["wmark_post"] = blocks[5]
+    if ops.op is None:
+        mix = {kinds[0]: ops.valid.sum()}
+    else:
+        mix = {name: (ops.valid & (ops.op == tag)).sum()
+               for name, tag in (("read", OP_READ), ("write", OP_WRITE),
+                                 ("migrate", OP_MIGRATE)) if name in kinds}
+    if conflict is not None:
+        # forwarded rows left the probe but are still this round's traffic
+        mix["read"] = mix["read"] + conflict.sum()
+    event = None
+    if val_out.is_cuda:
+        event = torch.cuda.Event()
+        event.record()
+    forwards = conflict is not None
+    return InFlightRound(
+        state=state, vals=val_out, found=found_out, code=code_out,
+        estats=estats, mix=mix, t_start=t_start,
+        t_issued=time.perf_counter(), event=event,
+        pending=pending if forwards else None, conflict=conflict,
+        keys=ops.keys if forwards else None)
+
+
+def dht_commit(rnd: InFlightRound):
+    """Wait for an issued round's results: the commit half.
+
+    Waits on the round's own event, so work queued after the round
+    (later rounds, the caller's compute) keeps running.  Resolves
+    pending-write forwards: conflicted rows get the published value and
+    ``found=True``, bit for bit what a read after the write round would
+    have returned; a conflicted key never published raises.  Fills
+    ``rnd.telemetry`` and counts one ``engine.rounds``.
+
+    Returns the reference's tuple ``(state', prev', vals, found, code,
+    estats)``; ``state'`` is the input state updated in place, ``prev'``
+    None.  ``estats`` has the reference's keys; values derived from the
+    data are 0-d tensors on the state's device, static geometry and the
+    host-side counts (``rounds``, ``lock_tokens``) are int."""
+    if rnd.committed:
+        raise RuntimeError("InFlightRound committed twice")
+    rnd.committed = True
+    vals, found = rnd.vals, rnd.found
+    if rnd.conflict is not None:
+        fvals = rnd.pending.resolve(rnd.keys, rnd.conflict)
+        vals = torch.where(rnd.conflict[:, None], fvals, vals)
+        found = found | rnd.conflict
+    t_commit = time.perf_counter()
+    if rnd.event is not None:
+        rnd.event.synchronize()
+    now = time.perf_counter()
+    dur = max(now - rnd.t_start, 0.0)
+    hidden = max(t_commit - rnd.t_issued, 0.0)
+    rnd.telemetry = {
+        "issue_us": (rnd.t_issued - rnd.t_start) * 1e6,
+        "hidden_us": hidden * 1e6,
+        "commit_wait_us": max(now - t_commit, 0.0) * 1e6,
+        "overlap_frac": min(hidden / dur, 1.0) if dur > 0 else 0.0,
+    }
     obs_metrics.inc("engine.rounds")
-    return state, None, val_out, found_out, code_out, estats
+    return rnd.state, None, vals, found, rnd.code, rnd.estats
+
+
+def dht_execute(state: DHTState, ops: OpBatch, *,
+                kinds: Sequence[str] = KINDS, capacity: int | None = None,
+                prev=None, axis_name=None, hashes=None, placement=None,
+                l1_meta: bool = False, elide_self=None):
+    """Execute an op-tagged request batch in ONE routing round,
+    synchronously: ``dht_commit(dht_issue(...))``.  See
+    :func:`dht_issue` for the keywords and :func:`dht_commit` for the
+    returned tuple."""
+    return dht_commit(dht_issue(
+        state, ops, kinds=kinds, capacity=capacity, prev=prev,
+        axis_name=axis_name, hashes=hashes, placement=placement,
+        l1_meta=l1_meta, elide_self=elide_self))
 
 
 __all__ = [
-    "KINDS", "OP_MIGRATE", "OP_READ", "OP_WRITE", "OpBatch", "W_DROPPED",
-    "W_EVICT", "W_INSERT", "W_SKIP", "W_UPDATE", "dht_execute",
-    "migrate_ops", "mixed_ops", "read_ops", "write_ops",
+    "KINDS", "InFlightRound", "OP_MIGRATE", "OP_READ", "OP_WRITE",
+    "OpBatch", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP", "W_UPDATE",
+    "dht_commit", "dht_execute", "dht_issue", "migrate_ops", "mixed_ops",
+    "read_ops", "write_ops",
 ]

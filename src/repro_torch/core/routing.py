@@ -116,11 +116,17 @@ def bin_by_dest_onehot(dest: torch.Tensor, n_dest: int, capacity: int,
     return _binned(pos, dest, n_dest, capacity, epoch, valid)
 
 
+def _histogram(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """(size,) int64 counts of ``idx`` values in [0, size): ``bincount``
+    without its host reads of the index range (two syncs on the card)."""
+    out = torch.zeros(size, dtype=torch.int64, device=idx.device)
+    return out.scatter_add_(0, idx, torch.ones_like(idx))
+
+
 def bin_counts(b: Binned) -> torch.Tensor:
     """Per-destination count of kept items, (n_dest,) int32."""
     idx = torch.where(b.kept, b.dest, b.n_dest).to(torch.int64)
-    return torch.bincount(idx, minlength=b.n_dest + 1)[:b.n_dest].to(
-        torch.int32)
+    return _histogram(idx, b.n_dest + 1)[:b.n_dest].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +154,8 @@ def plan_capacity(dest: torch.Tensor, n_dest: int, *, n_src: int = 1,
         d = torch.where(valid.reshape(n_src, -1), d, n_dest)
     width = n_dest + 1
     off = torch.arange(n_src, dtype=torch.int64, device=d.device)[:, None]
-    counts = torch.bincount((d + off * width).reshape(-1),
-                            minlength=n_src * width).reshape(n_src, width)
+    counts = _histogram((d + off * width).reshape(-1),
+                        n_src * width).reshape(n_src, width)
     max_load = max(int(counts[:, :n_dest].max()) if d.numel() else 0, 1)
     return capacity_bucket(max_load, floor=floor, limit=d.shape[1])
 

@@ -1,5 +1,5 @@
-"""Surrogate-model cache on top of the DHT (PyTorch port of the exact-match
-and neighbourhood parts of ``repro.core.surrogate``, paper §5.4).
+"""Surrogate-model cache on top of the DHT (PyTorch port of the exact-match,
+pipelined and neighbourhood parts of ``repro.core.surrogate``, paper §5.4).
 
 POET's pattern: round the expensive simulation's inputs to ``sig_digits``
 significant digits, pack the rounded vector into the DHT key, store the
@@ -7,7 +7,9 @@ exact output as the value.  A later query whose rounded inputs coincide
 skips the simulation.  :func:`lookup_or_interpolate` widens the match to
 the query's lattice neighbourhood: a near miss resolves by
 inverse-distance interpolation over cached neighbours instead of paying
-the solver.
+the solver.  :func:`lookup_or_compute_pipelined` issues batch N+1's read
+round before computing batch N's misses, so the round runs on the card
+while the host computes.
 
 On the card the keys come from the ``round_sig`` kernel and the
 neighbourhood's keys from the ``stencil_keys`` kernel
@@ -36,11 +38,13 @@ from .layout import (
 from .op_engine import (
     OP_MIGRATE,
     OP_READ,
+    W_DROPPED,
     W_INSERT,
     dht_execute,
     migrate_ops,
     mixed_ops,
 )
+from .pipeline import PendingWrites, RoundQueue
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +141,130 @@ def lookup_or_compute(cfg: SurrogateConfig, state: DHTState,
         "stored": (code == W_INSERT).sum().to(torch.int32),
     }
     return state, outputs, found, stats
+
+
+def lookup_or_compute_pipelined(cfg: SurrogateConfig, state: DHTState,
+                                batches, compute_fn, *, depth: int = 2):
+    """Pipelined surrogate driver: probe batch N+1 while computing the
+    misses of batch N.
+
+    :func:`lookup_or_compute` serializes ``read -> compute -> write`` per
+    batch.  Here batch N+1's read round is *issued* (``dht_read_async``)
+    before batch N's ``compute_fn`` runs, so the card works through the
+    round while the host computes, and it is committed only when its
+    results are needed.
+
+    Hazard rule (the store buffer, :class:`core.pipeline.PendingWrites`):
+    batch N+1's read is issued before batch N's write-back, so any of its
+    keys that batch N is about to write would probe a stale table.  Those
+    keys are promised at miss time, before the next read is issued; the
+    read masks them out of its probe and serves them at commit by
+    forwarding the published values, which makes the result bit for bit
+    the sequential schedule's.  The promises are retired only after the
+    following read's commit.  Reading further ahead would need batch
+    N+1's miss set before its commit, so ``depth < 2`` falls back to the
+    synchronous loop and ``depth >= 2`` pipelines one read ahead with a
+    depth-``depth`` queue of lazily committed write rounds.  Rows a write
+    round dropped on a routing overflow are re-issued at its commit, at
+    most twice (``requeued``).
+
+    ``batches`` is a sequence of ``(n_i, n_inputs)`` input tensors.
+    Returns ``(state', outputs, found, stats)`` with per-batch lists of
+    ``outputs``/``found`` and summed int ``stats``: ``hits``, ``misses``,
+    ``stored``, ``forwarded`` (rows served by forwarding) and
+    ``requeued``."""
+    batches = list(batches)
+    totals = {"hits": 0, "misses": 0, "stored": 0, "forwarded": 0,
+              "requeued": 0}
+    outs: list = []
+    founds: list = []
+    if not batches:
+        return state, outs, founds, totals
+    if depth < 2:
+        for inputs in batches:
+            state, out, found, st = lookup_or_compute(cfg, state, inputs,
+                                                      compute_fn)
+            outs.append(out)
+            founds.append(found)
+            for k in ("hits", "misses", "stored"):
+                totals[k] += int(st[k])
+        return state, outs, founds, totals
+
+    pending = PendingWrites(cfg.dht.val_words)
+
+    def _commit_write(w):
+        """Commit one write-back round and re-issue the rows the router
+        dropped on overflow (at most twice): a dropped insert is a lost
+        entry that the next epoch would recompute."""
+        _, wstats = dht_ops.dht_write_commit(w)
+        totals["stored"] += int(wstats["inserted"])
+        drop = w.meta["wmask"] & (wstats["code"] == W_DROPPED)
+        tries = 0
+        while tries < 2 and bool(drop.any()):
+            totals["requeued"] += int(drop.sum())
+            _, rstats = dht_ops.dht_write(state, w.meta["wkeys"],
+                                          w.meta["wvals"], valid=drop)
+            totals["stored"] += int(rstats["inserted"])
+            drop = drop & (rstats["code"] == W_DROPPED)
+            tries += 1
+        return wstats
+
+    wq = RoundQueue(depth, commit=_commit_write)
+
+    def _issue_read(inputs):
+        keys = make_keys(cfg, inputs)
+        rnd = dht_ops.dht_read_async(state, keys, pending=pending)
+        rnd.meta["skeys"] = keys
+        return rnd
+
+    rd = _issue_read(batches[0])
+    to_retire = None
+    for i, inputs in enumerate(batches):
+        keys = rd.meta["skeys"]
+        conflict = rd.conflict
+        _, val_words, found, rstats = dht_ops.dht_read_commit(rd)
+        if to_retire is not None:
+            # the previous batch's write round is issued AND the one read
+            # that could still forward from it has committed: only now may
+            # its promises go (resolve needed the published values)
+            pending.retire(*to_retire)
+            to_retire = None
+        miss = ~found
+        counts = [rstats["hits"], rstats["misses"]]
+        if conflict is not None:
+            counts.append(conflict.sum())
+        counts = torch.stack([c.to(torch.int64) for c in counts]).tolist()
+        totals["hits"] += counts[0]
+        totals["misses"] += counts[1]
+        totals["forwarded"] += counts[2] if conflict is not None else 0
+        any_miss = counts[1] > 0
+        if any_miss:
+            # promise BEFORE issuing the next read: its conflict filter
+            # must know the keys this batch is about to write
+            pending.promise(keys, miss)
+        nxt = _issue_read(batches[i + 1]) if i + 1 < len(batches) else None
+        if any_miss:
+            # the expensive part: overlaps nxt's round on the card
+            computed = compute_fn(inputs)
+            outputs = torch.where(found[:, None],
+                                  unpack_floats(val_words, cfg.n_outputs),
+                                  computed)
+            wvals = pack_floats(computed, cfg.dht.val_words)
+            pending.publish(keys, wvals, miss)
+            w = dht_ops.dht_write_async(state, keys, wvals, valid=miss)
+            w.meta.update(wkeys=keys, wvals=wvals, wmask=miss)
+            # the stream orders every read issued from here on after this
+            # write; the read already issued may still forward from it,
+            # so its promises retire after that read's commit
+            to_retire = (keys, miss)
+            wq.push(w)
+        else:
+            outputs = unpack_floats(val_words, cfg.n_outputs)
+        outs.append(outputs)
+        founds.append(found)
+        rd = nxt
+    wq.drain()
+    return state, outs, founds, totals
 
 
 # ---------------------------------------------------------------------------

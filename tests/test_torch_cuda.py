@@ -16,11 +16,16 @@ from repro_torch.core import (
     InterpConfig,
     L1Config,
     SurrogateConfig,
+    PendingWrites,
     dht_create,
     dht_execute,
     dht_read,
+    dht_read_async,
     dht_read_cached,
+    dht_read_commit,
     dht_write,
+    dht_write_async,
+    dht_write_commit,
     l1_create,
     lookup_interpolate_or_compute,
     migrate_ops,
@@ -598,6 +603,64 @@ def test_engine_on_card_matches_cpu(gen):
                                       out["cpu"][0][name], name)
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert torch.equal(a, b)
+
+
+def test_commit_waits_on_its_round_not_the_device(gen):
+    """A read round is issued, then ~50 ms of sleep is queued on the same
+    stream: dht_read_commit returns while the sleep still runs (it waits
+    on the round's event, not on the device), and the values it returned
+    are the table's."""
+    cfg = DHTConfig(n_shards=8, buckets_per_shard=1 << 12)
+    keys, vals = _words(gen, 4096, 20), _words(gen, 4096, 26)
+    st = dht_create(cfg)
+    st, _ = dht_write(st, keys, vals)
+    torch.cuda.synchronize()
+    rnd = dht_read_async(st, keys)
+    torch.cuda._sleep(100_000_000)           # ~50 ms at ~2 GHz
+    slept = torch.cuda.Event()
+    slept.record()
+    _, out, found, _ = dht_read_commit(rnd)
+    assert rnd.event.query(), "commit returned before its round ended"
+    assert not slept.query(), "commit waited for work queued after it"
+    torch.cuda.synchronize()
+    assert bool(found.all()) and torch.equal(out, vals)
+    assert rnd.telemetry["commit_wait_us"] < 40_000
+
+
+def test_issue_commit_on_card_matches_cpu(gen):
+    """The split halves at B = 2^12 on the card and on the CPU: a write
+    issued and committed late, a read issued after it, a read that
+    forwards promised writes, and a write of the promised keys leave the
+    same slab words and return the same items."""
+    cfg = DHTConfig(n_shards=8, buckets_per_shard=1 << 12)
+    keys, vals = _words(gen, 2048, 20, "cpu"), _words(gen, 2048, 26, "cpu")
+    fresh = _words(gen, 512, 20, "cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = dht_create(cfg, device=device)
+        k, v, f = keys.to(device), vals.to(device), fresh.to(device)
+        w = dht_write_async(st, k, v)
+        r = dht_read_async(st, k[:1024])
+        _, rv, rf, rs = dht_read_commit(r)
+        _, ws = dht_write_commit(w)
+        pend = PendingWrites(cfg.val_words)
+        pend.promise(f)
+        q = torch.cat([k[1024:1536], f])
+        r2 = dht_read_async(st, q, pending=pend)
+        pend.publish(f, v[:512])
+        w2 = dht_write_async(st, f, v[:512])
+        _, fv, ff, fs = dht_read_commit(r2)
+        _, ws2 = dht_write_commit(w2)
+        out[device] = (state_to_numpy(st), [
+            t.cpu() for t in (rv, rf, ws["code"], fv, ff, ws2["code"],
+                              r2.conflict)])
+    for name in out["cpu"][0]:
+        np.testing.assert_array_equal(out["cuda"][0][name],
+                                      out["cpu"][0][name], name)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(a, b)
+    assert bool(out["cuda"][1][4].all())
+    assert int(out["cuda"][1][6].sum()) == 512
 
 
 def test_kernel_wrappers_reject_bad_inputs(gen):

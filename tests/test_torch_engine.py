@@ -252,8 +252,7 @@ def test_l1_meta_round_matches_reference(mode):
             == 3 * 4 * meta["capacity"])
 
 
-@pytest.mark.parametrize("what", ["elide_self", "prev", "axis_name",
-                                  "pending"])
+@pytest.mark.parametrize("what", ["elide_self", "prev", "axis_name"])
 def test_later_slices_raise(what):
     cfg = T.DHTConfig(n_shards=2, buckets_per_shard=64)
     st = T.dht_create(cfg, device="cpu")

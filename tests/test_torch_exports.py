@@ -9,15 +9,10 @@ import repro_torch.core as tcore
 
 # modules of repro.core with a port file under repro_torch/core/
 PORTED = ("neighbors", "hashing", "layout", "dht", "surrogate", "interp",
-          "l1cache", "op_engine")
+          "l1cache", "op_engine", "pipeline")
 
 # public names of ported modules whose port is still to come: ROADMAP item
 WAITING = {
-    # item 10: the issue/commit pipeline
-    "InFlightRound": 10, "dht_issue": 10, "dht_commit": 10,
-    "dht_read_async": 10, "dht_read_commit": 10, "dht_read_many_async": 10,
-    "dht_read_many_commit": 10, "dht_write_async": 10,
-    "dht_write_commit": 10, "lookup_or_compute_pipelined": 10,
     # item 11: elastic membership and the dual-epoch reads
     "dht_free": 11, "with_ring": 11, "dht_read_dual": 11,
     "dht_read_many_dual": 11, "dual_fusable": 11,
@@ -63,4 +58,4 @@ def test_waiting_list_names_only_missing_reference_names():
     names = set(_ported_names())
     assert set(WAITING) <= names
     assert not [n for n in WAITING if hasattr(tcore, n)]
-    assert set(WAITING.values()) <= {10, 11, 12}
+    assert set(WAITING.values()) <= {11, 12}

@@ -34,6 +34,9 @@ def _imports(path: Path):
 
 def test_port_files_exist():
     assert len(FILES) > 10 and all(p.exists() for p in FILES)
+    core = ROOT / "src" / "repro_torch" / "core"
+    for name in ("pipeline.py", "async_sim.py"):
+        assert core / name in FILES, name
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

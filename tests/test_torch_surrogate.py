@@ -101,8 +101,11 @@ def test_convert_round_trip_reads_alike():
         cfg_from_dict({"n_shards": 2, "bogus": 1})
 
 
-def test_poet_twin_matches_reference():
-    """Same hits, misses and solver calls as the JAX example; ``conc``
+@pytest.mark.parametrize("use_pipeline", [False, True],
+                         ids=["plain", "pipeline"])
+def test_poet_twin_matches_reference(use_pipeline):
+    """Same hits, misses and solver calls as the JAX example, with and
+    without the pipelined lookup (``use_pipeline``); ``conc``
     within rtol 1e-5.  The tolerance is the f32 chemistry in two
     frameworks: XLA's CPU backend contracts a*b+c into fused multiply-adds
     and divides by constants through their reciprocal, torch does
@@ -115,7 +118,10 @@ def test_poet_twin_matches_reference():
     from examples.torch_poet_reactive_transport import PoetConfig as TPoet
     from examples.torch_poet_reactive_transport import run_simulation as t_run
 
-    kw = dict(nx=12, ny=24, n_steps=6, sig_digits=3, solver_iters=50)
+    # the reference's pipelined steps hand its eager engine and jitted
+    # solver a new batch shape each, so each step compiles anew: 3 steps
+    kw = dict(nx=12, ny=24, n_steps=3 if use_pipeline else 6, sig_digits=3,
+              solver_iters=50, use_pipeline=use_pipeline)
     ref = j_run(JPoet(**kw), use_dht=True)
     out = t_run(TPoet(**kw), use_dht=True, device="cpu")
     for k in ("hits", "misses", "chem_calls", "mismatches"):
