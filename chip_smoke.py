@@ -7,8 +7,8 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each kernel against its
 plain PyTorch version on the card, drives the main paths (the lock-free
 DHT at full size, key rounding, the POET surrogate twin, the
-neighbourhood-interpolation query, the L1 tier, and gemma3-12b prefill
-and decode), checks the results, and times every kernel.  One JSON line per phase:
+neighbourhood-interpolation query, the L1 tier, the pipeline, the
+multi-rank backend, and gemma3-12b prefill and decode), checks the results, and times every kernel.  One JSON line per phase:
 
 1. env     - card name and power limit (nvidia-smi), CUDA, device count;
 2. build   - nvcc for sm_90a, one process per source, with ptxas reports;
@@ -71,7 +71,24 @@ and decode), checks the results, and times every kernel.  One JSON line per phas
              pipeline-parity: a depth-2 Zipf stream at B=2^16 in the
              three modes, card against CPU; (c) the POET twin with
              --pipeline beside phase 6's plain run;
-10. lm     - gemma3-12b: (a) the local-attention kernel against its
+10. sharded - the multi-rank backend on NCCL at world size 1 (one rank,
+             one shard): (a) sharded-full: ShardedDHT with S=1 x
+             B=2^24 (3.2 GB), rounds of 2^16 keys (write, read, 95/5
+             mixed, migrate), a cached read (L1 1024 x 4) twice, a
+             read_async/read_commit pair, lookup_or_compute twice and
+             lookup_interpolate_or_compute(one_round=True) on 2,978
+             bracketed centres through the group, and the fine and
+             coarse modes at 2^10 writes; every kernel call of a write
+             round, a read round (S*cap + n rows: the elided residue) and
+             the second cached read held against its plain version; then
+             each round against the virtual-shard backend with the same
+             cfg on the card: outputs, found flags, codes and slab
+             digests equal; a read's wire words are the prologue's 2*S;
+             (b) the rounds timed in turns with the virtual backend,
+             all_to_all_single by CUDA events, host syncs per issue half;
+             (c) the server baseline at the same table size, 2^13 ops at
+             width 24, beside one sharded round of the same ops;
+11. lm     - gemma3-12b: (a) the local-attention kernel against its
              plain version at the prefill shape (B=2, S=4096, H=16, Hk=8,
              D=256, window 1024) in bf16 and float32 and at edge shapes,
              within local_attn_kernel.tolerance (f32 1e-5; bf16 one ulp
@@ -86,7 +103,7 @@ and decode), checks the results, and times every kernel.  One JSON line per phas
              steps (the ring buffer wraps) within 2e-2; (d) lm-parity:
              the reduced model on the card against the CPU, forward and
              40 decode steps at rtol/atol 1e-4;
-11. timing - each kernel, its plain version and the nearest single
+12. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
              local-attention kernel beside its operation bound); hash64
@@ -101,6 +118,7 @@ repository around this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
 import re
@@ -136,6 +154,11 @@ PIPE_UNIFORM_IDS = 1 << 22     # uniform ids (nearly every row misses)
 PIPE_STALL_RATIO = 1.5         # modelled solver stall / read+write round
 PIPE_PARITY_ROWS = 1 << 12     # rows per batch of the card/CPU stream
 PIPE_PARITY_BATCHES = 4
+SHARD_BUCKETS = 1 << 24        # sharded-full: one rank, one shard, 3.2 GB
+SHARD_MODE_WRITES = 1 << 10    # fine/coarse (coarse: an exchange a write)
+SHARD_REPS = 5                 # timed repeats, sharded and virtual in turns
+SERVER_OPS = 1 << 13           # the server baseline's batch
+SERVER_WIDTH = 24              # ops the server applies a round
 LM_ARCH = "gemma3-12b"         # full width and depth (48 layers, bf16)
 LM_BATCH = 2                   # prompts per call
 LM_PREFILL = 4096              # prefill tokens per prompt
@@ -173,13 +196,13 @@ KERNEL_SOURCES = {
 }
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
-ENGINE_PHASES = ("dht", "poet", "interp", "l1", "pipeline")
+ENGINE_PHASES = ("dht", "poet", "interp", "l1", "pipeline", "sharded")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
     "checksum": ENGINE_PHASES, "probe": ENGINE_PHASES,
-    "round_sig": ("keys", "poet", "interp", "l1", "pipeline"),
-    "stencil_keys": ("interp",), "l1_probe": ("l1",),
+    "round_sig": ("keys", "poet", "interp", "l1", "pipeline", "sharded"),
+    "stencil_keys": ("interp", "sharded"), "l1_probe": ("l1", "sharded"),
     "local_attention": ("lm",),
 }
 
@@ -2025,6 +2048,416 @@ def phase_pipeline(cfg_big, poet_plain):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sharded: the multi-rank backend at world size 1
+# ---------------------------------------------------------------------------
+
+def _sharded_group():
+    """One-rank process group on a free local port: NCCL on the card
+    (gloo where DEVICE is the CPU, for a rehearsal)."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    kw = {}
+    if DEVICE.startswith("cuda"):
+        kw["device_id"] = torch.device(DEVICE if ":" in DEVICE
+                                       else f"{DEVICE}:0")
+    dist.init_process_group(
+        "nccl" if DEVICE.startswith("cuda") else "gloo",
+        init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300), **kw)
+
+
+def _sharded_plan(keys, vals, mk, mv, op, execute):
+    """The 4-round stream on one backend: ``execute(kind, ...)`` runs a
+    round and returns ``(vals, found, code, stats)``."""
+    return [("write", lambda: execute("write", keys, vals)),
+            ("read", lambda: execute("read", keys, None)),
+            ("mixed_95_5", lambda: execute("mixed", mk, mv, op)),
+            ("migrate", lambda: execute("migrate", mk, mv))]
+
+
+def _sharded_exec(d):
+    """Round runner through the ShardedDHT's entry points."""
+    import torch
+
+    from repro_torch.core import dht_execute, mixed_ops
+
+    def run(kind, k, v, op=None):
+        if kind == "write":
+            st = d.write(k, v)
+            return None, None, st["code"], st
+        if kind == "read":
+            out, found, st = d.read(k)
+            return out, found, None, st
+        if kind == "mixed":
+            d.state, _, out, found, code, st = dht_execute(
+                d.state, mixed_ops(op, k, v), kinds=("read", "write"),
+                axis_name=d.group)
+            return out, found, code, st
+        ones = torch.ones(k.shape[0], dtype=torch.bool, device=k.device)
+        d.state, out, found, code, st = d.execute_fn(("migrate",))(
+            d.state, k, v, ones)
+        return out, found, code, st
+    return run
+
+
+def _virtual_exec(st):
+    """The same rounds on the virtual-shard backend, through its own
+    wrappers where the sharded side takes ShardedDHT's."""
+    from repro_torch.core import (dht_execute, dht_read, dht_write,
+                                  migrate_ops, mixed_ops)
+
+    def run(kind, k, v, op=None):
+        if kind == "write":
+            _, stats = dht_write(st, k, v)
+            return None, None, stats["code"], stats
+        if kind == "read":
+            _, out, found, stats = dht_read(st, k)
+            return out, found, None, stats
+        if kind == "mixed":
+            _, _, out, found, code, es = dht_execute(
+                st, mixed_ops(op, k, v), kinds=("read", "write"))
+            return out, found, code, es
+        _, _, out, found, code, es = dht_execute(st, migrate_ops(k, v),
+                                                 kinds=("migrate",))
+        return out, found, code, es
+    return run
+
+
+def _rows_of(res):
+    return [x for x in res[:3] if x is not None]
+
+
+def _sharded_main(cfg, errs):
+    """(a) the counted run: every entry point of the sharded path once,
+    outputs and digests kept for the comparison that follows."""
+    import torch
+
+    from repro_torch.core import (InterpConfig, L1Config, SurrogateConfig,
+                                  l1_create, lookup_interpolate_or_compute,
+                                  lookup_or_compute, store)
+    from repro_torch.core.distributed import ShardedDHT
+    from repro_torch.kernels import ops
+
+    scfg = SurrogateConfig(n_inputs=10, n_outputs=13, sig_digits=3,
+                           dht=cfg)
+    gen = torch.Generator().manual_seed(60)
+    surr_x = pipe_inputs(torch.randint(0, PIPE_UNIFORM_IDS, (N_KEYS,),
+                                       generator=gen), DEVICE)
+    centres, nbrs = _bracketed(scfg, INTERP_CENTRES, DEVICE, seed=61)
+    mode_keys = words(gen, SHARD_MODE_WRITES, cfg.key_words, DEVICE)
+    mode_vals = words(gen, SHARD_MODE_WRITES, cfg.val_words, DEVICE)
+    warm = _stream(cfg, DEVICE, seed=99)
+    stream = _stream(cfg, DEVICE, seed=1)
+    torch.cuda.synchronize()
+
+    saved: dict = {}
+    d = ShardedDHT.create(cfg, device=DEVICE)
+    ops.reset_launches()
+    run = _sharded_exec(d)
+    run("write", warm[0], warm[1])
+    with Capture(ops) as cap:
+        for kind, fn in _sharded_plan(*stream, run):
+            res = fn()
+            saved[kind] = (_rows_of(res), slab_digest(d.state), res[3])
+            if kind == "read":
+                wire = int(res[3]["wire_words"])
+    # cached reads through the ShardedDHT's closure: elided residue
+    l1 = l1_create(L1Config(n_sets=1024, n_ways=4), cfg.n_shards,
+                   device=DEVICE)
+    cached = d.read_cached_fn()
+    ones = torch.ones(N_KEYS, dtype=torch.bool, device=DEVICE)
+    with Capture(ops) as lcap:
+        for i in range(2):
+            d.state, l1, out, found, cst = cached(d.state, l1, stream[0],
+                                                  ones)
+            saved[f"cached{i}"] = ([out, found], int(cst["l1_hits"]),
+                                   int(cst["wire_words"]))
+    out, found, ast = d.read_commit(d.read_async(stream[0]))
+    saved["async"] = ([out, found], ast["overlap_frac"])
+    # the surrogate forms through the group, one round each
+    for i in range(2):
+        d.state, out, found, sst = lookup_or_compute(
+            scfg, d.state, surr_x, pipe_value, axis_name=d.group)
+        saved[f"loc{i}"] = ([out, found], int(sst["hits"]))
+    with Capture(ops) as scap:
+        d.state, _ = store(scfg, d.state, nbrs, interp_fn(nbrs),
+                           axis_name=d.group)
+        d.state, out, prov, ist = lookup_interpolate_or_compute(
+            scfg, d.state, centres, interp_fn, InterpConfig(),
+            one_round=True, axis_name=d.group)
+    saved["lic"] = ([out, prov], int(ist["stored"]))
+    saved["digest"] = slab_digest(d.state)
+    # fine and coarse: their locked schedules on the full table
+    for mode in ("fine", "coarse"):
+        mcfg = dataclasses.replace(cfg, mode=mode)
+        dm = ShardedDHT.create(mcfg, device=DEVICE)
+        mst = dm.write(mode_keys, mode_vals)
+        out, found, rst = dm.read(mode_keys)
+        saved[mode] = ([mst["code"], out, found], slab_digest(dm.state),
+                       {k: int(mst[k]) for k in ("rounds", "lock_tokens")},
+                       int(rst["lock_tokens"]))
+        del dm
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    calls = {n: cap.calls[n] + lcap.calls[n] + scap.calls[n]
+             for n in cap.calls}
+    compare_calls(calls, errs, "sharded")
+    return d, saved, launches, wire, (scfg, surr_x, centres, nbrs,
+                                      mode_keys, mode_vals, warm, stream)
+
+
+def _sharded_parity(cfg, saved, inputs) -> dict:
+    """The virtual-shard backend on the same rounds: every output, flag
+    and code, and the slab digests, equal."""
+    import torch
+
+    from repro_torch.core import (InterpConfig, dht_create, dht_read,
+                                  dht_write, lookup_interpolate_or_compute,
+                                  lookup_or_compute, store)
+
+    scfg, surr_x, centres, nbrs, mkeys, mvals, warm, stream = inputs
+    eq = {}
+    v = dht_create(cfg, device=DEVICE)
+    run = _virtual_exec(v)
+    run("write", warm[0], warm[1])
+    for kind, fn in _sharded_plan(*stream, run):
+        res = fn()
+        rows, digest, _ = saved[kind]
+        eq[kind] = (all(torch.equal(a, b) for a, b in zip(_rows_of(res),
+                                                          rows))
+                    and slab_digest(v) == digest)
+    v, rout, rfound, _ = dht_read(v, stream[0])
+    for i in range(2):
+        out, found = saved[f"cached{i}"][0]
+        eq[f"cached{i}"] = torch.equal(out, rout) and torch.equal(found,
+                                                                  rfound)
+    out, found = saved["async"][0]
+    eq["async"] = torch.equal(out, rout) and torch.equal(found, rfound)
+    for i in range(2):
+        v, out, found, _ = lookup_or_compute(scfg, v, surr_x, pipe_value,
+                                             one_round=True)
+        eq[f"loc{i}"] = all(torch.equal(a, b) for a, b in zip(
+            (out, found), saved[f"loc{i}"][0]))
+    v, _ = store(scfg, v, nbrs, interp_fn(nbrs))
+    v, out, prov, _ = lookup_interpolate_or_compute(
+        scfg, v, centres, interp_fn, InterpConfig(), one_round=True)
+    eq["lic"] = all(torch.equal(a, b) for a, b in zip(
+        (out, prov), saved["lic"][0]))
+    eq["digest"] = slab_digest(v) == saved["digest"]
+    del v
+    for mode in ("fine", "coarse"):
+        vm = dht_create(dataclasses.replace(cfg, mode=mode), device=DEVICE)
+        vm, ws = dht_write(vm, mkeys, mvals)
+        vm, out, found, _ = dht_read(vm, mkeys)
+        rows, digest, _, _ = saved[mode]
+        eq[mode] = (all(torch.equal(a, b) for a, b in zip(
+            (ws["code"], out, found), rows)) and slab_digest(vm) == digest)
+        del vm
+    return eq
+
+
+def _sharded_timing(cfg) -> dict:
+    """(b) the four rounds on fresh sharded and virtual tables in turns
+    (fresh keys each repeat), the exchange alone by CUDA events, and the
+    host syncs of each issue half."""
+    import torch
+
+    from repro_torch.core import dht_create, routing
+    from repro_torch.core.distributed import ShardedDHT
+
+    d = ShardedDHT.create(cfg, device=DEVICE)
+    v = dht_create(cfg, device=DEVICE)
+    warm = _stream(cfg, DEVICE, seed=99)
+    _sharded_exec(d)("write", warm[0], warm[1])
+    _virtual_exec(v)("write", warm[0], warm[1])
+    ms = {"sharded": {}, "virtual": {}}
+    for rep in range(SHARD_REPS):
+        stream = _stream(cfg, DEVICE, seed=200 + rep)
+        for backend, run in (("sharded", _sharded_exec(d)),
+                             ("virtual", _virtual_exec(v))):
+            for kind, fn in _sharded_plan(*stream, run):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[backend].setdefault(kind, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+    # where the extra host time of a round goes: torch.profiler over one
+    # read and one write round of each backend
+    stream = _stream(cfg, DEVICE, seed=250)
+    profiles = {}
+    for backend, run in (("sharded", _sharded_exec(d)),
+                         ("virtual", _virtual_exec(v))):
+        for kind, fn in _sharded_plan(*stream, run)[:2]:
+            profiles[f"{backend}_{kind}"] = _host_profile(fn)
+    del v
+    rounds = {}
+    for kind in ms["sharded"]:
+        row = {}
+        for backend in ms:
+            t = ms[backend][kind]
+            row[backend] = {"median": statistics.median(t), "min": min(t),
+                            "max": max(t), "all": t}
+        row["sharded_minus_virtual_ms"] = (row["sharded"]["median"]
+                                           - row["virtual"]["median"])
+        rounds[kind] = row
+    # the exchange alone: a write round's send leg at S = 1, (cap, L)
+    # int32 with L = base + key + value + valid lanes
+    stream = _stream(cfg, DEVICE, seed=300)
+    buf = torch.zeros((N_KEYS, 1 + cfg.key_words + cfg.val_words + 1),
+                      dtype=torch.int32, device=DEVICE)
+    a2a = []
+    for _ in range(TIMING_REPS + 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        routing._exchange(buf, d.group)
+        end.record()
+        end.synchronize()
+        a2a.append(start.elapsed_time(end))
+    syncs, sites = {}, {}
+    syncs["read"], sites["read"], r = issue_syncs(
+        lambda: d.read_async(stream[0]))
+    d.read_commit(r)
+    syncs["write"], sites["write"], w = issue_syncs(
+        lambda: d.write_async(stream[0], stream[1]))
+    d.write_commit(w)
+    r = d.read_async(stream[0])
+    torch.cuda.synchronize()
+    syncs["read_commit"], sites["read_commit"], _ = issue_syncs(
+        lambda: d.read_commit(r))
+    del d
+    return {"rounds": rounds, "profiles": profiles,
+            "all_to_all_ms": {"shape": list(buf.shape),
+                              "median": statistics.median(a2a[3:]),
+                              "min": min(a2a[3:]), "max": max(a2a[3:])},
+            "syncs_per_issue_half": syncs, "sync_sites": sites}
+
+
+def _host_profile(fn, top: int = 10) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall, the card's busy
+    time, the count of kernel launches and collectives, and the ``top``
+    host operations by self CPU time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_s = _timed(fn)
+    host, device_us, launches, collectives = [], 0.0, 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += getattr(ev, "device_time_total", 0.0)
+            continue
+        if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                      "cudaLaunchKernelExC"):
+            launches += ev.count
+        if "nccl" in ev.key.lower() or "c10d::" in ev.key:
+            collectives += ev.count
+        host.append((ev.self_cpu_time_total, ev.key, ev.count))
+    host.sort(reverse=True)
+    return {"wall_ms": wall_s * 1e3,
+            "device_ms": device_us / 1e3 if device_us else "not measured",
+            "kernel_launches": launches, "collective_calls": collectives,
+            "host_top": [{"op": k[:70], "self_ms": us / 1e3, "calls": n}
+                         for us, k, n in host[:top]]}
+
+
+def _server_baseline(cfg) -> dict:
+    """(c) the server baseline at the same table size beside one sharded
+    round of the same ops."""
+    import torch
+
+    from repro_torch.core.distributed import ShardedDHT
+    from repro_torch.core.server_kv import (server_create, server_read,
+                                            server_write)
+
+    gen = torch.Generator().manual_seed(70)
+    keys = words(gen, SERVER_OPS, cfg.key_words, DEVICE)
+    vals = words(gen, SERVER_OPS, cfg.val_words, DEVICE)
+    out = {}
+    srv = server_create(cfg, device=DEVICE)
+    d = ShardedDHT.create(cfg, device=DEVICE)
+    for rep in range(3):
+        for name, write, read in (
+                ("server", lambda: server_write(srv, keys, vals,
+                                                SERVER_WIDTH),
+                 lambda: server_read(srv, keys, SERVER_WIDTH)),
+                ("sharded", lambda: d.write(keys, vals),
+                 lambda: d.read(keys))):
+            for kind, fn in (("write", write), ("read", read)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                out.setdefault(f"{name}_{kind}_ms", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                if kind == "read":
+                    got, found = (res[1], res[2]) if name == "server" \
+                        else (res[0], res[1])
+                    check(bool(found.all()) and torch.equal(got, vals),
+                          f"server baseline: {name} read lost a value")
+    del srv, d
+    return {"ops": SERVER_OPS, "server_width": SERVER_WIDTH,
+            "server_rounds": -(-SERVER_OPS // SERVER_WIDTH),
+            **{k: {"median": statistics.median(v), "all": v}
+               for k, v in out.items()}}
+
+
+def phase_sharded(errs):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import DHTConfig
+
+    cfg = DHTConfig(key_words=20, val_words=26, n_shards=1,
+                    buckets_per_shard=SHARD_BUCKETS, n_probe=6,
+                    mode="lockfree")
+    torch.cuda.synchronize()
+    _sharded_group()
+    try:
+        d, saved, launches, wire, inputs = _sharded_main(cfg, errs)
+        check(wire == 2 * cfg.n_shards,
+              f"sharded read: wire words {wire}, the prologue's "
+              f"{2 * cfg.n_shards} expected (every row self-owned)")
+        for kind in ("write", "mixed_95_5", "migrate"):
+            check(int(saved[kind][2]["dropped"]) == 0,
+                  f"sharded {kind}: rows dropped")
+        check(bool(saved["read"][0][1].all())
+              and torch.equal(saved["read"][0][0], inputs[7][1]),
+              "sharded read: a written key was lost")
+        check(saved["cached1"][1] > 0, "sharded cached read: no L1 hit")
+        check(saved["loc1"][1] == N_KEYS,
+              "sharded lookup_or_compute: the second batch missed")
+        from repro_torch.core import PROV_INTERP
+
+        check(bool((saved["lic"][0][1] == PROV_INTERP).all()),
+              "sharded interpolation: a centre did not interpolate")
+        del d
+        eq = _sharded_parity(cfg, saved, inputs)
+        check(all(eq.values()), f"sharded vs virtual backend differ: {eq}")
+        del saved, inputs
+        timing = _sharded_timing(cfg)
+        server = _server_baseline(cfg)
+    finally:
+        dist.destroy_process_group()
+    emit("sharded", backend="nccl", world_size=1, S=cfg.n_shards,
+         B=cfg.buckets_per_shard,
+         table_gb=cfg.n_shards * cfg.shard_bytes / 1e9,
+         read_wire_words=wire, equal_to_virtual=eq, launches=launches,
+         **timing)
+    emit("sharded_server", **server)
+    return launches
+
+
 def _attn_case(gen, b, s, h, hk, d, dtype):
     import torch
 
@@ -2493,6 +2926,7 @@ def main() -> int:
     launches["interp"], icalls = phase_interp(cfg_big, errs, poet_plain)
     launches["l1"] = phase_l1(cfg_big, errs)
     launches["pipeline"] = phase_pipeline(cfg_big, poet_plain)
+    launches["sharded"] = phase_sharded(errs)
     tols: dict[str, float] = {}        # the bit-exact kernels: 0
     launches["lm"], acalls = phase_lm(errs, tols)
     timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls)

@@ -2,9 +2,12 @@
 single-device part of ``repro.core.dht``).
 
 Each call is one engine round (``core/op_engine.dht_execute``) on the
-single-device virtual-shard backend; :func:`dht_read_cached` serves the
-coherent part of a batch from the L1 cache (``core/l1cache.py``) first.
-The ``*_async``/``*_commit`` pairs are the two halves of the same rounds
+single-device virtual-shard backend, or, with ``axis_name`` a process
+group, on the multi-rank backend (``state`` is the rank's one shard and
+``keys`` its own rows; the stats are the rank's, reduced by
+``core/distributed.py``).  :func:`dht_read_cached` serves the coherent
+part of a batch from the L1 cache (``core/l1cache.py``) first.  The
+``*_async``/``*_commit`` pairs are the two halves of the same rounds
 (``dht_issue``/``dht_commit``): the async half enqueues the round and
 returns, the commit half waits for it.  The table and the cache are
 updated in place.  The dual-epoch and replicated forms belong to later
@@ -81,12 +84,10 @@ def dht_write_async(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
                     l1_meta: bool = False) -> InFlightRound:
     """Issue a write round without waiting (the first half of
     :func:`dht_write`); pair with :func:`dht_write_commit`."""
-    if axis_name is not None:
-        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
     if valid is None:
         valid = _ones(keys)
     rnd = dht_issue(state, write_ops(keys, vals, valid), kinds=("write",),
-                    l1_meta=l1_meta)
+                    axis_name=axis_name, l1_meta=l1_meta)
     rnd.meta["l1_meta"] = l1_meta
     return rnd
 
@@ -98,20 +99,25 @@ def dht_write_commit(rnd: InFlightRound) -> tuple[DHTState, dict]:
 
 
 def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
-              valid: torch.Tensor | None = None, *, l1_meta: bool = False,
-              max_retries: int = 0) -> tuple[DHTState, dict]:
+              valid: torch.Tensor | None = None, *, axis_name=None,
+              l1_meta: bool = False, max_retries: int = 0
+              ) -> tuple[DHTState, dict]:
     """DHT_write: store/update a batch of key-value pairs.
 
     ``l1_meta=True`` piggybacks the shard watermarks on the reply lanes
     (stats gain ``wmark_post``).  ``max_retries > 0`` re-issues rows the
     router dropped on a capacity overflow (``code == W_DROPPED``) for up
-    to that many extra rounds; the default 0 is the single-round write."""
+    to that many extra rounds; the default 0 is the single-round write.
+    Under a process group there is no retry here (a rank's drops are not
+    the group's): ``ShardedDHT.write`` retries on the global count."""
     if valid is None:
         valid = _ones(keys)
     state, _, _, _, code, es = dht_execute(
         state, write_ops(keys, vals, valid), kinds=("write",),
-        l1_meta=l1_meta)
+        axis_name=axis_name, l1_meta=l1_meta)
     total = _write_stats(code, es, l1_meta=l1_meta)
+    if axis_name is not None:
+        return state, total
     for _ in range(max_retries):
         retry = valid & (total["code"] == W_DROPPED)
         if not bool(retry.any()):
@@ -140,12 +146,10 @@ def dht_read_async(state: DHTState, keys: torch.Tensor,
     whose key has a promised-but-unissued write are served by forwarding
     at commit instead of probing a table that does not hold the value
     yet."""
-    if axis_name is not None:
-        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
     if valid is None:
         valid = _ones(keys)
     rnd = dht_issue(state, read_ops(keys, valid), kinds=("read",),
-                    l1_meta=l1_meta, pending=pending)
+                    axis_name=axis_name, l1_meta=l1_meta, pending=pending)
     rnd.meta["valid"] = valid
     rnd.meta["l1_meta"] = l1_meta
     return rnd
@@ -162,7 +166,8 @@ def dht_read_commit(rnd: InFlightRound
 
 
 def dht_read(state: DHTState, keys: torch.Tensor,
-             valid: torch.Tensor | None = None, *, l1_meta: bool = False
+             valid: torch.Tensor | None = None, *, axis_name=None,
+             l1_meta: bool = False
              ) -> tuple[DHTState, torch.Tensor, torch.Tensor, dict]:
     """DHT_read: fetch a batch of values.  Returns ``(state', vals,
     found, stats)``; ``state'`` changes only where a checksum-failed
@@ -171,25 +176,19 @@ def dht_read(state: DHTState, keys: torch.Tensor,
     if valid is None:
         valid = _ones(keys)
     state, _, vals, found, _code, es = dht_execute(
-        state, read_ops(keys, valid), kinds=("read",), l1_meta=l1_meta)
+        state, read_ops(keys, valid), kinds=("read",), axis_name=axis_name,
+        l1_meta=l1_meta)
     return state, vals, found, _read_stats(valid, found, es,
                                            l1_meta=l1_meta)
 
 
-def dht_read_cached(state: DHTState, l1: l1cache.L1State, keys: torch.Tensor,
-                    valid: torch.Tensor | None = None, *, axis_name=None):
-    """DHT_read through the locality tier: coherent L1 hits are served
-    from the cache with no routing traffic; only the residue rides the
-    one-round engine, which piggybacks the coherence metadata used to
-    refill the cache.  The result is bit for bit :func:`dht_read`'s as
-    long as every table mutation since the lines were filled changed the
-    shard watermarks (engine rounds and INVALID flagging do).
-
-    Returns ``(state', l1', vals, found, stats)``: ``stats`` matches
-    :func:`dht_read` plus ``l1_hits``.  ``l1`` is updated in place.
-    Reads two counts back to the host for the ``l1.*`` counters."""
-    if axis_name is not None:
-        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
+def dht_read_cached_async(state: DHTState, l1: l1cache.L1State,
+                          keys: torch.Tensor,
+                          valid: torch.Tensor | None = None, *,
+                          axis_name=None) -> InFlightRound:
+    """Issue a cached read (the first half of :func:`dht_read_cached`):
+    the L1 probe, the residue's engine round and the L1 refill, all
+    enqueued; pair with :func:`dht_read_cached_commit`."""
     if state.cfg.n_replicas > 1:
         raise routing.not_ported("cached reads under replication", "12")
     if valid is None:
@@ -199,17 +198,27 @@ def dht_read_cached(state: DHTState, l1: l1cache.L1State, keys: torch.Tensor,
     hashes = (h[:, 0], h[:, 1])
     set_idx, way_idx = l1cache.l1_slots(l1cfg, *hashes)
     dest, epoch = _owner_epoch(state, hashes[0])
-    # the whole table is at hand: every shard's watermark is recomputed,
-    # so even edits made outside the engine fence
-    known = to_i32(shard_watermark(state.meta))
+    own = to_i32(shard_watermark(state.meta))
+    if axis_name is None:
+        # the whole table is at hand: every shard's watermark is
+        # recomputed, so even edits made outside the engine fence
+        known = own
+    else:
+        # this rank's shard recomputed, the others from the piggyback
+        import torch.distributed as dist
+
+        known = l1.shard_wmark.clone()
+        known[dist.get_rank(routing.process_group(axis_name))] = own[0]
     flags = l1cache.serve_flags(l1, known, epoch)
     hit, cval = l1cache.l1_probe(l1cfg, l1, keys, set_idx, flags)
     hit = hit & valid
 
     rvalid = valid & ~hit
-    state, _, rval, rfound, _code, es = dht_execute(
+    rnd = dht_issue(
         state, OpBatch(keys=keys, valid=rvalid), kinds=("read",),
-        hashes=hashes, placement=(dest, epoch), l1_meta=True)
+        axis_name=axis_name, hashes=hashes, placement=(dest, epoch),
+        l1_meta=True)
+    es, rval, rfound = rnd.estats, rnd.vals, rnd.found
     vals = torch.where(hit[:, None], cval, rval)
     found = hit | rfound
 
@@ -219,7 +228,10 @@ def dht_read_cached(state: DHTState, l1: l1cache.L1State, keys: torch.Tensor,
     l1 = l1cache.l1_insert(l1cfg, l1, keys, rval, gen, dest,
                            wpre[dest.long()], epoch, set_idx, way_idx,
                            mask=rfound)
-    stats = {
+    if rnd.event is not None:
+        rnd.event.record()          # the refill is part of the round
+    rnd.meta.update(l1=l1, out=(vals, found), valid=valid,
+                    local=axis_name is None, stats={
         "hits": found.sum().to(torch.int32),
         "misses": (valid & ~found).sum().to(torch.int32),
         "l1_hits": hit.sum().to(torch.int32),
@@ -234,12 +246,42 @@ def dht_read_cached(state: DHTState, l1: l1cache.L1State, keys: torch.Tensor,
         "bin_max_load": es["bin_max_load"],
         "bin_imbalance": es["bin_imbalance"],
         "hot_frac": es["hot_frac"],
-    }
-    n_hits, n_queries = torch.stack(
-        [stats["l1_hits"], valid.sum().to(torch.int32)]).tolist()
-    obs_metrics.inc("l1.hits", n_hits)
-    obs_metrics.inc("l1.queries", n_queries)
-    return state, l1, vals, found, stats
+    })
+    return rnd
+
+
+def dht_read_cached_commit(rnd: InFlightRound):
+    """Commit an issued cached read -> ``(state', l1', vals, found,
+    stats)``.  On the single-device backend it reads two counts back to
+    the host for the ``l1.*`` counters (under a group the rank's counts
+    are not the group's, so it does not)."""
+    state = dht_commit(rnd)[0]
+    vals, found = rnd.meta["out"]
+    stats = rnd.meta["stats"]
+    if rnd.meta["local"]:
+        n_hits, n_queries = torch.stack(
+            [stats["l1_hits"], rnd.meta["valid"].sum().to(torch.int32)]
+        ).tolist()
+        obs_metrics.inc("l1.hits", n_hits)
+        obs_metrics.inc("l1.queries", n_queries)
+    return state, rnd.meta["l1"], vals, found, stats
+
+
+def dht_read_cached(state: DHTState, l1: l1cache.L1State, keys: torch.Tensor,
+                    valid: torch.Tensor | None = None, *, axis_name=None):
+    """DHT_read through the locality tier: coherent L1 hits are served
+    from the cache with no routing traffic; only the residue rides the
+    one-round engine, which piggybacks the coherence metadata used to
+    refill the cache.  Under a process group the residue's self-owned
+    rows also skip the exchange (``elide_self``).  The result is bit for
+    bit :func:`dht_read`'s as long as every table mutation since the
+    lines were filled changed the shard watermarks (engine rounds and
+    INVALID flagging do).
+
+    Returns ``(state', l1', vals, found, stats)``: ``stats`` matches
+    :func:`dht_read` plus ``l1_hits``.  ``l1`` is updated in place."""
+    return dht_read_cached_commit(dht_read_cached_async(
+        state, l1, keys, valid, axis_name=axis_name))
 
 
 def dht_read_many(state: DHTState, keys: torch.Tensor,
@@ -250,11 +292,10 @@ def dht_read_many(state: DHTState, keys: torch.Tensor,
     neighbourhood of n queries, with an optional (n, m) ``valid`` mask;
     all n*m probes share ONE routing round.  Returns ``(state', vals
     (n, m, VW), found (n, m), stats)``."""
-    if axis_name is not None:
-        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
     n, m = keys.shape[0], keys.shape[1]
     flat, vflat = routing.flatten_fanout(keys, valid)
-    state, val, found, stats = dht_read(state, flat, vflat, l1_meta=l1_meta)
+    state, val, found, stats = dht_read(state, flat, vflat,
+                                        axis_name=axis_name, l1_meta=l1_meta)
     return (state, routing.unflatten_fanout(val, n, m),
             routing.unflatten_fanout(found, n, m), stats)
 
@@ -269,12 +310,10 @@ def dht_read_many_async(state: DHTState, keys: torch.Tensor,
                         l1_meta: bool = False, pending=None) -> InFlightRound:
     """Issue a multi-key (n, m, KW) read round without waiting; pair with
     :func:`dht_read_many_commit`."""
-    if axis_name is not None:
-        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
     n, m = keys.shape[0], keys.shape[1]
     flat, vflat = routing.flatten_fanout(keys, valid)
-    rnd = dht_read_async(state, flat, vflat, l1_meta=l1_meta,
-                         pending=pending)
+    rnd = dht_read_async(state, flat, vflat, axis_name=axis_name,
+                         l1_meta=l1_meta, pending=pending)
     rnd.meta["fanout"] = (n, m)
     return rnd
 

@@ -1,0 +1,485 @@
+"""Sharded execution of the DHT over ``torch.distributed`` (PyTorch port of
+``repro.core.distributed``).
+
+Every rank contributes one table shard (the paper: "the parallel
+processes offer a part of their available memory"): a group of S ranks
+holds a table of ``cfg.n_shards == S`` shards, rank r shard r.  Each rank
+calls the same wrappers with its own rows; the group's batch is the
+ranks' batches in rank order, the reference's ``P(axes)`` row blocks.
+Every round is one ``all_to_all_single`` each way (``core/routing.py``),
+gloo for CPU tensors and NCCL for CUDA ones.
+
+Each wrapper's stat lanes are reduced over the group the way the
+reference's ``_psum_stats`` reduces them: one packed ``all_reduce(SUM)``
+and one ``all_reduce(MAX)``, launched without waiting; a mean lane is the
+sum over the world size; the per-row ``code`` stays the rank's.  The
+``*_fn`` closures are plain functions with the reference's signatures
+``(state, keys, vals, valid) -> ...``; the port is eager, so they need no
+trace cache.
+
+Not in this slice: the ring and resharding (``apply_ring``, ``leave``,
+``join``; ROADMAP item 11), replication and repair (``crash``,
+``recover``, ``repair`` and the replicated closures; item 12) and the
+telemetry registry (``telemetry_snapshot``; item 14).  Each raises
+``NotImplementedError`` naming its item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from . import dht as dht_ops
+from . import l1cache, routing
+from .layout import DHTConfig, DHTState, dht_create, resolve_device
+from .op_engine import W_DROPPED, InFlightRound, OpBatch, dht_commit, dht_execute
+from .pipeline import RoundQueue
+
+# replicated or uniform lanes, and the largest bin: the max over ranks
+_MAX_LANES = ("rounds", "epoch", "dispatch_rounds", "n_shards", "capacity",
+              "bin_max_load")
+# per-rank fractions: the mean over ranks
+_MEAN_LANES = ("fill_frac", "bin_imbalance", "hot_frac")
+
+
+class ReducedStats:
+    """A rank's stat lanes on their way to the group's.  The lanes are
+    packed into one float64 buffer per reduction (int32 counts and the
+    float32 fractions are exact in it; one ``cat`` casts them all), and
+    the two ``all_reduce`` calls are launched without waiting;
+    :meth:`wait` waits for them and unpacks 0-d int32 (float32 for the
+    mean lanes) tensors on the rank's device.  ``code`` is per row and
+    stays the rank's."""
+
+    def __init__(self, stats: dict, group, device: torch.device):
+        self.world = dist.get_world_size(group)
+        self.kept = {k: v for k, v in stats.items() if k == "code"}
+        self.layout: dict[str, list] = {}
+        self.bufs, self.works = {}, []
+        for red in ("sum", "max"):
+            names = [k for k in stats if k != "code"
+                     and (k in _MAX_LANES) == (red == "max")]
+            host = [k for k in names if not torch.is_tensor(stats[k])]
+            dev = [k for k in names if torch.is_tensor(stats[k])]
+            # host numbers first, then the device lanes in order
+            head = torch.tensor([float(stats[k]) for k in host],
+                                dtype=torch.float64)
+            if device.type == "cuda":
+                # a pinned copy: no host sync in the issue half
+                head = head.pin_memory().to(device, non_blocking=True)
+            buf = torch.cat([head] + [stats[k].reshape(-1) for k in dev])
+            layout, off = [], 0
+            for k in host + dev:
+                shape = tuple(stats[k].shape) if k in dev else ()
+                n = max(1, int(torch.Size(shape).numel()))
+                layout.append((k, off, n, shape))
+                off += n
+            op = dist.ReduceOp.SUM if red == "sum" else dist.ReduceOp.MAX
+            self.works.append(dist.all_reduce(buf, op=op, group=group,
+                                              async_op=True))
+            self.bufs[red], self.layout[red] = buf, layout
+        self._out: dict | None = None
+
+    def wait(self) -> dict:
+        """The group's lanes (the same on every rank) and the rank's
+        ``code``."""
+        if self._out is None:
+            for w in self.works:
+                w.wait()
+            out = {}
+            for red, layout in self.layout.items():
+                ints = self.bufs[red].to(torch.int32)
+                fracs = None
+                for k, off, n, shape in layout:
+                    if k in _MEAN_LANES:
+                        if fracs is None:
+                            fracs = (self.bufs[red].to(torch.float32)
+                                     / float(self.world))
+                        out[k] = fracs[off:off + n].reshape(shape)
+                    else:
+                        out[k] = ints[off:off + n].reshape(shape)
+            out.update(self.kept)
+            self._out = out
+        return dict(self._out)
+
+
+def _psum_stats(stats: dict, group) -> dict:
+    """The group's stat lanes, synchronously (see :class:`ReducedStats`)."""
+    device = next((v.device for v in stats.values() if torch.is_tensor(v)),
+                  torch.device("cpu"))
+    return ReducedStats(stats, group, device).wait()
+
+
+def _rank_device(group, device) -> torch.device:
+    """The caller's device, or this rank's card: ``cuda:{LOCAL_RANK}``
+    (the rank modulo the card count when the launcher sets none).
+    Without CUDA and without a device it raises, as every entry point of
+    the port does."""
+    if device is not None:
+        return resolve_device(device)
+    resolve_device(None)
+    local = os.environ.get("LOCAL_RANK")
+    local = (int(local) if local is not None
+             else dist.get_rank(group) % torch.cuda.device_count())
+    return torch.device("cuda", local)
+
+
+@dataclasses.dataclass
+class ShardedRound:
+    """An issued-but-uncommitted sharded round: the engine's
+    :class:`InFlightRound` (its event and telemetry lanes), the results
+    the matching ``*_commit`` returns, and the stat lanes' reductions in
+    flight."""
+
+    source: str
+    rnd: InFlightRound
+    outs: tuple
+    stats: ReducedStats
+    committed: bool = False
+
+
+@dataclasses.dataclass
+class ShardedDHT:
+    """The multi-rank table bound to a process group: this rank's shard,
+    its private L1 (``l1cfg``), and the read/write wrappers.
+
+    With ``l1cfg`` set, every rank fronts its reads with the locality
+    tier: reads probe the rank's L1 before routing and elide self-owned
+    rows from the exchange; every round, reads and writes, refreshes the
+    shard watermarks from the reply piggyback, which is what invalidates
+    cached lines a remote write obsoleted.  All table mutations must then
+    go through this object's wrappers.
+
+    ``pipeline_depth`` is the depth of :meth:`round_queue` for the
+    issue/commit wrappers (:meth:`read_async` / :meth:`write_async`).  A
+    pipelined driver's ``PendingWrites`` must hold the group's promises,
+    not the rank's: a row may repeat a key another rank is about to
+    write (gather the batch's keys and miss masks across ranks)."""
+
+    cfg: DHTConfig
+    state: DHTState
+    group: Any
+    l1cfg: l1cache.L1Config | None = None
+    l1: l1cache.L1State | None = None
+    pipeline_depth: int = 2
+    # one all-true valid mask per batch shape
+    _ones_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @classmethod
+    def create(cls, cfg: DHTConfig, *, group=None,
+               l1cfg: l1cache.L1Config | None = None, device=None,
+               ring=None) -> "ShardedDHT":
+        """This rank's empty shard of a ``cfg.n_shards``-shard table.
+        ``group`` defaults to the whole world, which must have
+        ``cfg.n_shards`` ranks.  The shard lives on this rank's card
+        unless ``device`` names another; the group's backend must fit it
+        (NCCL for CUDA, gloo for the CPU)."""
+        if ring is not None:
+            raise routing.not_ported("ShardedDHT.create(ring=...)", "11")
+        if not dist.is_initialized():
+            raise RuntimeError("ShardedDHT needs torch.distributed: call "
+                               "init_process_group first")
+        group = dist.group.WORLD if group is None else group
+        world = dist.get_world_size(group)
+        if cfg.n_shards != world:
+            raise ValueError(f"one shard per rank: n_shards={cfg.n_shards} "
+                             f"!= world size {world}")
+        dev = _rank_device(group, device)
+        routing.process_group(group, dev)
+        state = dht_create(cfg, device=dev, shards=1)
+        l1 = None
+        if l1cfg is not None:
+            if (l1cfg.key_words, l1cfg.val_words) != (cfg.key_words,
+                                                      cfg.val_words):
+                l1cfg = dataclasses.replace(
+                    l1cfg, key_words=cfg.key_words, val_words=cfg.val_words)
+            l1 = l1cache.l1_create(l1cfg, cfg.n_shards, device=dev)
+        return cls(cfg=cfg, state=state, group=group, l1cfg=l1cfg, l1=l1)
+
+    # -- closures ---------------------------------------------------------
+    def _no_l1(self, what: str) -> None:
+        if self.l1 is not None:
+            raise ValueError(
+                f"L1 attached: {what} through write() (write_refresh_fn) so "
+                "the coherence watermarks refresh; a raw write round would "
+                "let stale cached lines keep serving")
+
+    def write_fn(self):
+        """``(state, keys, vals, valid) -> (state', stats)``."""
+        self._no_l1("write")
+
+        def fn(state, keys, vals, valid):
+            state, stats = dht_ops.dht_write(state, keys, vals, valid,
+                                             axis_name=self.group)
+            return state, _psum_stats(stats, self.group)
+
+        return fn
+
+    def read_fn(self):
+        """``(state, keys, valid) -> (state', vals, found, stats)``."""
+
+        def fn(state, keys, valid):
+            state, vals, found, stats = dht_ops.dht_read(
+                state, keys, valid, axis_name=self.group)
+            return state, vals, found, _psum_stats(stats, self.group)
+
+        return fn
+
+    def execute_fn(self, kinds: tuple[str, ...]):
+        """The one-round op-engine for uniform-kind batches:
+        ``("migrate",)`` is get-or-put; ``("read",)``/``("write",)``
+        mirror :meth:`read_fn`/:meth:`write_fn`.  ``(state, keys, vals,
+        valid) -> (state', vals, found, code, estats)``."""
+        if "write" in kinds:
+            self._no_l1("a same-epoch write round")
+        do_write = ("write" in kinds) or ("migrate" in kinds)
+
+        def fn(state, keys, vals, valid):
+            ops = OpBatch(keys=keys, valid=valid,
+                          vals=vals.to(torch.int32) if do_write else None)
+            state, _, out, found, code, es = dht_execute(
+                state, ops, kinds=kinds, axis_name=self.group)
+            return state, out, found, code, _psum_stats(es, self.group)
+
+        return fn
+
+    def read_many_fn(self):
+        """Neighbourhood read: (n, m, KW) candidate keys a row, all probed
+        in ONE exchange round.  ``(state, keys, valid) -> (state', vals,
+        found, stats)``."""
+
+        def fn(state, keys, valid):
+            state, vals, found, stats = dht_ops.dht_read_many(
+                state, keys, valid, axis_name=self.group)
+            return state, vals, found, _psum_stats(stats, self.group)
+
+        return fn
+
+    def read_cached_fn(self):
+        """L1-fronted read: coherent hot keys are served by the rank, the
+        self-owned residue skips the exchange, and the round's reply lanes
+        refresh the watermarks.  ``(state, l1, keys, valid) -> (state',
+        l1', vals, found, stats)``."""
+
+        def fn(state, l1, keys, valid):
+            state, l1, vals, found, stats = dht_ops.dht_read_cached(
+                state, l1, keys, valid, axis_name=self.group)
+            return state, l1, vals, found, _psum_stats(stats, self.group)
+
+        return fn
+
+    def write_refresh_fn(self):
+        """Write round that also refreshes the L1 watermarks: the
+        piggybacked post-round watermarks invalidate every cached line
+        the write obsoleted, on every rank.  ``(state, l1, keys, vals,
+        valid) -> (state', l1', stats)``."""
+
+        def fn(state, l1, keys, vals, valid):
+            state, stats = dht_ops.dht_write(
+                state, keys, vals, valid, axis_name=self.group,
+                l1_meta=True)
+            l1 = l1cache.with_shard_wmarks(l1, stats.pop("wmark_post"))
+            return state, l1, _psum_stats(stats, self.group)
+
+        return fn
+
+    def read_many_refresh_fn(self):
+        """Neighbourhood read that refreshes the L1 watermarks (its round
+        may flag INVALID buckets).  ``(state, l1, keys, valid) ->
+        (state', l1', vals, found, stats)``."""
+
+        def fn(state, l1, keys, valid):
+            state, vals, found, stats = dht_ops.dht_read_many(
+                state, keys, valid, axis_name=self.group, l1_meta=True)
+            l1 = l1cache.with_shard_wmarks(l1, stats.pop("wmark_post"))
+            return state, l1, vals, found, _psum_stats(stats, self.group)
+
+        return fn
+
+    def write_replicated_fn(self):
+        raise routing.not_ported("ShardedDHT.write_replicated_fn", "12")
+
+    def write_replicated_refresh_fn(self):
+        raise routing.not_ported("ShardedDHT.write_replicated_refresh_fn",
+                                 "12")
+
+    def repair_fn(self):
+        raise routing.not_ported("ShardedDHT.repair_fn", "12")
+
+    # -- stateful wrappers --------------------------------------------------
+    def _ones(self, shape) -> torch.Tensor:
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        mask = self._ones_cache.get(shape)
+        if mask is None:
+            mask = torch.ones(shape, dtype=torch.bool,
+                              device=self.state.device)
+            self._ones_cache[shape] = mask
+        return mask
+
+    def _write_dispatch(self, keys, vals, valid) -> dict:
+        if self.l1 is not None:
+            self.state, self.l1, stats = self.write_refresh_fn()(
+                self.state, self.l1, keys, vals, valid)
+        else:
+            self.state, stats = self.write_fn()(self.state, keys, vals,
+                                                valid)
+        return stats
+
+    def write(self, keys, vals, valid=None, *, max_retries: int = 2) -> dict:
+        """Write this rank's rows; rows the router dropped on overflow are
+        re-issued up to ``max_retries`` times.  The retry decision is the
+        group's (every rank takes the same number of rounds); only the
+        final round's unrecovered drops stay on ``dropped``, and
+        ``write_retries`` counts the extra rounds."""
+        valid = self._ones(keys.shape[0]) if valid is None else valid
+        total = None
+        attempt = 0
+        while True:
+            stats = self._write_dispatch(keys, vals, valid)
+            code = stats["code"]
+            retry = valid & (code == W_DROPPED)
+            # the group's dropped lane counts exactly these rows: a
+            # routed row always comes back with a write code
+            n_retry = int(stats["dropped"])
+            final = n_retry == 0 or attempt >= max_retries
+            if total is None:
+                total = dict(stats)
+            else:
+                for lane in ("inserted", "updated", "evicted", "lock_tokens",
+                             "wire_words", "rounds"):
+                    total[lane] = total[lane] + stats[lane]
+                # a retried row's fresh outcome overrides its drop code
+                total["code"] = torch.where(code != W_DROPPED, code,
+                                            total["code"])
+                total["dropped"] = stats["dropped"]
+            if final:
+                total["write_retries"] = attempt
+                return total
+            attempt += 1
+            valid = retry
+
+    def read(self, keys, valid=None):
+        """Read this rank's rows -> ``(vals, found, stats)``."""
+        valid = self._ones(keys.shape[0]) if valid is None else valid
+        if self.l1 is not None:
+            self.state, self.l1, vals, found, stats = self.read_cached_fn()(
+                self.state, self.l1, keys, valid)
+        else:
+            self.state, vals, found, stats = self.read_fn()(
+                self.state, keys, valid)
+        return vals, found, stats
+
+    def read_many(self, keys, valid=None):
+        """Neighbourhood read of this rank's (n, m, KW) rows -> ``(vals,
+        found, stats)``."""
+        valid = self._ones(keys.shape[:2]) if valid is None else valid
+        if self.l1 is not None:
+            self.state, self.l1, vals, found, stats = \
+                self.read_many_refresh_fn()(self.state, self.l1, keys, valid)
+        else:
+            self.state, vals, found, stats = self.read_many_fn()(
+                self.state, keys, valid)
+        return vals, found, stats
+
+    # -- issue/commit wrappers ----------------------------------------------
+    # The issue half enqueues the round and launches the stat lanes'
+    # reductions; the commit half waits for the round's event and the
+    # reductions.  Nothing here reads a device value back to the host
+    # beyond what the engine's issue half reads (the agreed capacity, the
+    # write passes' flags).
+
+    def read_async(self, keys, valid=None) -> ShardedRound:
+        """Issue a read round without waiting; pair with
+        :meth:`read_commit`.  At most ``pipeline_depth`` rounds should be
+        in flight (use :meth:`round_queue`)."""
+        valid = self._ones(keys.shape[0]) if valid is None else valid
+        if self.l1 is not None:
+            rnd = dht_ops.dht_read_cached_async(
+                self.state, self.l1, keys, valid, axis_name=self.group)
+            self.l1 = rnd.meta["l1"]
+            outs, stats = rnd.meta["out"], rnd.meta["stats"]
+            source = "sharded.read_cached"
+        else:
+            rnd = dht_ops.dht_read_async(self.state, keys, valid,
+                                         axis_name=self.group)
+            outs = (rnd.vals, rnd.found)
+            stats = dht_ops._read_stats(valid, rnd.found, rnd.estats)
+            source = "sharded.read"
+        return ShardedRound(source=source, rnd=rnd, outs=outs,
+                            stats=ReducedStats(stats, self.group,
+                                               self.state.device))
+
+    def write_async(self, keys, vals, valid=None) -> ShardedRound:
+        """Issue a write round without waiting; pair with
+        :meth:`write_commit`.  No retry here: it would need the drop
+        count mid-pipeline; the caller re-issues dropped rows."""
+        valid = self._ones(keys.shape[0]) if valid is None else valid
+        l1_meta = self.l1 is not None
+        rnd = dht_ops.dht_write_async(self.state, keys, vals, valid,
+                                      axis_name=self.group, l1_meta=l1_meta)
+        stats = dht_ops._write_stats(rnd.code, rnd.estats, l1_meta=l1_meta)
+        if l1_meta:
+            self.l1 = l1cache.with_shard_wmarks(self.l1,
+                                                stats.pop("wmark_post"))
+        return ShardedRound(source="sharded.write", rnd=rnd,
+                            outs=(rnd.code,),
+                            stats=ReducedStats(stats, self.group,
+                                               self.state.device))
+
+    def _commit(self, sr: ShardedRound) -> tuple:
+        """Wait for an issued round -> ``outs + (stats,)``; ``stats``
+        gains the engine round's telemetry lanes (``issue_us``,
+        ``hidden_us``, ``commit_wait_us``, ``overlap_frac``)."""
+        if sr.committed:
+            raise RuntimeError("ShardedRound committed twice")
+        sr.committed = True
+        dht_commit(sr.rnd)
+        stats = sr.stats.wait()
+        stats.update(sr.rnd.telemetry)
+        return sr.outs + (stats,)
+
+    def read_commit(self, sr: ShardedRound):
+        """Commit an issued read -> ``(vals, found, stats)``."""
+        if sr.source not in ("sharded.read", "sharded.read_cached"):
+            raise ValueError(f"not a read round: {sr.source}")
+        return self._commit(sr)
+
+    def write_commit(self, sr: ShardedRound) -> dict:
+        """Commit an issued write -> ``stats``."""
+        if sr.source != "sharded.write":
+            raise ValueError(f"not a write round: {sr.source}")
+        return self._commit(sr)[-1]
+
+    def round_queue(self, commit=None) -> RoundQueue:
+        """A ``pipeline_depth``-deep FIFO of this table's in-flight
+        rounds; ``commit`` defaults to :meth:`_commit`."""
+        return RoundQueue(self.pipeline_depth, commit or self._commit)
+
+    # -- later slices -------------------------------------------------------
+    def telemetry_snapshot(self) -> dict:
+        raise routing.not_ported("ShardedDHT.telemetry_snapshot (the "
+                                 "metric registry)", "14")
+
+    def apply_ring(self, new_ring, batch: int = 512) -> dict:
+        raise routing.not_ported("ShardedDHT.apply_ring", "11")
+
+    def leave(self, shard_id: int, batch: int = 512) -> dict:
+        raise routing.not_ported("ShardedDHT.leave", "11")
+
+    def join(self, shard_id: int, batch: int = 512) -> dict:
+        raise routing.not_ported("ShardedDHT.join", "11")
+
+    def crash(self, shard_id: int, *, wipe: bool = True) -> None:
+        raise routing.not_ported("ShardedDHT.crash", "12")
+
+    def recover(self, shard_id: int) -> None:
+        raise routing.not_ported("ShardedDHT.recover", "12")
+
+    def repair(self, shard_id: int, batch: int = 512) -> dict:
+        raise routing.not_ported("ShardedDHT.repair", "12")
+
+
+__all__ = ["ReducedStats", "ShardedDHT", "ShardedRound"]

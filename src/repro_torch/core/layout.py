@@ -18,6 +18,12 @@ row: index writes that must skip an item (the reference's
 (S, B, ...) views that exclude it.  The engine updates the buffers in
 place, so a state passed to ``dht_execute`` is the state it returns;
 clone it (:meth:`DHTState.clone`) to keep a snapshot.
+
+A state may hold fewer shards than ``cfg.n_shards``: on the multi-rank
+backend (``core/distributed.py``) each rank holds one shard's B rows
+while ``cfg`` keeps the global S that the owner hash ``hi % S`` needs.
+The views take their leading dim from the buffers' rows
+(:attr:`DHTState.n_local`), never from ``cfg.n_shards``.
 """
 from __future__ import annotations
 
@@ -91,7 +97,9 @@ class DHTConfig:
 
 @dataclasses.dataclass(eq=False)
 class DHTState:
-    """The table: flat field buffers of S*B rows plus the dump row."""
+    """The table: flat field buffers of ``n_local * B`` rows plus the
+    dump row (``n_local`` is S, or 1 on a rank of the multi-rank
+    backend)."""
 
     cfg: DHTConfig
     flat_keys: torch.Tensor   # (S*B + 1, KW) int32
@@ -104,26 +112,31 @@ class DHTState:
         return self.flat_keys.device
 
     @property
+    def n_local(self) -> int:
+        """Shards held by these buffers: S, or 1 on a rank."""
+        return (self.flat_meta.shape[0] - 1) // self.cfg.buckets_per_shard
+
+    @property
     def keys(self) -> torch.Tensor:
         c = self.cfg
-        return self.flat_keys[:-1].view(c.n_shards, c.buckets_per_shard,
+        return self.flat_keys[:-1].view(self.n_local, c.buckets_per_shard,
                                         c.key_words)
 
     @property
     def vals(self) -> torch.Tensor:
         c = self.cfg
-        return self.flat_vals[:-1].view(c.n_shards, c.buckets_per_shard,
+        return self.flat_vals[:-1].view(self.n_local, c.buckets_per_shard,
                                         c.val_words)
 
     @property
     def meta(self) -> torch.Tensor:
         c = self.cfg
-        return self.flat_meta[:-1].view(c.n_shards, c.buckets_per_shard)
+        return self.flat_meta[:-1].view(self.n_local, c.buckets_per_shard)
 
     @property
     def csum(self) -> torch.Tensor:
         c = self.cfg
-        return self.flat_csum[:-1].view(c.n_shards, c.buckets_per_shard)
+        return self.flat_csum[:-1].view(self.n_local, c.buckets_per_shard)
 
     def clone(self) -> "DHTState":
         return DHTState(self.cfg, self.flat_keys.clone(),
@@ -131,12 +144,18 @@ class DHTState:
                         self.flat_csum.clone())
 
 
-def dht_create(cfg: DHTConfig, *, device: str | torch.device | None = None
-               ) -> DHTState:
+def dht_create(cfg: DHTConfig, *, device: str | torch.device | None = None,
+               shards: int | None = None) -> DHTState:
     """DHT_create: allocate the empty table on ``device`` (CUDA unless
-    the caller asks for another)."""
+    the caller asks for another).  ``shards`` is how many of the
+    ``cfg.n_shards`` shards this process holds (default all; a rank of
+    the multi-rank backend holds 1)."""
     dev = resolve_device(device)
-    rows = cfg.n_shards * cfg.buckets_per_shard + 1
+    n_local = cfg.n_shards if shards is None else int(shards)
+    if not 1 <= n_local <= cfg.n_shards:
+        raise ValueError(f"shards={shards} out of range for "
+                         f"n_shards={cfg.n_shards}")
+    rows = n_local * cfg.buckets_per_shard + 1
     z = dict(dtype=torch.int32, device=dev)
     return DHTState(
         cfg=cfg,

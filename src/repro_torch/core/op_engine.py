@@ -38,9 +38,19 @@ tuple.  The stream's launch order stands in for the reference's
 dataflow through the returned state: a round issued after another sees
 its effects.
 
+Multi-rank backend: with ``axis_name`` a ``torch.distributed`` process
+group of S ranks, each rank holds one shard (``state.n_local == 1``)
+and passes its own rows; both legs are ``all_to_all_single`` exchanges
+(``core/routing.py``) and the rank's incoming rows, source-major, are
+applied as its one shard.  Every rank issues the same collectives in
+the same order: the values a branch depends on (the capacity, the
+locked schedules' round count) are agreed by ``all_reduce(MAX)`` first.
+The lock-free write passes make no collective, so ranks may take
+different pass counts.  With ``elide_self``, the rows a rank owns skip
+the exchange and ride the same shard pass as extra rows.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): dual-epoch ``prev``, the ring, self-traffic elision and
-replication.
+item): dual-epoch ``prev``, the ring and replication.
 """
 from __future__ import annotations
 
@@ -163,11 +173,19 @@ def _conflict_rank(group, valid, n_groups: int | None = None):
     return routing.stable_rank_by_group(group, valid, n_groups=n_groups)
 
 
-def _lock_token() -> int:
+def _lock_token(group=None, n_shards: int = 1, device=None) -> int:
     """One acquire/release round trip's worth of traffic: 1 on the
-    single-device backend (the reference exchanges a probe word per shard
-    on the sharded one)."""
-    return 1
+    single-device backend.  Under a process group it is a real
+    ``all_to_all`` of a (S, 1) ones tensor, one probe word to every
+    shard, and counts the S words that come back (their sum is S by
+    construction, so it is not read back to the host)."""
+    if group is None:
+        return 1
+    import torch.distributed as dist
+
+    probe = torch.ones((n_shards, 1), dtype=torch.int32, device=device)
+    dist.all_to_all_single(torch.empty_like(probe), probe, group=group)
+    return n_shards
 
 
 def _write_pass(state: DHTState, abs_base, keys, vals, active):
@@ -217,41 +235,58 @@ def _apply_writes(state: DHTState, abs_base, keys, vals, valid):
     return code, passes
 
 
-def _locked_write_rounds(state: DHTState, abs_base, keys, vals, valid):
+def _locked_write_rounds(state: DHTState, abs_base, keys, vals, valid,
+                         group=None):
     """fine/coarse modes: serialize conflicting writes into rounds.  The
     conflict group is the absolute window base (fine: one lock per
     window) or the shard (coarse: one lock per shard); round ``r`` applies
     each group's ``r``-th write.  Every shard runs its own count of
     locked rounds, 2 lock tokens each, as under the reference's ``vmap``.
-    Returns ``(code, rounds, tokens)``: the most rounds any shard took and
-    the tokens summed over shards.  Reads the per-shard counts back to the
-    host once, and one flag per write pass."""
+    Under a process group the rank's count is agreed with
+    ``all_reduce(MAX)`` first, and every rank runs that many rounds, each
+    with its lock-token exchange.  Returns ``(code, rounds, tokens)``:
+    the most rounds any shard took and the tokens summed over this
+    process's shards.  Reads the round counts back to the host once, and
+    one flag per write pass."""
     cfg = state.cfg
+    n_local = state.n_local
     shard = abs_base // cfg.buckets_per_shard
     if cfg.mode == MODE_FINE:
-        group, n_groups = abs_base, cfg.n_shards * cfg.buckets_per_shard
+        group_id, n_groups = abs_base, n_local * cfg.buckets_per_shard
     else:
-        group, n_groups = shard, cfg.n_shards
-    rank = _conflict_rank(group, valid, n_groups=n_groups)
-    per_shard = torch.zeros(cfg.n_shards, dtype=torch.int32,
-                            device=rank.device)
+        group_id, n_groups = shard, n_local
+    rank = _conflict_rank(group_id, valid, n_groups=n_groups)
+    per_shard = torch.zeros(n_local, dtype=torch.int32, device=rank.device)
     per_shard.scatter_reduce_(0, shard.long(), torch.where(valid, rank + 1, 0),
                               "amax")
-    per_shard = per_shard.tolist()
+    if group is not None:
+        import torch.distributed as dist
+
+        agreed = per_shard.max().reshape(1)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=group)
+        n_rounds = int(agreed.item())
+    else:
+        per_shard = per_shard.tolist()
+        n_rounds = max(per_shard)
     code = torch.zeros_like(rank)
-    for r in range(max(per_shard)):
+    tokens = 0
+    for r in range(n_rounds):
         mask = valid & (rank == r)
         wcode, _passes = _apply_writes(state, abs_base, keys, vals, mask)
         code = torch.where(mask, wcode, code)
-    return code, max(per_shard), 2 * _lock_token() * sum(per_shard)
+        if group is not None:
+            tokens += 2 * _lock_token(group, cfg.n_shards, rank.device)
+    if group is None:
+        tokens = 2 * _lock_token() * sum(per_shard)
+    return code, n_rounds, tokens
 
 
-def _shard_write(state: DHTState, abs_base, keys, vals, valid):
+def _shard_write(state: DHTState, abs_base, keys, vals, valid, group=None):
     """The mode's write schedule: ``(code, rounds, tokens)``."""
     if state.cfg.mode == MODE_LOCKFREE:
         code, passes = _apply_writes(state, abs_base, keys, vals, valid)
         return code, passes, 0
-    return _locked_write_rounds(state, abs_base, keys, vals, valid)
+    return _locked_write_rounds(state, abs_base, keys, vals, valid, group)
 
 
 def _validate_and_flag(state: DHTState, found_tri, slot, mask):
@@ -272,10 +307,11 @@ def _watermarks(state: DHTState) -> torch.Tensor:
 
 
 def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
-                 l1_meta: bool = False):
-    """Apply every virtual shard's bins: probes see the round-start slab,
+                 l1_meta: bool = False, group=None):
+    """Apply every local shard's bins: probes see the round-start slab,
     writes follow under the mode's schedule.  ``base`` etc. are (S, cap,
-    ...) bins.  Returns ``(val, found, code, n_mismatch, rounds, tokens,
+    ...) bins, or (1, rows, ...) on a rank of the multi-rank backend
+    (``group``: its lock tokens are exchanges).  Returns ``(val, found, code, n_mismatch, rounds, tokens,
     gen, wpre, wpost)`` shaped (S, cap, ...).  With ``l1_meta`` the last
     three are the coherence metadata: the round-start generation of each
     item's selected bucket (``meta >> GEN_SHIFT``) and every shard's
@@ -317,7 +353,8 @@ def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
             gen = to_i32(u32(state.flat_meta[slot]) >> GEN_SHIFT)
         if locked:
             found = m_probe & (found_tri == 1)
-            tokens = 2 * _lock_token() * s          # shared-lock round trips
+            # shared-lock round trips
+            tokens = 2 * _lock_token(group, cfg.n_shards, base.device) * s
         else:
             found, n_mm = _validate_and_flag(state, found_tri, slot, m_probe)
         val = torch.where(found[:, None], pval, 0)
@@ -328,7 +365,7 @@ def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
         wmask = m_write | (m_migrate & ~found)
         wvals = vals.reshape(c, -1).contiguous()
         wcode, rounds, tok_w = _shard_write(state, abs_base, keys, wvals,
-                                            wmask)
+                                            wmask, group)
         tokens += tok_w
         code = torch.where(wmask, wcode,
                            torch.where(m_migrate & found, W_SKIP, 0))
@@ -353,11 +390,14 @@ def _owner_epoch(state: DHTState, h_hi):
 
 
 def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
-               hashes=None, placement=None):
+               hashes=None, placement=None, bin_valid=None, group=None):
     """Hash, place and bin the whole batch.  ``hashes`` takes a
     precomputed ``(hi, lo)`` pair and ``placement`` a precomputed ``(dest,
     epoch)``, so the L1 front end and the router share one ``hash64``
-    launch.  Returns ``(binned, base, used_prologue)``."""
+    launch.  ``bin_valid`` (default ``ops.valid``) leaves rows out of the
+    binning and the capacity plan (self-elided rows).  Under a process
+    ``group`` the capacity plan is agreed across ranks.  Returns
+    ``(binned, base, used_prologue)``."""
     cfg = state.cfg
     if hashes is None:
         h = kops.hash64(ops.keys.contiguous())
@@ -365,24 +405,46 @@ def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
     dest, epoch = (_owner_epoch(state, hashes[0]) if placement is None
                    else placement)
     base = base_bucket(hashes[1], cfg.buckets_per_shard, cfg.n_probe)
+    bin_valid = ops.valid if bin_valid is None else bin_valid
     cap = capacity or cfg.capacity
     used_prologue = not cap
     if used_prologue:
-        cap = routing.plan_capacity(dest, cfg.n_shards, valid=ops.valid)
+        cap = routing.plan_capacity(dest, cfg.n_shards, valid=bin_valid,
+                                    group=group)
     binned = routing.bin_by_dest(dest, cfg.n_shards, cap, epoch=epoch,
-                                 valid=ops.valid)
+                                 valid=bin_valid)
     return binned, base, used_prologue
 
 
-def _check_supported(state: DHTState, kinds, **later) -> None:
+def _check_supported(state: DHTState, kinds, prev=None) -> None:
     if state.cfg.n_replicas > 1:
         raise routing.not_ported("k-successor replication", "12")
-    items = {"prev": "11", "axis_name": "7", "elide_self": "7"}
-    for name, value in later.items():
-        if value not in (None, False):
-            raise routing.not_ported(f"dht_execute({name}=...)", items[name])
+    if prev is not None:
+        raise routing.not_ported("dht_execute(prev=...)", "11")
     if not kinds or any(k not in KINDS for k in kinds):
         raise ValueError(f"kinds must be a non-empty subset of {KINDS}")
+
+
+def _rank_group(state: DHTState, axis_name):
+    """The round's process group (None on the single-device backend),
+    checked against the state: one shard a rank, S ranks."""
+    group = routing.process_group(axis_name, state.device)
+    if group is None:
+        if state.n_local != state.cfg.n_shards:
+            raise ValueError(
+                f"this state holds {state.n_local} of {state.cfg.n_shards} "
+                "shards: a rank's shard takes its process group "
+                "(axis_name)")
+        return None
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    if world != state.cfg.n_shards or state.n_local != 1:
+        raise ValueError(
+            f"the multi-rank backend holds one shard a rank: n_shards="
+            f"{state.cfg.n_shards}, world size {world}, this state holds "
+            f"{state.n_local} shards")
+    return group
 
 
 @dataclasses.dataclass
@@ -442,13 +504,25 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     out of the probe (no bin slot, no wire), still count in the round's
     ``mix``, and are served at commit by forwarding the published value.
 
+    ``axis_name``: a ``torch.distributed`` process group of
+    ``cfg.n_shards`` ranks; ``state`` is this rank's one shard
+    (``dht_create(..., shards=1)``) and ``ops`` its own rows.  The stat
+    lanes are this rank's; ``core/distributed.py`` reduces them.
+    ``elide_self``: rows this rank owns skip the exchange (no bin slot,
+    no wire words) and are probed in the same shard pass; the result is
+    bit for bit the routed one.  Default (None): on for every uniform
+    read round under a group, off otherwise; asking for it elsewhere
+    raises ``ValueError``.
+
     Every slab access of the round is enqueued here, in stream order, so
     a read issued before a write never sees it, and one issued after
     does.  The host still waits inside this half where the round's
     shape needs a device value: the capacity plan reads the largest bin
     (``routing.plan_capacity``), every write pass reads whether a row is
     still active, the locked schedules read each shard's round count,
-    and the ``pending`` filter reads the size of its row match.
+    and the ``pending`` filter reads the size of its row match.  Under a
+    group the capacity and the round count are agreed across ranks
+    before they are read.
 
     The reference may issue two rounds against one input state and get
     two branches; the port's table is one buffer, so a second round
@@ -460,8 +534,8 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     rounds in issue order when a ``pending`` filter is in play."""
     t_start = time.perf_counter()
     kinds = tuple(kinds)
-    _check_supported(state, kinds, prev=prev, axis_name=axis_name,
-                     elide_self=elide_self)
+    _check_supported(state, kinds, prev=prev)
+    group = _rank_group(state, axis_name)
     cfg = state.cfg
     do_write = ("write" in kinds) or ("migrate" in kinds)
     if do_write and ops.vals is None:
@@ -476,45 +550,96 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         if len(pending):
             conflict = pending.conflicts(ops.keys, ops.valid)
             ops = OpBatch(keys=ops.keys, valid=ops.valid & ~conflict)
+    elidable = group is not None and kinds == ("read",) and ops.op is None
+    elide = elidable if elide_self is None else bool(elide_self)
+    if elide and not elidable:
+        raise ValueError(
+            "self-traffic elision needs a uniform read round on the "
+            "multi-rank backend (axis_name a process group)")
+    is_self, bin_valid = None, ops.valid
+    if elide:
+        if hashes is None:
+            h = kops.hash64(ops.keys.contiguous())
+            hashes = (h[:, 0], h[:, 1])
+        if placement is None:
+            placement = _owner_epoch(state, hashes[0])
+        import torch.distributed as dist
+
+        is_self = ops.valid & (placement[0] == dist.get_rank(group))
+        bin_valid = ops.valid & ~is_self
 
     binned, base, used_prologue = _route_ops(state, ops, capacity, hashes,
-                                             placement)
+                                             placement, bin_valid, group)
     payloads = [base, ops.keys]
     if do_write:
         payloads.append(ops.vals.to(torch.int32))
     if ops.op is not None:
         payloads.append(ops.op.to(torch.int32))
     payloads.append((ops.valid & binned.kept).to(torch.int32))
-    inc = routing.dispatch(binned, payloads)
+    inc = routing.dispatch(binned, payloads, group)
 
     it = iter(inc)
     b_in, k_in = next(it), next(it)
     v_in = next(it) if do_write else None
     o_in = next(it) if ops.op is not None else None
-    m_in = next(it).to(torch.bool)
+    m_in = next(it)
+    if group is not None:
+        if elide:
+            # self-owned rows ride the same shard pass as extra rows
+            # after the incoming buffer: one probe, no exchange
+            b_in = torch.cat([b_in, base])
+            k_in = torch.cat([k_in, ops.keys])
+            m_in = torch.cat([m_in, is_self.to(torch.int32)])
+        # the rank's rows are its one shard's bin
+        b_in, k_in, m_in = b_in[None], k_in[None], m_in[None]
+        v_in = None if v_in is None else v_in[None]
+        o_in = None if o_in is None else o_in[None]
     (val, found, code, n_mm, rounds, tokens,
-     gen, wpre, wpost) = _shard_apply(state, b_in, k_in, v_in, o_in, m_in,
-                                      kinds, l1_meta)
+     gen, wpre, wpost) = _shard_apply(state, b_in, k_in, v_in, o_in,
+                                      m_in.to(torch.bool), kinds, l1_meta,
+                                      group)
+    local = None
+    if group is not None:
+        val, found, code = val[0], found[0], code[0]
+        gen = None if gen is None else gen[0]
+        if elide:
+            rows = binned.n_dest * binned.capacity
+            local = (val[rows:], found[rows:], code[rows:],
+                     None if gen is None else gen[rows:])
+            val, found, code = val[:rows], found[:rows], code[:rows]
+            gen = None if gen is None else gen[:rows]
     replies = [val, found.to(torch.int32), code]
     if l1_meta:
         # each shard's watermarks fill every row of its reply block, so
         # row 0 of the block carries them (routing.collect block_rows)
         shape = gen.shape
-        replies += [gen, wpre[:, None].expand(shape),
-                    wpost[:, None].expand(shape)]
-        items, blocks = routing.collect(binned, replies, block_rows=True)
+        if group is None:
+            wpre, wpost = wpre[:, None], wpost[:, None]
+        replies += [gen, wpre.expand(shape), wpost.expand(shape)]
+        items, blocks = routing.collect(binned, replies, group,
+                                        block_rows=True)
     else:
-        items = routing.collect(binned, replies)
+        items = routing.collect(binned, replies, group)
     val_b, found_b, code_b = items[:3]
+    gen_out = items[3] if l1_meta else None
 
     live = ops.valid & binned.kept
     found_out = (found_b > 0) & live
     code_out = torch.where(live, code_b, W_DROPPED)
+    if local is not None:
+        val_l, found_l, code_l, gen_l = local
+        found_out = torch.where(is_self, found_l, found_out)
+        val_b = torch.where(is_self[:, None], val_l, val_b)
+        code_out = torch.where(is_self, code_l, code_out)
+        if l1_meta:
+            gen_out = torch.where(is_self, gen_l, gen_out)
     val_out = torch.where(found_out[:, None], val_b, 0)
+    # the elided self block is padding that never crosses the fabric
     wire = routing.wire_stats(
         binned, routing.lane_width(payloads),
         cfg.val_words + 2 + (3 if l1_meta else 0),
-        prologue_words=2 * cfg.n_shards if used_prologue else 0)
+        prologue_words=2 * cfg.n_shards if used_prologue else 0,
+        n_self_rows=binned.capacity if elide else 0)
     bcounts = routing.bin_counts(binned)
     btotal = torch.clamp(bcounts.sum(), min=1).to(torch.float32)
     bmax = bcounts.max().to(torch.float32)
@@ -538,7 +663,7 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         "fallback_reads": 0,
     }
     if l1_meta:
-        estats["bucket_gen"] = items[3]
+        estats["bucket_gen"] = gen_out
         estats["wmark_pre"] = blocks[4]
         estats["wmark_post"] = blocks[5]
     if ops.op is None:

@@ -1,5 +1,4 @@
-"""Capacity-binned routing on the virtual-shard backend (PyTorch port of
-``repro.core.routing``).
+"""Capacity-binned routing (PyTorch port of ``repro.core.routing``).
 
 A round bins its requests by destination shard into fixed-capacity send
 bins, moves every payload through ONE fused (n, L) int32 lane matrix, and
@@ -17,10 +16,12 @@ returns the replies the same way:
 - multi-key fan-out (:func:`flatten_fanout`): the m probes per query of
   a neighbourhood read go out as one flat batch.
 
-Only the single-device backend (``axis_name=None``), where the S shards
-are virtual and the exchange is a reshape, is ported in this slice.
-Overflow beyond capacity is dropped and reported, exactly as in the
-reference.
+Two backends.  With ``axis_name=None`` the S shards are virtual and the
+exchange is a reshape.  With ``axis_name`` a ``torch.distributed``
+process group of S ranks, one shard each, every leg is ONE
+``all_to_all_single`` of the (S * capacity, L) int32 lane matrix in
+equal splits; the incoming rows are source-major.  Overflow beyond
+capacity is dropped and reported, exactly as in the reference.
 """
 from __future__ import annotations
 
@@ -52,6 +53,29 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     """The error a caller gets for a feature of a later slice."""
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+
+
+def process_group(axis_name, device: torch.device | None = None):
+    """``axis_name`` as a ``torch.distributed`` process group (None stays
+    None).  Anything else raises ``TypeError``; a group whose backend
+    cannot move tensors of ``device`` raises ``ValueError`` (NCCL takes
+    CUDA tensors, gloo CPU ones here), so nothing is copied through the
+    host on the quiet."""
+    if axis_name is None:
+        return None
+    import torch.distributed as dist
+
+    if not isinstance(axis_name, dist.ProcessGroup):
+        raise TypeError(
+            "axis_name must be a torch.distributed ProcessGroup of the "
+            f"multi-rank backend, got {type(axis_name).__name__}")
+    if device is not None:
+        backend = str(dist.get_backend(axis_name))
+        if (backend == "nccl") != (device.type == "cuda"):
+            raise ValueError(
+                f"a {backend} group cannot exchange {device.type} tensors: "
+                "use NCCL for CUDA tensors and gloo for CPU ones")
+    return axis_name
 
 
 def stable_rank_by_group(group: torch.Tensor, valid=None,
@@ -144,11 +168,14 @@ def capacity_bucket(max_load: int, floor: int = 16,
 
 
 def plan_capacity(dest: torch.Tensor, n_dest: int, *, n_src: int = 1,
-                  floor: int = 16, valid=None) -> int:
+                  floor: int = 16, valid=None, group=None) -> int:
     """Count-exchange prologue: per-destination histogram -> max bin load
     -> power-of-two capacity.  ``dest`` viewed as ``n_src`` rows, one per
-    source; ``valid`` False items are left out.  Reads one integer back
-    to the host."""
+    source; ``valid`` False items are left out.  With a process
+    ``group`` each rank brings its own rows: the largest bin of every
+    rank and its batch length meet in one ``all_reduce(MAX)``, the max
+    over all (source, destination) pairs that the reference's count
+    exchange agrees on.  Reads one pair of integers back to the host."""
     d = dest.reshape(n_src, -1).to(torch.int64)
     if valid is not None:
         d = torch.where(valid.reshape(n_src, -1), d, n_dest)
@@ -156,8 +183,18 @@ def plan_capacity(dest: torch.Tensor, n_dest: int, *, n_src: int = 1,
     off = torch.arange(n_src, dtype=torch.int64, device=d.device)[:, None]
     counts = _histogram((d + off * width).reshape(-1),
                         n_src * width).reshape(n_src, width)
-    max_load = max(int(counts[:, :n_dest].max()) if d.numel() else 0, 1)
-    return capacity_bucket(max_load, floor=floor, limit=d.shape[1])
+    if group is None:
+        max_load = int(counts[:, :n_dest].max()) if d.numel() else 0
+        limit = d.shape[1]
+    else:
+        import torch.distributed as dist
+
+        agreed = torch.stack([counts[:, :n_dest].max(),
+                              torch.full((), d.shape[1], dtype=torch.int64,
+                                         device=d.device)])
+        dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=group)
+        max_load, limit = agreed.tolist()
+    return capacity_bucket(max(max_load, 1), floor=floor, limit=limit)
 
 
 def auto_capacity(n_local: int, n_dest: int, factor: float = 4.0,
@@ -260,16 +297,30 @@ def _gather_from_bins(b: Binned, buf: torch.Tensor,
     return kops.route_unpack(buf, slot, b.kept.to(torch.int32), fill_row)
 
 
+def _exchange(buf: torch.Tensor, group) -> torch.Tensor:
+    """One ``all_to_all_single`` of a (S * capacity, L) buffer in equal
+    splits: block d goes to rank d, and block s of the result came from
+    rank s."""
+    import torch.distributed as dist
+
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    return out
+
+
 def dispatch(b: Binned, payloads: Sequence[torch.Tensor], axis_name=None,
              fills: Sequence = ()) -> list[torch.Tensor]:
     """Send payloads to their destination shards through one fused lane
     matrix.  Returns each payload as an (n_dest, capacity, *tail) buffer
-    (the virtual shards' incoming bins); empty slots hold ``fills``."""
-    if axis_name is not None:
-        raise not_ported("the multi-rank backend (axis_name)", "7")
+    (the virtual shards' incoming bins), or, with a process group, this
+    rank's incoming (n_src * capacity, *tail) rows, source-major; empty
+    slots hold ``fills``."""
+    group = process_group(axis_name)
     obs_metrics.inc("routing.dispatches")
     mat, specs, fill_row = _encode(payloads, 1, fills)
     buf = _scatter_to_bins(b, mat, fill_row)
+    if group is not None:
+        return _decode(_exchange(buf, group), specs)
     return [p.reshape((b.n_dest, b.capacity) + tuple(p.shape[1:]))
             for p in _decode(buf, specs)]
 
@@ -277,7 +328,8 @@ def dispatch(b: Binned, payloads: Sequence[torch.Tensor], axis_name=None,
 def collect(b: Binned, replies: Sequence[torch.Tensor], axis_name=None,
             fills: Sequence = (0,), block_rows: bool = False):
     """Inverse of :func:`dispatch`: replies shaped (n_dest, capacity,
-    *tail) return to item order; overflowed items get ``fills``.
+    *tail), or with a process group this rank's (n_src * capacity,
+    *tail) rows, return to item order; overflowed items get ``fills``.
 
     ``block_rows=True`` also returns, per reply, row 0 of each shard's
     block of the reply buffer, an (n_dest, *tail) tensor: a handler that
@@ -285,10 +337,12 @@ def collect(b: Binned, replies: Sequence[torch.Tensor], axis_name=None,
     block, padding included, hands it to every caller this way with no
     extra exchange (the L1 coherence piggyback).  Returns ``(items,
     blocks)`` then."""
-    if axis_name is not None:
-        raise not_ported("the multi-rank backend (axis_name)", "7")
+    group = process_group(axis_name)
     obs_metrics.inc("routing.collects")
-    mat, specs, fill_row = _encode(replies, 2, fills)
+    mat, specs, fill_row = _encode(replies, 2 if group is None else 1,
+                                   fills)
+    if group is not None:
+        mat = _exchange(mat, group)
     items = _decode(_gather_from_bins(b, mat, fill_row), specs)
     if not block_rows:
         return items
@@ -312,11 +366,13 @@ def unflatten_fanout(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
 
 
 def wire_stats(b: Binned, send_lanes: int, reply_lanes: int, *,
-               prologue_words: int = 0) -> dict:
+               prologue_words: int = 0, n_self_rows: int = 0) -> dict:
     """Per-round wire accounting: buffer words on both legs (plus the
     count-exchange histogram words) and the padding fraction of the
-    buffer rows."""
-    rows = b.n_dest * b.capacity
+    buffer rows.  ``n_self_rows`` leaves out buffer rows that never cross
+    the fabric: with self-traffic elision the local shard's block holds
+    only padding, so both legs drop ``capacity`` rows."""
+    rows = b.n_dest * b.capacity - n_self_rows
     kept = b.kept.sum().to(torch.float32)
     denom = torch.full((), float(max(rows, 1)), dtype=torch.float32,
                        device=kept.device)

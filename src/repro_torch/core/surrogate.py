@@ -74,10 +74,11 @@ def make_keys(cfg: SurrogateConfig, inputs: torch.Tensor) -> torch.Tensor:
                        cfg.dht.key_words)
 
 
-def lookup(cfg: SurrogateConfig, state: DHTState, inputs: torch.Tensor):
+def lookup(cfg: SurrogateConfig, state: DHTState, inputs: torch.Tensor, *,
+           axis_name=None):
     """Query the cache.  Returns ``(state', outputs, found, stats)``."""
     state, val_words, found, stats = dht_ops.dht_read(
-        state, make_keys(cfg, inputs))
+        state, make_keys(cfg, inputs), axis_name=axis_name)
     return state, unpack_floats(val_words, cfg.n_outputs), found, stats
 
 
@@ -94,15 +95,15 @@ def lookup_cached(cfg: SurrogateConfig, state: DHTState, l1, inputs, *,
 
 
 def store(cfg: SurrogateConfig, state: DHTState, inputs: torch.Tensor,
-          outputs: torch.Tensor, valid=None):
+          outputs: torch.Tensor, valid=None, *, axis_name=None):
     keys = make_keys(cfg, inputs)
     vals = pack_floats(outputs, cfg.dht.val_words)
-    return dht_ops.dht_write(state, keys, vals, valid)
+    return dht_ops.dht_write(state, keys, vals, valid, axis_name=axis_name)
 
 
 def lookup_or_compute(cfg: SurrogateConfig, state: DHTState,
                       inputs: torch.Tensor, compute_fn, *,
-                      one_round: bool = False):
+                      one_round: bool = False, axis_name=None):
     """The surrogate pattern: hit -> reuse; miss -> compute and publish.
 
     ``compute_fn(inputs) -> outputs`` is the expensive simulation.
@@ -114,8 +115,11 @@ def lookup_or_compute(cfg: SurrogateConfig, state: DHTState,
     ``one_round=True``: ``compute_fn`` runs on every row and the lookup
     and write-back ride ONE get-or-put round (``OP_MIGRATE``): present
     keys return their stored value, absent keys publish the computed
-    one.  This is the form the reference takes under tracing."""
-    if not one_round:
+    one.  This is the form the reference takes under tracing, and the
+    only one under a process group (``axis_name``): the host form's
+    full-hit short cut is decided per rank, so ranks would issue
+    different numbers of exchanges.  The stats are then the rank's."""
+    if not one_round and axis_name is None:
         state, cached, found, rstats = lookup(cfg, state, inputs)
         stats = {"hits": rstats["hits"], "misses": rstats["misses"],
                  "mismatches": rstats["mismatches"], "stored": 0}
@@ -131,7 +135,8 @@ def lookup_or_compute(cfg: SurrogateConfig, state: DHTState,
     computed = compute_fn(inputs)
     vals = pack_floats(computed, cfg.dht.val_words)
     state, _, val_words, found, code, es = dht_execute(
-        state, migrate_ops(keys, vals), kinds=("migrate",))
+        state, migrate_ops(keys, vals), kinds=("migrate",),
+        axis_name=axis_name)
     cached = unpack_floats(val_words, cfg.n_outputs)
     outputs = torch.where(found[:, None], cached, computed)
     stats = {
@@ -366,8 +371,10 @@ def lookup_interpolate_or_compute(cfg: SurrogateConfig, state: DHTState,
     on every row, and the n*M stencil reads and the n centre-key
     write-backs ride ONE mixed ``OP_READ`` + ``OP_MIGRATE`` engine round:
     every row whose exact key was absent publishes its computed output
-    (misses and interpolated rows alike), present keys are skipped."""
-    if not one_round:
+    (misses and interpolated rows alike), present keys are skipped.  A
+    process group (``axis_name``) always takes this form, as in the
+    reference: the host form's short cut is decided per rank."""
+    if not one_round and axis_name is None:
         state, resolved, provenance, stats = lookup_or_interpolate(
             cfg, state, inputs, icfg, axis_name=axis_name)
         miss = provenance == PROV_MISS
@@ -383,8 +390,6 @@ def lookup_interpolate_or_compute(cfg: SurrogateConfig, state: DHTState,
         return state, outputs, provenance, {**stats,
                                             "stored": wstats["inserted"]}
 
-    if axis_name is not None:
-        raise routing.not_ported("the multi-rank backend (axis_name)", "7")
     computed = compute_fn(inputs)
     keys, points = _stencil(cfg, inputs, icfg)
     n, m = keys.shape[0], keys.shape[1]
@@ -403,7 +408,7 @@ def lookup_interpolate_or_compute(cfg: SurrogateConfig, state: DHTState,
                                device=dev), cvals]),
         valid=torch.cat([vflat, torch.ones(n, dtype=torch.bool, device=dev)]))
     state, _, val_flat, found_flat, code, es = dht_execute(
-        state, ops, kinds=("read", "migrate"))
+        state, ops, kinds=("read", "migrate"), axis_name=axis_name)
     val_words = routing.unflatten_fanout(val_flat[:nm], n, m)
     found = routing.unflatten_fanout(found_flat[:nm], n, m)
     resolved, provenance, stats = _interp_tail(

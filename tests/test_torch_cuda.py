@@ -770,3 +770,49 @@ def test_lm_on_card_matches_cpu(gen):
         a, cg = decode_step(lm_gpu, cg, toks[:, t:t + 1].cuda(), t)
         b, cc = decode_step(lm_cpu, cc, toks[:, t:t + 1], t)
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_nccl_world_one_matches_virtual(gen):
+    """The multi-rank backend on the card: NCCL at world size 1 (one
+    rank, one shard).  A sharded write and read, cached and uncached, in
+    all three modes, equal the virtual-shard backend with the same cfg
+    on the card: slab words, values, found flags and codes.  Every row
+    is self-owned, so a read crosses the exchange with nothing but the
+    capacity prologue's 2 words."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import ShardedDHT
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        keys, vals = _words(gen, 600, 20, "cuda"), _words(gen, 600, 26,
+                                                          "cuda")
+        for mode in ("lockfree", "fine", "coarse"):
+            cfg = DHTConfig(n_shards=1, buckets_per_shard=2048, mode=mode)
+            d = ShardedDHT.create(cfg, device=dev,
+                                  l1cfg=L1Config(n_sets=64, n_ways=4))
+            ws = d.write(keys, vals)
+            o1, f1, s1 = d.read(keys)
+            o2, f2, s2 = d.read(keys)
+            st = dht_create(cfg, device="cuda")
+            st, vws = dht_write(st, keys, vals)
+            st, vo, vf, _ = dht_read(st, keys)
+            assert torch.equal(ws["code"], vws["code"])
+            for o, f in ((o1, f1), (o2, f2)):
+                assert torch.equal(o, vo) and torch.equal(f, vf)
+            assert int(s2["l1_hits"]) > 0
+            assert int(s1["wire_words"]) == 2
+            ref = state_to_numpy(st)
+            for name, words in state_to_numpy(d.state).items():
+                np.testing.assert_array_equal(words, ref[name], name)
+    finally:
+        dist.destroy_process_group()

@@ -117,6 +117,13 @@ def test_stable_rank_without_group_bound():
 
 
 def test_multi_rank_backend_not_ported():
+    """The multi-rank backend takes a ``torch.distributed`` process
+    group; a mesh axis name (the reference's ``axis_name``) raises on
+    both legs instead of falling back to the virtual shards.  The
+    exchange itself is held in tests/test_torch_distributed.py."""
     tb = tr.bin_by_dest(torch.zeros(4, dtype=torch.int32), 2, 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         tr.dispatch(tb, [torch.zeros(4, dtype=torch.int32)], axis_name="x")
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        tr.collect(tb, [torch.zeros((2, 4), dtype=torch.int32)],
+                   axis_name="x")
