@@ -7,8 +7,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each kernel against its
 plain PyTorch version on the card, drives the main paths (the lock-free
 DHT at full size, key rounding, the POET surrogate twin, the
-neighbourhood-interpolation query, the L1 tier, the pipeline, the
-multi-rank backend, and gemma3-12b prefill and decode), checks the results, and times every kernel.  One JSON line per phase:
+neighbourhood-interpolation query, the L1 tier, the pipeline, elastic
+membership and online resharding, the multi-rank backend, and gemma3-12b
+prefill and decode), checks the results, and times every kernel.  One
+JSON line per phase:
 
 1. env     - card name and power limit (nvidia-smi), CUDA, device count;
 2. build   - nvcc for sm_90a, one process per source, with ptxas reports;
@@ -71,7 +73,26 @@ multi-rank backend, and gemma3-12b prefill and decode), checks the results, and 
              pipeline-parity: a depth-2 Zipf stream at B=2^16 in the
              three modes, card against CPU; (c) the POET twin with
              --pipeline beside phase 6's plain run;
-10. sharded - the multi-rank backend on NCCL at world size 1 (one rank,
+10. elastic - membership and online resharding: (a) elastic-full:
+             phase 4's table on a ring of 8 shards, filled with 2^22
+             seeded entries in rounds of 2^16; shard 7 leaves and joins,
+             the table grows to 16 shards step by step (rounds of 2^16
+             rows, the reference's 256 cut to fit) with a dual-epoch read
+             of 2^16 readable keys after every step (the first must hit
+             the old epoch), then shrinks back to 8; after each change
+             every entry readable after the fill reads back equal but
+             those evicted_at_dest counts, the live count falls by
+             exactly that, and part of the table moved; the grow's plan
+             (hash64 over all 2^24 stored keys), first step and first
+             dual read, and the shrink's plan (2^25 keys), kernel against
+             plain; plan, migrate round, entries per second, the dual
+             read beside a plain read (median of 5, in turns) and the
+             peak memory printed; (b) elastic-parity: the same sequence at
+             B=2^12 with 3,000 entries plus 64 surrogate rows, steps of
+             256, with cached reads around the leave (the epoch flush)
+             and lookup/lookup_or_interpolate(prev=) mid-grow, on the
+             card and on the CPU: slab words, reads and stats equal;
+11. sharded - the multi-rank backend on NCCL at world size 1 (one rank,
              one shard): (a) sharded-full: ShardedDHT with S=1 x
              B=2^24 (3.2 GB), rounds of 2^16 keys (write, read, 95/5
              mixed, migrate), a cached read (L1 1024 x 4) twice, a
@@ -87,8 +108,12 @@ multi-rank backend, and gemma3-12b prefill and decode), checks the results, and 
              (b) the rounds timed in turns with the virtual backend,
              all_to_all_single by CUDA events, host syncs per issue half;
              (c) the server baseline at the same table size, 2^13 ops at
-             width 24, beside one sharded round of the same ops;
-11. lm     - gemma3-12b: (a) the local-attention kernel against its
+             width 24, beside one sharded round of the same ops; (d)
+             ShardedDHT.create(ring=ring_create(1)): the four rounds
+             equal to the virtual backend with the same ring, and
+             apply_ring to the next epoch moves nothing and bumps the
+             epoch;
+12. lm     - gemma3-12b: (a) the local-attention kernel against its
              plain version at the prefill shape (B=2, S=4096, H=16, Hk=8,
              D=256, window 1024) in bf16 and float32 and at edge shapes,
              within local_attn_kernel.tolerance (f32 1e-5; bf16 one ulp
@@ -103,7 +128,7 @@ multi-rank backend, and gemma3-12b prefill and decode), checks the results, and 
              steps (the ring buffer wraps) within 2e-2; (d) lm-parity:
              the reduced model on the card against the CPU, forward and
              40 decode steps at rtol/atol 1e-4;
-12. timing - each kernel, its plain version and the nearest single
+13. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
              local-attention kernel beside its operation bound); hash64
@@ -154,6 +179,13 @@ PIPE_UNIFORM_IDS = 1 << 22     # uniform ids (nearly every row misses)
 PIPE_STALL_RATIO = 1.5         # modelled solver stall / read+write round
 PIPE_PARITY_ROWS = 1 << 12     # rows per batch of the card/CPU stream
 PIPE_PARITY_BATCHES = 4
+ELASTIC_KEYS = 1 << 22         # entries in the elastic phase's table
+ELASTIC_BATCH = 1 << 16        # rows a migrate round (reference: 256)
+ELASTIC_READS = 1 << 16        # keys of each dual read
+ELASTIC_TIMING_REPS = 5        # dual and plain reads timed in turns
+ELASTIC_PARITY_BUCKETS = 1 << 12
+ELASTIC_PARITY_KEYS = 3000
+ELASTIC_PARITY_BATCH = 256
 SHARD_BUCKETS = 1 << 24        # sharded-full: one rank, one shard, 3.2 GB
 SHARD_MODE_WRITES = 1 << 10    # fine/coarse (coarse: an exchange a write)
 SHARD_REPS = 5                 # timed repeats, sharded and virtual in turns
@@ -196,13 +228,16 @@ KERNEL_SOURCES = {
 }
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
-ENGINE_PHASES = ("dht", "poet", "interp", "l1", "pipeline", "sharded")
+ENGINE_PHASES = ("dht", "poet", "interp", "l1", "pipeline", "elastic",
+                 "sharded")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
     "checksum": ENGINE_PHASES, "probe": ENGINE_PHASES,
-    "round_sig": ("keys", "poet", "interp", "l1", "pipeline", "sharded"),
-    "stencil_keys": ("interp", "sharded"), "l1_probe": ("l1", "sharded"),
+    "round_sig": ("keys", "poet", "interp", "l1", "pipeline", "elastic",
+                  "sharded"),
+    "stencil_keys": ("interp", "elastic", "sharded"),
+    "l1_probe": ("l1", "elastic", "sharded"),
     "local_attention": ("lm",),
 }
 
@@ -2049,6 +2084,287 @@ def phase_pipeline(cfg_big, poet_plain):
 
 
 # ---------------------------------------------------------------------------
+# elastic: membership changes and online resharding on the full table
+# ---------------------------------------------------------------------------
+
+def _n_live(st) -> int:
+    from repro_torch.core import dht_occupancy
+
+    return int(dht_occupancy(st)["live_per_shard"].sum())
+
+
+def _elastic_readable(st, keys, vals):
+    """(n,) bool on the card: the keys that read back found, with their
+    value, in rounds of N_KEYS."""
+    import torch
+
+    from repro_torch.core import dht_read
+
+    ok = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
+    for lo in range(0, keys.shape[0], N_KEYS):
+        hi = lo + N_KEYS
+        _, out, found, _ = dht_read(st, keys[lo:hi])
+        ok[lo:hi] = found & (out == vals[lo:hi]).all(dim=-1)
+    return ok
+
+
+def _elastic_change(name, st, stats, keys, vals, ok, secs):
+    """Every entry that read back before the change reads back after it
+    but those ``evicted_at_dest`` counts; the live count falls by exactly
+    that many; part, not all, of the table moved."""
+    now = _elastic_readable(st, keys, vals)
+    lost = int((ok & ~now).sum())
+    n_live = _n_live(st)
+    ev = stats["evicted_at_dest"]
+    check(lost <= ev, f"elastic {name}: {lost} readable entries lost, "
+                      f"{ev} counted as evicted at the destination")
+    check(n_live == stats["n_live"] - ev,
+          f"elastic {name}: {n_live} live after, {stats['n_live']} before, "
+          f"{ev} evicted")
+    check(0 < stats["moved"] < stats["n_live"],
+          f"elastic {name}: moved {stats['moved']} of {stats['n_live']}")
+    return ok & now, {**stats, "lost": lost, "live_after": n_live,
+                      "readable_after": int((ok & now).sum()),
+                      "wall_s": secs}
+
+
+def _elastic_full(cfg_big, errs):
+    """(a) elastic-full: dht-full's table on a ring of 8, filled with
+    ELASTIC_KEYS entries; shard 7 leaves and joins, the table grows to 16
+    shards step by step with a dual read between the steps, then shrinks
+    back to 8.  Every kernel call of the grow's plan (``hash64`` over all
+    S*B stored keys), first step and first dual read, and of the shrink's
+    plan (S*B = 2^25 keys), is held against its plain version."""
+    import torch
+
+    from repro_torch.core import (dht_create, dht_read, dht_resize,
+                                  dht_write, migration_begin,
+                                  migration_finish, migration_read,
+                                  migration_step, occupancy,
+                                  plan_migration, ring_create, ring_resize,
+                                  shard_join, shard_leave)
+    from repro_torch.kernels import ops
+
+    st = dht_create(cfg_big, ring_create(cfg_big.n_shards), device=DEVICE)
+    gen = torch.Generator().manual_seed(80)
+    keys = words(gen, ELASTIC_KEYS, cfg_big.key_words, DEVICE)
+    vals = words(gen, ELASTIC_KEYS, cfg_big.val_words, DEVICE)
+    fill_evicted = 0
+    for lo in range(0, ELASTIC_KEYS, N_KEYS):
+        _, ws = dht_write(st, keys[lo:lo + N_KEYS], vals[lo:lo + N_KEYS])
+        fill_evicted += int(ws["evicted"])
+    ok = _elastic_readable(st, keys, vals)
+    res = {"fill": {"entries": ELASTIC_KEYS, "readable": int(ok.sum()),
+                    "evicted_at_fill": fill_evicted, "live": _n_live(st)}}
+
+    (st, ls), secs = _timed(
+        lambda: shard_leave(st, 7, batch=ELASTIC_BATCH))
+    check(float(occupancy(st)[7]) == 0.0, "elastic leave: shard 7 not empty")
+    ok, res["leave"] = _elastic_change("leave", st, ls, keys, vals, ok, secs)
+    (st, js), secs = _timed(
+        lambda: shard_join(st, 7, batch=ELASTIC_BATCH))
+    check(float(occupancy(st)[7]) > 0.0, "elastic join: shard 7 empty")
+    ok, res["join"] = _elastic_change("join", st, js, keys, vals, ok, secs)
+
+    # the grow to 16, driven step by step
+    wide = dataclasses.replace(cfg_big, n_shards=2 * cfg_big.n_shards)
+    new_ring = ring_resize(st.ring, wide.n_shards)
+    plan_ms = []
+    for _ in range(3):
+        _, secs = _timed(lambda: plan_migration(st, new_ring, wide))
+        plan_ms.append(secs * 1e3)
+    read_keys = keys[ok][:ELASTIC_READS]
+    read_vals = vals[ok][:ELASTIC_READS]
+    with Capture(ops) as cap:
+        mig, secs = _timed(lambda: migration_begin(
+            st, new_ring, wide, batch=ELASTIC_BATCH))
+        begin_ms = secs * 1e3
+        (mig, _), secs = _timed(lambda: migration_step(mig))
+        mig, out, found, ds = migration_read(mig, read_keys)
+    compare_calls(cap.calls, errs, "elastic grow: plan, step 1, dual read")
+    del cap
+    step_ms = [secs * 1e3]
+    check(bool(found.all()) and torch.equal(out, read_vals),
+          "elastic dual read: an entry in flight was lost")
+    hits_old = int(ds["hits_old_epoch"])
+    check(hits_old > 0, "elastic dual read: no hit from the old epoch")
+    # dual read beside a plain read of the same keys, in turns
+    dual_ms, plain_ms = [], []
+    for _ in range(ELASTIC_TIMING_REPS):
+        _, secs = _timed(lambda: migration_read(mig, read_keys))
+        dual_ms.append(secs * 1e3)
+        _, secs = _timed(lambda: dht_read(mig.new, read_keys))
+        plain_ms.append(secs * 1e3)
+    n_reads = 1
+    while not mig.done:
+        (mig, _), secs = _timed(lambda: migration_step(mig))
+        step_ms.append(secs * 1e3)
+        mig, out, found, ds = migration_read(mig, read_keys)
+        n_reads += 1
+        check(bool(found.all()) and torch.equal(out, read_vals),
+              "elastic dual read: an entry in flight was lost")
+    (st, gs), secs = _timed(lambda: migration_finish(mig))
+    del mig
+    check(st.cfg.n_shards == wide.n_shards, "elastic grow: shard count")
+    ok, res["grow"] = _elastic_change("grow", st, gs, keys, vals, ok,
+                                      sum(step_ms) / 1e3)
+    res["grow"].update(
+        plan_ms=plan_ms, begin_ms=begin_ms, finish_ms=secs * 1e3,
+        steps=len(step_ms), step_ms_median=statistics.median(step_ms),
+        step_ms_all=step_ms,
+        entries_per_s=gs["moved"] / (sum(step_ms) / 1e3),
+        dual_reads=n_reads, first_read_hits_old_epoch=hits_old,
+        dual_read_ms_median=statistics.median(dual_ms),
+        dual_read_ms_all=dual_ms,
+        plain_read_ms_median=statistics.median(plain_ms),
+        plain_read_ms_all=plain_ms)
+
+    # the shrink back to 8: its plan hashes all 2^25 stored keys
+    with Capture(ops) as cap:
+        plan_migration(st, ring_resize(st.ring, cfg_big.n_shards), cfg_big)
+    compare_calls({"hash64": cap.calls["hash64"]}, errs,
+                  "elastic shrink plan: hash64 over S*B keys")
+    del cap
+    (st, ss), secs = _timed(
+        lambda: dht_resize(st, cfg_big.n_shards, batch=ELASTIC_BATCH))
+    check(st.flat_meta.shape[0] == cfg_big.n_shards
+          * cfg_big.buckets_per_shard + 1, "elastic shrink: rows not freed")
+    ok, res["shrink"] = _elastic_change("shrink", st, ss, keys, vals, ok,
+                                        secs)
+    del st
+    return res
+
+
+def _elastic_stream(device):
+    """(b) elastic-parity: the same sequence at B=2^12 with
+    ELASTIC_PARITY_KEYS entries and 64 POET-shaped surrogate rows, steps
+    of 256 rows, plus the locality tier (a cached read before the leave,
+    twice, and after it: the epoch flush) and the surrogate's dual-epoch
+    queries after the grow's first step.  Returns the slab words after
+    each change, every read's outputs and counts, and the stats."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import (DHTConfig, InterpConfig, L1Config,
+                                  SurrogateConfig, dht_create,
+                                  dht_read_cached, dht_resize, dht_write,
+                                  l1_create, lookup, lookup_or_interpolate,
+                                  migration_begin, migration_finish,
+                                  migration_read, migration_step,
+                                  ring_create, ring_resize, shard_join,
+                                  shard_leave, store)
+
+    cfg = DHTConfig(key_words=20, val_words=26, n_shards=8,
+                    buckets_per_shard=ELASTIC_PARITY_BUCKETS)
+    scfg = SurrogateConfig(n_inputs=10, n_outputs=13, sig_digits=3, dht=cfg)
+    gen = torch.Generator().manual_seed(81)
+    keys = words(gen, ELASTIC_PARITY_KEYS, cfg.key_words, device)
+    vals = words(gen, ELASTIC_PARITY_KEYS, cfg.val_words, device)
+    centres, nbrs = _bracketed(scfg, 32, device, seed=82)
+    st = dht_create(cfg, ring_create(8), device=device)
+    dht_write(st, keys, vals)
+    store(scfg, st, nbrs, interp_fn(nbrs))
+    l1 = l1_create(L1Config(n_sets=256, n_ways=4), 16, device=device)
+    out = {"slabs": [], "reads": [], "stats": []}
+
+    def snap(stats):
+        out["slabs"].append({k: v.copy()
+                             for k, v in state_to_numpy(st).items()})
+        out["stats"].append(stats)
+
+    def cached():
+        nonlocal st, l1
+        st, l1, o, f, s = dht_read_cached(st, l1, keys[:512])
+        out["reads"].append((o.cpu(), f.cpu(), int(s["l1_hits"])))
+
+    cached()
+    cached()
+    st, stats = shard_leave(st, 7, batch=ELASTIC_PARITY_BATCH)
+    snap(stats)
+    cached()
+    st, stats = shard_join(st, 7, batch=ELASTIC_PARITY_BATCH)
+    snap(stats)
+    mig = migration_begin(st, ring_resize(st.ring, 16),
+                          dataclasses.replace(cfg, n_shards=16),
+                          batch=ELASTIC_PARITY_BATCH)
+    first = True
+    while not mig.done:
+        mig, step = migration_step(mig)
+        mig, o, f, ds = migration_read(mig, keys)
+        out["reads"].append((o.cpu(), f.cpu(), int(ds["hits"]),
+                             int(ds["hits_old_epoch"]), step))
+        if first:
+            _, o, f, s = lookup(scfg, mig.new, nbrs, prev=mig.old)
+            out["reads"].append((o.cpu(), f.cpu(), int(s["hits_old_epoch"])))
+            _, _, o, p, s = lookup_or_interpolate(
+                scfg, mig.new, centres, InterpConfig(), prev=mig.old)
+            out["reads"].append((o.cpu(), p.cpu(), int(s["interpolated"])))
+            first = False
+    st, stats = migration_finish(mig)
+    snap(stats)
+    st, stats = dht_resize(st, 8, batch=ELASTIC_PARITY_BATCH)
+    snap(stats)
+    return out
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_elastic(cfg_big, errs):
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    full = _elastic_full(cfg_big, errs)
+    card = _elastic_stream(DEVICE)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    g = full["grow"]
+    check(g["first_read_hits_old_epoch"] > 0, "elastic: no old-epoch hit")
+    emit("elastic", S=cfg_big.n_shards, B=cfg_big.buckets_per_shard,
+         grown_to=2 * cfg_big.n_shards, entries=ELASTIC_KEYS,
+         batch=ELASTIC_BATCH, batch_note="cut from the reference's "
+         "DEFAULT_BATCH of 256, which would take ~8,000 rounds here",
+         max_memory_allocated_gb=peak / 1e9, launches=launches, **full)
+    print(f"elastic plan ms (hash64 + ring lookup + nonzero over "
+          f"{cfg_big.n_shards * cfg_big.buckets_per_shard} buckets): "
+          f"{statistics.median(g['plan_ms'])}", flush=True)
+    print(f"elastic migrate round ms (median of {g['steps']}): "
+          f"{g['step_ms_median']}; entries per second: "
+          f"{g['entries_per_s']}", flush=True)
+    print(f"elastic dual read ms (2^16 keys, median of "
+          f"{ELASTIC_TIMING_REPS}): {g['dual_read_ms_median']} beside a "
+          f"plain read of the same keys: {g['plain_read_ms_median']}",
+          flush=True)
+    print(f"elastic peak memory GB: {peak / 1e9}", flush=True)
+
+    cpu = _elastic_stream("cpu")
+    eq = {"slabs": all(all((a[k] == b[k]).all() for k in a)
+                       for a, b in zip(card["slabs"], cpu["slabs"])),
+          "reads": _same(card["reads"], cpu["reads"]),
+          "stats": card["stats"] == cpu["stats"]}
+    check(all(eq.values()), f"elastic-parity: card and CPU differ {eq}")
+    check(card["reads"][1][2] > 0 and card["reads"][2][2] == 0,
+          "elastic-parity: the L1 did not serve, or served across the "
+          "epoch change")
+    emit("elastic_parity", B=ELASTIC_PARITY_BUCKETS,
+         entries=ELASTIC_PARITY_KEYS, batch=ELASTIC_PARITY_BATCH,
+         equal=eq, stats=card["stats"], reads=len(card["reads"]))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # sharded: the multi-rank backend at world size 1
 # ---------------------------------------------------------------------------
 
@@ -2264,6 +2580,47 @@ def _sharded_parity(cfg, saved, inputs) -> dict:
     return eq
 
 
+def _sharded_ring(cfg) -> dict:
+    """(d) ring placement on the group: ``ShardedDHT.create(ring=)`` runs
+    the four rounds equal to the virtual backend with the same ring
+    (outputs, flags, codes, slab digests), then ``apply_ring`` to the
+    next epoch of the same shard set moves nothing and bumps the epoch
+    that the next read stamps."""
+    import torch
+
+    from repro_torch.core import dht_create, ring_create, ring_resize
+    from repro_torch.core.distributed import ShardedDHT
+
+    stream = _stream(cfg, DEVICE, seed=2)
+    d = ShardedDHT.create(cfg, device=DEVICE, ring=ring_create(1))
+    saved = {}
+    for kind, fn in _sharded_plan(*stream, _sharded_exec(d)):
+        res = fn()
+        saved[kind] = (_rows_of(res), slab_digest(d.state))
+    before = slab_digest(d.state)
+    applied = d.apply_ring(ring_resize(d.ring, 1))
+    out, found, rst = d.read(stream[0])
+    check(applied["moved"] == 0 and applied["n_planned"] == 0
+          and applied["epoch"] == 1 and d.ring.epoch == 1,
+          f"sharded apply_ring: {applied}")
+    check(int(rst["epoch"]) == 1 and bool(found.all())
+          and slab_digest(d.state) == before,
+          "sharded apply_ring: the table changed or the epoch is stale")
+    del d
+    v = dht_create(cfg, ring_create(1), device=DEVICE)
+    eq = {}
+    for kind, fn in _sharded_plan(*stream, _virtual_exec(v)):
+        res = fn()
+        rows, digest = saved[kind]
+        eq[kind] = (all(torch.equal(a, b) for a, b in zip(_rows_of(res),
+                                                          rows))
+                    and slab_digest(v) == digest)
+    del v
+    check(all(eq.values()), f"sharded ring vs virtual ring differ: {eq}")
+    return {"equal_to_virtual": eq, "apply_ring": applied,
+            "read_epoch_after": int(rst["epoch"])}
+
+
 def _sharded_timing(cfg) -> dict:
     """(b) the four rounds on fresh sharded and virtual tables in turns
     (fresh keys each repeat), the exchange alone by CUDA events, and the
@@ -2445,6 +2802,7 @@ def phase_sharded(errs):
         eq = _sharded_parity(cfg, saved, inputs)
         check(all(eq.values()), f"sharded vs virtual backend differ: {eq}")
         del saved, inputs
+        ring = _sharded_ring(cfg)
         timing = _sharded_timing(cfg)
         server = _server_baseline(cfg)
     finally:
@@ -2453,7 +2811,7 @@ def phase_sharded(errs):
          B=cfg.buckets_per_shard,
          table_gb=cfg.n_shards * cfg.shard_bytes / 1e9,
          read_wire_words=wire, equal_to_virtual=eq, launches=launches,
-         **timing)
+         ring=ring, **timing)
     emit("sharded_server", **server)
     return launches
 
@@ -2926,6 +3284,7 @@ def main() -> int:
     launches["interp"], icalls = phase_interp(cfg_big, errs, poet_plain)
     launches["l1"] = phase_l1(cfg_big, errs)
     launches["pipeline"] = phase_pipeline(cfg_big, poet_plain)
+    launches["elastic"] = phase_elastic(cfg_big, errs)
     launches["sharded"] = phase_sharded(errs)
     tols: dict[str, float] = {}        # the bit-exact kernels: 0
     launches["lm"], acalls = phase_lm(errs, tols)

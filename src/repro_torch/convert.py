@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .core.l1cache import L1Config, L1State
-from .core.layout import DHTConfig, DHTState, resolve_device
+from .core.layout import DHTConfig, DHTState, resolve_device, with_ring
 from .models.config import ModelConfig
 from .models.model import LM, init_lm
 from .models.stack import find_period
@@ -50,18 +50,21 @@ def _flat(arr: np.ndarray, rows: int, width: int | None,
 
 
 def state_from_numpy(cfg_fields: dict, keys: np.ndarray, vals: np.ndarray,
-                     meta: np.ndarray, csum: np.ndarray, *,
+                     meta: np.ndarray, csum: np.ndarray, *, ring=None,
                      device: str | torch.device | None = None) -> DHTState:
     """The port's state holding the same words as the reference's
-    ``(S, B, KW)``/``(S, B, VW)``/``(S, B)``/``(S, B)`` uint32 arrays."""
+    ``(S, B, KW)``/``(S, B, VW)``/``(S, B)``/``(S, B)`` uint32 arrays.
+    ``ring`` is the port's ``membership.RingState`` to place keys by (the
+    port's ``ring_create`` builds the reference's ring word for word)."""
     cfg = cfg_from_dict(cfg_fields)
     dev = resolve_device(device)
     rows = cfg.n_shards * cfg.buckets_per_shard
-    return DHTState(cfg=cfg,
-                    flat_keys=_flat(keys, rows, cfg.key_words, dev),
-                    flat_vals=_flat(vals, rows, cfg.val_words, dev),
-                    flat_meta=_flat(meta, rows, None, dev),
-                    flat_csum=_flat(csum, rows, None, dev))
+    st = DHTState(cfg=cfg,
+                  flat_keys=_flat(keys, rows, cfg.key_words, dev),
+                  flat_vals=_flat(vals, rows, cfg.val_words, dev),
+                  flat_meta=_flat(meta, rows, None, dev),
+                  flat_csum=_flat(csum, rows, None, dev))
+    return st if ring is None else with_ring(st, ring)
 
 
 def state_to_numpy(state: DHTState) -> dict[str, np.ndarray]:

@@ -3,16 +3,19 @@ one-round op-engine in its three modes and its issue/commit halves, the
 DHT wrappers (synchronous and split), the pipelining store buffer and
 round queue, the L1 locality tier, the surrogate cache with its
 pipelined driver and its neighbourhood interpolation (with the stencil
-and key-rounding functions it is built from).  ``core.async_sim`` is the
-host-level torn-read simulator and the issue/commit oracle."""
+and key-rounding functions it is built from), the consistent-hash ring
+and online resharding with its dual-epoch reads.  ``core.async_sim`` is
+the host-level torn-read simulator and the issue/commit oracle."""
 from .dht import (
     dht_read,
     dht_read_async,
     dht_read_cached,
     dht_read_commit,
+    dht_read_dual,
     dht_read_many,
     dht_read_many_async,
     dht_read_many_commit,
+    dht_read_many_dual,
     dht_write,
     dht_write_async,
     dht_write_commit,
@@ -27,11 +30,38 @@ from .layout import (
     DHTConfig,
     DHTState,
     dht_create,
+    dht_free,
     dht_occupancy,
     occupancy,
     pack_floats,
     shard_watermark,
     unpack_floats,
+    with_ring,
+)
+from .membership import (
+    MAX_REPLICAS,
+    RingState,
+    ring_create,
+    ring_crash,
+    ring_join,
+    ring_leave,
+    ring_owner_of,
+    ring_recover,
+    ring_resize,
+    ring_successors,
+)
+from .migrate import (
+    Migration,
+    MigrationPlan,
+    adopt_ring,
+    dht_resize,
+    migration_begin,
+    migration_finish,
+    migration_read,
+    migration_step,
+    plan_migration,
+    shard_join,
+    shard_leave,
 )
 from .neighbors import (
     dedup_mask,
@@ -56,6 +86,7 @@ from .op_engine import (
     dht_commit,
     dht_execute,
     dht_issue,
+    dual_fusable,
     migrate_ops,
     mixed_ops,
     read_ops,
@@ -77,20 +108,25 @@ from .surrogate import (
 
 __all__ = [
     "DHTConfig", "DHTState", "InFlightRound", "InterpConfig", "L1Config",
-    "L1State", "MODES", "MODE_COARSE", "MODE_FINE", "MODE_LOCKFREE",
-    "OP_MIGRATE", "OP_READ", "OP_WRITE", "OpBatch", "PROV_EXACT",
-    "PROV_INTERP", "PROV_MISS", "PendingWrites", "RoundQueue",
-    "SurrogateConfig", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP",
-    "W_UPDATE", "dedup_mask", "dht_commit", "dht_create", "dht_execute",
+    "L1State", "MAX_REPLICAS", "MODES", "MODE_COARSE", "MODE_FINE",
+    "MODE_LOCKFREE", "Migration", "MigrationPlan", "OP_MIGRATE", "OP_READ",
+    "OP_WRITE", "OpBatch", "PROV_EXACT", "PROV_INTERP", "PROV_MISS",
+    "PendingWrites", "RingState", "RoundQueue", "SurrogateConfig",
+    "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP", "W_UPDATE", "adopt_ring",
+    "dedup_mask", "dht_commit", "dht_create", "dht_execute", "dht_free",
     "dht_issue", "dht_occupancy", "dht_read", "dht_read_async",
-    "dht_read_cached", "dht_read_commit", "dht_read_many",
-    "dht_read_many_async", "dht_read_many_commit", "dht_write",
-    "dht_write_async", "dht_write_commit", "l1_create", "l1_flush",
-    "lattice_step", "lookup", "lookup_cached",
-    "lookup_interpolate_or_compute", "lookup_or_compute",
+    "dht_read_cached", "dht_read_commit", "dht_read_dual", "dht_read_many",
+    "dht_read_many_async", "dht_read_many_commit", "dht_read_many_dual",
+    "dht_resize", "dht_write", "dht_write_async", "dht_write_commit",
+    "dual_fusable", "l1_create", "l1_flush", "lattice_step", "lookup",
+    "lookup_cached", "lookup_interpolate_or_compute", "lookup_or_compute",
     "lookup_or_compute_pipelined", "lookup_or_interpolate", "make_keys",
-    "migrate_ops", "mixed_ops", "n_stencil", "occupancy", "pack_floats",
-    "read_ops", "round_significant", "shard_watermark", "stencil_keys",
-    "stencil_offsets", "stencil_points", "store", "surrogate_create",
-    "unpack_floats", "write_ops",
+    "migrate_ops", "migration_begin", "migration_finish", "migration_read",
+    "migration_step", "mixed_ops", "n_stencil", "occupancy", "pack_floats",
+    "plan_migration", "read_ops", "ring_create", "ring_crash",
+    "ring_join", "ring_leave", "ring_owner_of", "ring_recover",
+    "ring_resize", "ring_successors", "round_significant", "shard_join",
+    "shard_leave", "shard_watermark", "stencil_keys", "stencil_offsets",
+    "stencil_points", "store", "surrogate_create", "unpack_floats",
+    "with_ring", "write_ops",
 ]

@@ -24,8 +24,8 @@ import dataclasses
 
 import numpy as np
 
-from . import routing
 from .layout import GEN_SHIFT, INVALID, OCCUPIED, DHTConfig
+from .membership import ring_owner_np
 
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
@@ -84,13 +84,14 @@ class AsyncStats:
 
 class AsyncDHT:
     """R concurrent ranks over one shared table, interleaved sub-ops.
-    Owners are the static ``hash % S``; the consistent-hash ``ring`` comes
-    with elastic membership and raises until then."""
+    Owners are the static ``hash % S``, or with ``ring`` (a
+    ``core.membership.RingState``) the ring's successor vnode, through
+    its host arrays: the torn-read phenomenology does not depend on
+    placement."""
 
     def __init__(self, cfg: DHTConfig, seed: int = 0, ring=None):
-        if ring is not None:
-            raise routing.not_ported("AsyncDHT(ring=...)", "11")
         self.cfg = cfg
+        self.ring = ring
         b = cfg.n_shards * cfg.buckets_per_shard
         self.keys = np.zeros((b, cfg.key_words), np.uint32)
         self.vals = np.zeros((b, cfg.val_words), np.uint32)
@@ -104,7 +105,10 @@ class AsyncDHT:
     # -- addressing (same scheme as the engine) --
     def _bucket_of(self, key: np.ndarray) -> int:
         h_hi, h_lo = hash64_np(key[None, :])
-        shard = int(h_hi[0]) % self.cfg.n_shards
+        if self.ring is not None:
+            shard = int(ring_owner_np(self.ring, h_hi)[0])
+        else:
+            shard = int(h_hi[0]) % self.cfg.n_shards
         span = max(self.cfg.buckets_per_shard - self.cfg.n_probe + 1, 1)
         base = int(h_lo[0]) % span
         return shard * self.cfg.buckets_per_shard + base

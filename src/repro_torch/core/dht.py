@@ -10,8 +10,10 @@ part of a batch from the L1 cache (``core/l1cache.py``) first.  The
 ``*_async``/``*_commit`` pairs are the two halves of the same rounds
 (``dht_issue``/``dht_commit``): the async half enqueues the round and
 returns, the commit half waits for it.  The table and the cache are
-updated in place.  The dual-epoch and replicated forms belong to later
-slices and raise.
+updated in place.  :func:`dht_read_dual` reads during an online
+migration (``core/migrate.py``): each key fans out to its new- and
+old-epoch owners inside one round.  The replicated forms belong to a
+later slice and raise.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from .op_engine import (
     dht_commit,
     dht_execute,
     dht_issue,
+    dual_fusable,
     read_ops,
     write_ops,
 )
@@ -300,9 +303,104 @@ def dht_read_many(state: DHTState, keys: torch.Tensor,
             routing.unflatten_fanout(found, n, m), stats)
 
 
-def dht_read_many_dual(state, prev, keys, valid=None, *, axis_name=None):
-    """Dual-epoch multi-key read (elastic membership, a later slice)."""
-    raise routing.not_ported("dht_read_many_dual", "11")
+def dht_read_many_dual(state: DHTState, prev: DHTState, keys: torch.Tensor,
+                       valid: torch.Tensor | None = None, *, axis_name=None):
+    """Dual-epoch form of :func:`dht_read_many`: every one of the n*m
+    probes fans out to its new- and old-epoch owners in the same single
+    round (:func:`dht_read_dual`), so a neighbour still in flight is
+    found.  Returns ``(state', prev', vals (n, m, VW), found (n, m),
+    stats)``."""
+    n, m = keys.shape[0], keys.shape[1]
+    flat, vflat = routing.flatten_fanout(keys, valid)
+    state, prev, val, found, stats = dht_read_dual(
+        state, prev, flat, vflat, axis_name=axis_name)
+    return (state, prev, routing.unflatten_fanout(val, n, m),
+            routing.unflatten_fanout(found, n, m), stats)
+
+
+def _dht_read_dual_seq(state: DHTState, prev: DHTState, keys: torch.Tensor,
+                       valid: torch.Tensor, *, axis_name=None):
+    """Two sequential reads: the fallback where the epochs' geometries
+    cannot share one round (:func:`op_engine.dual_fusable` false, e.g. a
+    rebuild that changed word widths or the probe window).  The second
+    round reads only the first one's misses; ``fill_frac`` is weighted by
+    each round's wire words (``obs.metrics.merge_wire_stats``) and the
+    skew lanes come from the two rounds' summed bin counts (shard ids are
+    stable, so the narrower histogram is zero-padded)."""
+    state, val_new, found_new, s_new = dht_read(state, keys, valid,
+                                                axis_name=axis_name)
+    prev, val_old, found_old, s_old = dht_read(prev, keys, valid & ~found_new,
+                                               axis_name=axis_name)
+    vals, found = routing.merge_dual_epoch(found_new, val_new, found_old,
+                                           val_old)
+    wire = obs_metrics.merge_wire_stats(s_new, s_old)
+    bc_n, bc_o = s_new["bin_counts"], s_old["bin_counts"]
+    bc = torch.zeros(max(bc_n.shape[0], bc_o.shape[0]), dtype=bc_n.dtype,
+                     device=bc_n.device)
+    bc[:bc_n.shape[0]] += bc_n
+    bc[:bc_o.shape[0]] += bc_o
+    btot = torch.clamp(bc.sum(), min=1).to(torch.float32)
+    bmax = bc.max().to(torch.float32)
+    stats = {
+        "hits": (s_new["hits"] + s_old["hits"]).to(torch.int32),
+        "misses": (valid & ~found).sum().to(torch.int32),
+        "mismatches": s_new["mismatches"] + s_old["mismatches"],
+        "dropped": s_new["dropped"] + s_old["dropped"],
+        "lock_tokens": s_new["lock_tokens"] + s_old["lock_tokens"],
+        "epoch": s_new["epoch"],
+        "wire_words": wire["wire_words"],
+        "fill_frac": wire["fill_frac"],
+        "bin_counts": bc,
+        "bin_max_load": bc.max(),
+        "bin_imbalance": bmax * float(bc.shape[0]) / btot,
+        "hot_frac": bmax / btot,
+        "hits_old_epoch": s_old["hits"],
+    }
+    return state, prev, vals, found, stats
+
+
+def dht_read_dual(state: DHTState, prev: DHTState, keys: torch.Tensor,
+                  valid: torch.Tensor | None = None, *, axis_name=None):
+    """Dual-epoch read during an online migration.
+
+    Between ``migration_begin`` and ``migration_finish`` an entry lives
+    in the new-epoch table ``state`` (moved already, or written since)
+    or in the frozen previous-epoch table ``prev`` (not moved yet).  Each
+    key fans out to BOTH owners inside one round of capacity ``2 * cap``
+    (an epoch-select lane; the shard side probes each epoch's slab): the
+    new epoch's reply is authoritative, the old one backfills entries in
+    flight, so no hit is lost mid-move.  ``stats`` adds
+    ``hits_old_epoch``, the hits only the old epoch served.
+
+    Returns ``(state', prev', vals, found, stats)``."""
+    if valid is None:
+        valid = _ones(keys)
+    if not dual_fusable(state.cfg, prev.cfg):
+        return _dht_read_dual_seq(state, prev, keys, valid,
+                                  axis_name=axis_name)
+    n = keys.shape[0]
+    flat = keys[:, None, :].expand((n, 2) + tuple(keys.shape[1:]))
+    flat = flat.reshape((2 * n,) + tuple(keys.shape[1:]))
+    vflat = valid[:, None].expand(n, 2).reshape(2 * n)
+    esel = torch.arange(2, dtype=torch.int32, device=keys.device).repeat(n)
+    cap = state.cfg.capacity
+    state, prev, val, found, _code, es = dht_execute(
+        state, OpBatch(keys=flat, valid=vflat, esel=esel), kinds=("read",),
+        prev=prev, axis_name=axis_name, capacity=2 * cap if cap else None)
+    val2 = routing.unflatten_fanout(val, n, 2)
+    fnd2 = routing.unflatten_fanout(found, n, 2)
+    vals, fnd = routing.merge_dual_epoch(fnd2[:, 0], val2[:, 0],
+                                         fnd2[:, 1], val2[:, 1])
+    stats = {
+        "hits": fnd.sum().to(torch.int32),
+        "misses": (valid & ~fnd).sum().to(torch.int32),
+        "mismatches": es["mismatches"],
+        "dropped": es["dropped"],
+        "lock_tokens": es["lock_tokens"],
+        **_wire_skew_stats(es),
+        "hits_old_epoch": (fnd2[:, 1] & ~fnd2[:, 0]).sum().to(torch.int32),
+    }
+    return state, prev, vals, fnd, stats
 
 
 def dht_read_many_async(state: DHTState, keys: torch.Tensor,

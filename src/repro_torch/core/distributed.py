@@ -17,9 +17,19 @@ sum over the world size; the per-row ``code`` stays the rank's.  The
 ``(state, keys, vals, valid) -> ...``; the port is eager, so they need no
 trace cache.
 
-Not in this slice: the ring and resharding (``apply_ring``, ``leave``,
-``join``; ROADMAP item 11), replication and repair (``crash``,
-``recover``, ``repair`` and the replicated closures; item 12) and the
+Elastic membership: a table made with a consistent-hash ``ring`` places
+keys by it on every rank, and :meth:`ShardedDHT.apply_ring` (``leave``,
+``join``) reshards online in lockstep.  Each rank plans its own sources
+(its live entries whose new owner is another rank) and snapshots their
+rows first; the ranks agree on the number of migrate rounds with one
+``all_reduce(MAX)``; every round is one get-or-put exchange round in
+which each rank sends at most ``batch // world`` rows (an all-invalid
+batch once it has run out); the counts meet in one ``all_reduce(SUM)``
+and each rank retires its own stale sources.  No dual reads are needed:
+the call returns when the move is done.
+
+Not in this slice: replication and repair (``crash``, ``recover``,
+``repair`` and the replicated closures; ROADMAP item 12) and the
 telemetry registry (``telemetry_snapshot``; item 14).  Each raises
 ``NotImplementedError`` naming its item.
 """
@@ -32,10 +42,21 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from ..obs import metrics as obs_metrics
 from . import dht as dht_ops
 from . import l1cache, routing
-from .layout import DHTConfig, DHTState, dht_create, resolve_device
-from .op_engine import W_DROPPED, InFlightRound, OpBatch, dht_commit, dht_execute
+from .layout import DHTConfig, DHTState, dht_create, live_mask, resolve_device
+from .membership import ring_create, ring_join, ring_leave
+from .migrate import _owners, _retire
+from .op_engine import (
+    W_DROPPED,
+    W_EVICT,
+    InFlightRound,
+    OpBatch,
+    dht_commit,
+    dht_execute,
+    migrate_ops,
+)
 from .pipeline import RoundQueue
 
 # replicated or uniform lanes, and the largest bin: the max over ranks
@@ -176,9 +197,12 @@ class ShardedDHT:
         ``group`` defaults to the whole world, which must have
         ``cfg.n_shards`` ranks.  The shard lives on this rank's card
         unless ``device`` names another; the group's backend must fit it
-        (NCCL for CUDA, gloo for the CPU)."""
-        if ring is not None:
-            raise routing.not_ported("ShardedDHT.create(ring=...)", "11")
+        (NCCL for CUDA, gloo for the CPU).  ``ring`` (a
+        ``membership.RingState`` of ``cfg.n_shards`` shards, the same on
+        every rank) places keys on a consistent-hash ring."""
+        if ring is not None and ring.n_shards != cfg.n_shards:
+            raise ValueError(f"a ring of {ring.n_shards} shards for "
+                             f"n_shards={cfg.n_shards}")
         if not dist.is_initialized():
             raise RuntimeError("ShardedDHT needs torch.distributed: call "
                                "init_process_group first")
@@ -189,7 +213,7 @@ class ShardedDHT:
                              f"!= world size {world}")
         dev = _rank_device(group, device)
         routing.process_group(group, dev)
-        state = dht_create(cfg, device=dev, shards=1)
+        state = dht_create(cfg, ring, device=dev, shards=1)
         l1 = None
         if l1cfg is not None:
             if (l1cfg.key_words, l1cfg.val_words) != (cfg.key_words,
@@ -458,19 +482,87 @@ class ShardedDHT:
         rounds; ``commit`` defaults to :meth:`_commit`."""
         return RoundQueue(self.pipeline_depth, commit or self._commit)
 
-    # -- later slices -------------------------------------------------------
+    # -- later slices -----------------------------------------------------
     def telemetry_snapshot(self) -> dict:
         raise routing.not_ported("ShardedDHT.telemetry_snapshot (the "
                                  "metric registry)", "14")
 
+    # -- elastic membership -------------------------------------------------
+    @property
+    def ring(self):
+        return self.state.ring
+
     def apply_ring(self, new_ring, batch: int = 512) -> dict:
-        raise routing.not_ported("ShardedDHT.apply_ring", "11")
+        """Online in-place resharding to ``new_ring``, in lockstep on
+        every rank (see the module's docstring).  ``batch`` is the
+        group's rows a round, ``batch // world`` from each rank.
+        Returns the group's ``{n_live, n_planned, moved,
+        evicted_at_dest, epoch}``."""
+        cfg, st = self.cfg, self.state
+        world = dist.get_world_size(self.group)
+        me = dist.get_rank(self.group)
+        if new_ring.n_shards != cfg.n_shards:
+            raise ValueError("the multi-rank backend reshards in place: "
+                             f"a ring of {cfg.n_shards} shards, got "
+                             f"{new_ring.n_shards}")
+        per = max(batch // world, 1)
+        dev = st.device
+        new_ring = new_ring.to(dev)
+        # plan this rank's sources and snapshot their rows (and the dump
+        # row: the pad of the invalid rows) before any round writes
+        live = live_mask(st.meta).reshape(-1)
+        owner = _owners(st.flat_keys[:-1], new_ring)
+        src = torch.nonzero(live & (owner != me)).reshape(-1)
+        idx = torch.cat([src, src.new_full((1,), st.flat_meta.shape[0] - 1)])
+        src_keys, src_vals = st.flat_keys[idx], st.flat_vals[idx]
+        n_src = int(src.shape[0])
+        agreed = torch.tensor([-(-n_src // per)], dtype=torch.int64,
+                              device=dev)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=self.group)
+        n_rounds = int(agreed.item())
+        # the new epoch: the same buffers, capacity ``per`` (no rank
+        # sends more rows a round, so no bin overflows)
+        new = DHTState(dataclasses.replace(cfg, capacity=per), st.flat_keys,
+                       st.flat_vals, st.flat_meta, st.flat_csum, new_ring)
+        counts = torch.zeros(3, dtype=torch.int64, device=dev)
+        iota = torch.arange(per, device=dev)
+        for r in range(n_rounds):
+            pos = iota + r * per
+            valid = pos < n_src
+            rows = torch.clamp(pos, max=n_src)   # past the end: the pad
+            _, _, _, found, code, es = dht_execute(
+                new, migrate_ops(src_keys[rows], src_vals[rows], valid),
+                kinds=("migrate",), axis_name=self.group)
+            counts += torch.stack([(valid & ~found).sum(),
+                                   (code == W_EVICT).sum(),
+                                   es["dropped"].to(torch.int64)])
+        # retire this rank's sources whose stored key now lives elsewhere
+        _retire(new, src, new_ring, shard_offset=me)
+        self.state = DHTState(cfg, new.flat_keys, new.flat_vals,
+                              new.flat_meta, new.flat_csum, new.ring)
+        totals = torch.cat([counts, torch.stack(
+            [live.sum(), torch.full((), n_src, device=dev)])])
+        dist.all_reduce(totals, op=dist.ReduceOp.SUM, group=self.group)
+        moved, evicted, dropped, n_live, n_planned = totals.tolist()
+        if dropped:
+            raise RuntimeError(f"migration rounds dropped {dropped} rows")
+        obs_metrics.inc("migrate.moved", moved)
+        obs_metrics.inc("migrate.evicted", evicted)
+        return {"n_live": n_live, "n_planned": n_planned, "moved": moved,
+                "evicted_at_dest": evicted, "epoch": new_ring.epoch}
 
     def leave(self, shard_id: int, batch: int = 512) -> dict:
-        raise routing.not_ported("ShardedDHT.leave", "11")
+        """Evacuate shard ``shard_id``: its entries move to the ranks that
+        own them once it is off the ring."""
+        ring = self.ring or ring_create(self.cfg.n_shards)
+        return self.apply_ring(ring_leave(ring, shard_id), batch)
 
     def join(self, shard_id: int, batch: int = 512) -> dict:
-        raise routing.not_ported("ShardedDHT.join", "11")
+        """Bring shard ``shard_id`` back onto the ring: the entries of
+        its vnode arcs move in."""
+        if self.ring is None:
+            raise ValueError("join needs a ring")
+        return self.apply_ring(ring_join(self.ring, shard_id), batch)
 
     def crash(self, shard_id: int, *, wipe: bool = True) -> None:
         raise routing.not_ported("ShardedDHT.crash", "12")

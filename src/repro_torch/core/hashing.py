@@ -1,7 +1,8 @@
 """64-bit key hashing in 2x 32-bit lanes (PyTorch port of ``repro.core.hashing``).
 
 The 64-bit key hash is a (hi, lo) pair of independently seeded murmur3
-mixes.  ``hi`` picks the owner shard (``hash % S``), ``lo`` the start of
+mixes.  ``hi`` picks the owner shard (``hash % S``, or the successor
+vnode on a consistent-hash ring: :func:`ring_owner`), ``lo`` the start of
 the contiguous ``n_probe`` candidate window.
 
 Words are int32 bit-views.  The arithmetic widens to int64 holding the
@@ -73,6 +74,18 @@ def hash64(key_words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def owner_shard(h_hi: torch.Tensor, n_shards: int) -> torch.Tensor:
     """Paper: target_rank = hash % nprocs, on the unsigned value."""
     return (u32(h_hi) % n_shards).to(torch.int32)
+
+
+def ring_owner(h_hi: torch.Tensor, positions: torch.Tensor,
+               owners: torch.Tensor, n_live: int) -> torch.Tensor:
+    """Consistent-hash ring lookup: the successor virtual node owns the
+    key (``core/membership.py``).  ``positions`` is the ring's sorted
+    (n_slots,) int64 vnode positions (dead slots 0xFFFFFFFF at the
+    tail), ``owners`` the (n_slots,) int32 shard of each, ``n_live`` the
+    live prefix; a hash past the last live vnode wraps to slot 0."""
+    idx = torch.searchsorted(positions, u32(h_hi), side="left")
+    idx = torch.where(idx >= n_live, 0, idx)
+    return owners[idx].to(torch.int32)
 
 
 def base_bucket(h_lo: torch.Tensor, n_buckets: int, n_probe: int

@@ -24,10 +24,15 @@ backend (``core/distributed.py``) each rank holds one shard's B rows
 while ``cfg`` keeps the global S that the owner hash ``hi % S`` needs.
 The views take their leading dim from the buffers' rows
 (:attr:`DHTState.n_local`), never from ``cfg.n_shards``.
+
+A state may carry a consistent-hash ring (``core/membership.py``): the
+owner is then the ring's successor vnode instead of ``hi % S``.  Its
+lookup tensors live on the table's device.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -106,6 +111,7 @@ class DHTState:
     flat_vals: torch.Tensor   # (S*B + 1, VW) int32
     flat_meta: torch.Tensor   # (S*B + 1,) int32
     flat_csum: torch.Tensor   # (S*B + 1,) int32
+    ring: Any = None          # membership.RingState, None = hi % S
 
     @property
     def device(self) -> torch.device:
@@ -141,13 +147,26 @@ class DHTState:
     def clone(self) -> "DHTState":
         return DHTState(self.cfg, self.flat_keys.clone(),
                         self.flat_vals.clone(), self.flat_meta.clone(),
-                        self.flat_csum.clone())
+                        self.flat_csum.clone(), self.ring)
 
 
-def dht_create(cfg: DHTConfig, *, device: str | torch.device | None = None,
+def _attach(ring, cfg: DHTConfig, device: torch.device):
+    """``ring`` on the table's device, checked against its shard count."""
+    if ring is None:
+        return None
+    if ring.n_shards > cfg.n_shards:
+        raise ValueError(f"a ring of {ring.n_shards} shards does not fit "
+                         f"a table of {cfg.n_shards}")
+    return ring.to(device)
+
+
+def dht_create(cfg: DHTConfig, ring=None, *,
+               device: str | torch.device | None = None,
                shards: int | None = None) -> DHTState:
     """DHT_create: allocate the empty table on ``device`` (CUDA unless
-    the caller asks for another).  ``shards`` is how many of the
+    the caller asks for another).  ``ring`` (a
+    ``membership.RingState``) places keys on a consistent-hash ring
+    instead of ``hi % S``.  ``shards`` is how many of the
     ``cfg.n_shards`` shards this process holds (default all; a rank of
     the multi-rank backend holds 1)."""
     dev = resolve_device(device)
@@ -163,7 +182,25 @@ def dht_create(cfg: DHTConfig, *, device: str | torch.device | None = None,
         flat_vals=torch.zeros((rows, cfg.val_words), **z),
         flat_meta=torch.zeros((rows,), **z),
         flat_csum=torch.zeros((rows,), **z),
+        ring=_attach(ring, cfg, dev),
     )
+
+
+def with_ring(state: DHTState, ring) -> DHTState:
+    """The same buffers under another membership ring (None: ``hi %
+    S``); the slabs are not copied."""
+    return DHTState(state.cfg, state.flat_keys, state.flat_vals,
+                    state.flat_meta, state.flat_csum,
+                    _attach(ring, state.cfg, state.device))
+
+
+def dht_free(state: DHTState) -> None:
+    """DHT_free: drop this state's references to its buffers (they become
+    empty).  Memory is returned once nothing else holds it: a state or
+    view that shares the buffers keeps them alive and unchanged."""
+    for name in ("flat_keys", "flat_vals", "flat_meta", "flat_csum"):
+        buf = getattr(state, name)
+        setattr(state, name, buf.new_empty((0,) + tuple(buf.shape[1:])))
 
 
 def live_mask(meta: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Every operation is a request record (``OP_READ`` / ``OP_WRITE`` /
 ``OP_MIGRATE``, a key, and for the writing kinds a value);
 :func:`dht_execute` runs an arbitrary mix in ONE routing round:
 
-1. hash every key (``hash64`` kernel), owner shard ``hi % S``, window base
+1. hash every key (``hash64`` kernel), owner shard ``hi % S`` (or the
+   successor vnode on the state's consistent-hash ring), window base
    ``lo % (B - P + 1)``;
 2. count-driven capacity and sort binning (``core/routing.py``);
 3. one fused lane matrix packed into bins (``route_pack`` kernel);
@@ -49,8 +50,16 @@ The lock-free write passes make no collective, so ranks may take
 different pass counts.  With ``elide_self``, the rows a rank owns skip
 the exchange and ride the same shard pass as extra rows.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): dual-epoch ``prev``, the ring and replication.
+Dual-epoch rounds: with ``prev`` (the frozen previous-epoch table of an
+in-flight migration, ``core/migrate.py``) each row carries an epoch
+select lane ``esel`` and is routed by that epoch's owner and window
+base; the shard side runs the ``probe`` kernel once over each epoch's
+slab (the other epoch's rows get a harmless in-range base) and selects
+by ``esel``.  Such a round is read-only; a checksum-failed bucket is
+flagged INVALID in whichever slab it was read from.
+
+Not in this slice: replication (``cfg.n_replicas > 1`` raises
+``NotImplementedError`` naming ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -63,7 +72,7 @@ import torch
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
 from . import routing
-from .hashing import base_bucket, owner_shard
+from .hashing import base_bucket, owner_shard, ring_owner
 from .layout import (
     GEN_SHIFT,
     INVALID,
@@ -71,6 +80,7 @@ from .layout import (
     MODE_FINE,
     MODE_LOCKFREE,
     OCCUPIED,
+    DHTConfig,
     DHTState,
     shard_watermark,
     to_i32,
@@ -95,12 +105,15 @@ KINDS = ("read", "write", "migrate")
 @dataclasses.dataclass
 class OpBatch:
     """An op-tagged request batch.  ``op`` None means a uniform batch
-    whose kind is given by ``dht_execute(..., kinds=)``."""
+    whose kind is given by ``dht_execute(..., kinds=)``.  ``esel`` picks
+    the epoch a row probes (0 = ``state``, 1 = ``prev``) in a dual-epoch
+    round."""
 
     keys: torch.Tensor                 # (n, KW) int32
     valid: torch.Tensor                # (n,) bool
     op: torch.Tensor | None = None     # (n,) int32 tag
     vals: torch.Tensor | None = None   # (n, VW) int32 write/migrate payload
+    esel: torch.Tensor | None = None   # (n,) int32 epoch select
 
 
 def _default_valid(keys: torch.Tensor, valid) -> torch.Tensor:
@@ -128,10 +141,21 @@ def migrate_ops(keys, vals, valid=None) -> OpBatch:
 
 def mixed_ops(op, keys, vals, valid=None, esel=None) -> OpBatch:
     """Explicitly tagged mixed batch."""
-    if esel is not None:
-        raise routing.not_ported("dual-epoch batches (esel)", "11")
     return OpBatch(keys=keys, valid=_default_valid(keys, valid),
-                   op=op.to(torch.int32), vals=vals.to(torch.int32))
+                   op=op.to(torch.int32), vals=vals.to(torch.int32),
+                   esel=None if esel is None else esel.to(torch.int32))
+
+
+def dual_fusable(cfg: DHTConfig, prev_cfg: DHTConfig) -> bool:
+    """Whether a dual-epoch probe can ride one round: the two epochs agree
+    on the record geometry (word widths, probe window) and the previous
+    shard set is addressable inside the current routing space (always
+    true for in-place migrations, whose slab rows are the union of the
+    two shard sets)."""
+    return (prev_cfg.key_words == cfg.key_words
+            and prev_cfg.val_words == cfg.val_words
+            and prev_cfg.n_probe == cfg.n_probe
+            and prev_cfg.n_shards <= cfg.n_shards)
 
 
 # ---------------------------------------------------------------------------
@@ -146,15 +170,39 @@ def _slab_views(state: DHTState):
             state.flat_meta[:-1], state.flat_csum[:-1])
 
 
-def _probe_window(state: DHTState, abs_base, keys):
+def _probe_window(state: DHTState, abs_base, keys,
+                  validate: bool | None = None):
     """Read probe through the ``probe`` kernel: ``(found_tri, sel, val)``;
     ``found_tri`` is 1 (hit), -1 (selected bucket failed its checksum;
     lock-free mode only, the locking modes read without a checksum) or 0
-    (no live key-equal candidate)."""
+    (no live key-equal candidate).  ``validate`` overrides the state's
+    mode."""
+    if validate is None:
+        validate = state.cfg.mode == MODE_LOCKFREE
     val, found, rsel = kops.probe(
         *_slab_views(state), keys, abs_base, state.cfg.n_probe,
-        validate_checksum=state.cfg.mode == MODE_LOCKFREE)
+        validate_checksum=validate)
     return found, rsel, val
+
+
+def _dual_probe(state: DHTState, prev: DHTState, base, shard, keys,
+                in_prev):
+    """The probe of a dual-epoch round: one ``probe`` launch over each
+    epoch's flat slab, at that epoch's absolute bases (``shard * B +
+    base``), the other epoch's rows aimed at bucket 0, then a select by
+    ``in_prev``.  Both slabs validate by the new epoch's mode.  Returns
+    ``(found_tri, val, slot_cur, slot_prev)``."""
+    validate = state.cfg.mode == MODE_LOCKFREE
+    b_cur = base + shard * state.cfg.buckets_per_shard
+    b_prev = base + shard * prev.cfg.buckets_per_shard
+    b_cur = torch.where(in_prev, 0, b_cur).to(torch.int32)
+    b_prev = torch.where(in_prev, b_prev, 0).to(torch.int32)
+    f_c, sel_c, val_c = _probe_window(state, b_cur, keys, validate)
+    f_p, sel_p, val_p = _probe_window(prev, b_prev, keys, validate)
+    found = torch.where(in_prev, f_p, f_c)
+    val = torch.where(in_prev[:, None], val_p, val_c)
+    return (found, val, (b_cur + sel_c).to(torch.int64),
+            (b_prev + sel_p).to(torch.int64))
 
 
 def _choose_write_slot(state: DHTState, abs_base, keys):
@@ -307,15 +355,18 @@ def _watermarks(state: DHTState) -> torch.Tensor:
 
 
 def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
-                 l1_meta: bool = False, group=None):
+                 l1_meta: bool = False, group=None, prev=None, esel=None):
     """Apply every local shard's bins: probes see the round-start slab,
     writes follow under the mode's schedule.  ``base`` etc. are (S, cap,
     ...) bins, or (1, rows, ...) on a rank of the multi-rank backend
-    (``group``: its lock tokens are exchanges).  Returns ``(val, found, code, n_mismatch, rounds, tokens,
-    gen, wpre, wpost)`` shaped (S, cap, ...).  With ``l1_meta`` the last
-    three are the coherence metadata: the round-start generation of each
-    item's selected bucket (``meta >> GEN_SHIFT``) and every shard's
-    watermark before and after the round's mutations, (S,); else None."""
+    (``group``: its lock tokens are exchanges).  With ``prev`` the rows
+    whose ``esel`` is 1 probe the previous epoch's slab instead (the
+    round is read-only).  Returns ``(val, found, code, n_mismatch,
+    rounds, tokens, gen, wpre, wpost)`` shaped (S, cap, ...).  With
+    ``l1_meta`` the last three are the coherence metadata: the
+    round-start generation of each item's selected bucket (``meta >>
+    GEN_SHIFT``) and every shard's watermark before and after the round's
+    mutations, (S,); else None."""
     cfg = state.cfg
     s, cap = base.shape
     do_probe = ("read" in kinds) or ("migrate" in kinds)
@@ -347,16 +398,33 @@ def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
     n_mm = torch.zeros((), dtype=torch.int32, device=base.device)
     tokens = 0
     if do_probe:
-        found_tri, sel, pval = _probe_window(state, abs_base, keys)
-        slot = (abs_base + sel).to(torch.int64)
-        if l1_meta:       # the round-start snapshot, before any flagging
-            gen = to_i32(u32(state.flat_meta[slot]) >> GEN_SHIFT)
+        if prev is None:
+            found_tri, sel, pval = _probe_window(state, abs_base, keys)
+            slot = (abs_base + sel).to(torch.int64)
+            if l1_meta:   # the round-start snapshot, before any flagging
+                gen = to_i32(u32(state.flat_meta[slot]) >> GEN_SHIFT)
+        else:
+            in_prev = esel.reshape(-1) == 1
+            rows = shard[:, None].expand(s, cap).reshape(-1)
+            found_tri, pval, slot, slot_p = _dual_probe(
+                state, prev, base.reshape(-1), rows, keys, in_prev)
+            if l1_meta:
+                gen = to_i32(u32(torch.where(in_prev, prev.flat_meta[slot_p],
+                                             state.flat_meta[slot]))
+                             >> GEN_SHIFT)
         if locked:
             found = m_probe & (found_tri == 1)
             # shared-lock round trips
             tokens = 2 * _lock_token(group, cfg.n_shards, base.device) * s
-        else:
+        elif prev is None:
             found, n_mm = _validate_and_flag(state, found_tri, slot, m_probe)
+        else:
+            # flag a failed bucket in whichever epoch's slab was read
+            found, n_mm = _validate_and_flag(state, found_tri, slot,
+                                             m_probe & ~in_prev)
+            found_p, mm_p = _validate_and_flag(prev, found_tri, slot_p,
+                                               m_probe & in_prev)
+            found, n_mm = found | found_p, n_mm + mm_p
         val = torch.where(found[:, None], pval, 0)
 
     code = torch.zeros(c, dtype=torch.int32, device=base.device)
@@ -384,20 +452,28 @@ def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
 # ---------------------------------------------------------------------------
 
 def _owner_epoch(state: DHTState, h_hi):
-    """Owner placement: the paper's static ``hash % S`` (epoch 0).  The
-    consistent-hash ring and replica select are later slices."""
-    return owner_shard(h_hi, state.cfg.n_shards), 0
+    """Owner placement and the membership epoch: the paper's static
+    ``hash % S`` (epoch 0), or the state's consistent-hash ring (its
+    successor vnode and its epoch, a Python int).  The replica select is
+    a later slice."""
+    r = state.ring
+    if r is None:
+        return owner_shard(h_hi, state.cfg.n_shards), 0
+    r = r.to(h_hi.device)
+    return ring_owner(h_hi, r.positions, r.owners, r.n_live), r.epoch
 
 
 def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
-               hashes=None, placement=None, bin_valid=None, group=None):
+               hashes=None, placement=None, bin_valid=None, group=None,
+               prev=None):
     """Hash, place and bin the whole batch.  ``hashes`` takes a
     precomputed ``(hi, lo)`` pair and ``placement`` a precomputed ``(dest,
     epoch)``, so the L1 front end and the router share one ``hash64``
     launch.  ``bin_valid`` (default ``ops.valid``) leaves rows out of the
     binning and the capacity plan (self-elided rows).  Under a process
-    ``group`` the capacity plan is agreed across ranks.  Returns
-    ``(binned, base, used_prologue)``."""
+    ``group`` the capacity plan is agreed across ranks.  With ``prev``
+    the rows whose ``ops.esel`` is 1 go to their owner and window base
+    under the previous epoch.  Returns ``(binned, base, used_prologue)``."""
     cfg = state.cfg
     if hashes is None:
         h = kops.hash64(ops.keys.contiguous())
@@ -405,6 +481,11 @@ def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
     dest, epoch = (_owner_epoch(state, hashes[0]) if placement is None
                    else placement)
     base = base_bucket(hashes[1], cfg.buckets_per_shard, cfg.n_probe)
+    if prev is not None:
+        in_prev = ops.esel == 1
+        dest = torch.where(in_prev, _owner_epoch(prev, hashes[0])[0], dest)
+        base = torch.where(in_prev, base_bucket(
+            hashes[1], prev.cfg.buckets_per_shard, prev.cfg.n_probe), base)
     bin_valid = ops.valid if bin_valid is None else bin_valid
     cap = capacity or cfg.capacity
     used_prologue = not cap
@@ -416,13 +497,32 @@ def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
     return binned, base, used_prologue
 
 
-def _check_supported(state: DHTState, kinds, prev=None) -> None:
+def _check_supported(state: DHTState, kinds, ops: OpBatch, prev=None,
+                     placement=None, pending=None, axis_name=None) -> None:
     if state.cfg.n_replicas > 1:
         raise routing.not_ported("k-successor replication", "12")
-    if prev is not None:
-        raise routing.not_ported("dht_execute(prev=...)", "11")
     if not kinds or any(k not in KINDS for k in kinds):
         raise ValueError(f"kinds must be a non-empty subset of {KINDS}")
+    if prev is None:
+        return
+    if ops.esel is None:
+        raise ValueError("a dual-epoch round needs ops.esel")
+    if kinds != ("read",) or ops.op is not None:
+        # an esel == 1 write would be routed by the old placement but
+        # applied to the new slab, where nothing could find it
+        raise ValueError("a dual-epoch round is read-only; writes go "
+                         "through a single-epoch round of the new epoch")
+    if not dual_fusable(state.cfg, prev.cfg):
+        raise ValueError("the epochs' geometries cannot share one round: "
+                         "use the sequential dual read")
+    if placement is not None or pending is not None:
+        raise ValueError("a dual-epoch round takes no precomputed "
+                         "placement and no pending-write filter")
+    if axis_name is not None:
+        raise ValueError("dual-epoch rounds run on the single-device "
+                         "backend")
+    if prev.n_local != prev.cfg.n_shards:
+        raise ValueError("prev must hold its whole table")
 
 
 def _rank_group(state: DHTState, axis_name):
@@ -464,7 +564,8 @@ class InFlightRound:
     filled at commit: ``issue_us``, ``hidden_us`` (host time between
     issue returning and commit being called), ``commit_wait_us`` and
     ``overlap_frac`` (hidden over the round's whole duration).  ``meta``
-    is free-form wrapper state."""
+    is free-form wrapper state.  ``prev`` is a dual-epoch round's
+    previous-epoch table (None otherwise)."""
 
     state: DHTState
     vals: torch.Tensor
@@ -481,6 +582,7 @@ class InFlightRound:
     committed: bool = False
     telemetry: dict[str, float] = dataclasses.field(default_factory=dict)
     meta: dict = dataclasses.field(default_factory=dict)
+    prev: DHTState | None = None
 
 
 def dht_issue(state: DHTState, ops: OpBatch, *,
@@ -492,7 +594,9 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     without waiting for its results: the issue half of the engine.
 
     ``hashes`` / ``placement`` take a precomputed ``(hi, lo)`` hash pair
-    and ``(dest, epoch)``.  ``l1_meta=True`` piggybacks the locality
+    and ``(dest, epoch)``.  ``prev`` (the previous-epoch table of an
+    in-flight migration, single-device backend) makes a dual-epoch read
+    round: ``ops.esel`` says which epoch each row probes.  ``l1_meta=True`` piggybacks the locality
     tier's coherence metadata on the reply lanes: ``estats`` gains
     ``bucket_gen`` (per item, the round-start generation of its serving
     bucket) and ``wmark_pre``/``wmark_post`` ((S,) shard watermarks
@@ -534,7 +638,7 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     rounds in issue order when a ``pending`` filter is in play."""
     t_start = time.perf_counter()
     kinds = tuple(kinds)
-    _check_supported(state, kinds, prev=prev)
+    _check_supported(state, kinds, ops, prev, placement, pending, axis_name)
     group = _rank_group(state, axis_name)
     cfg = state.cfg
     do_write = ("write" in kinds) or ("migrate" in kinds)
@@ -569,12 +673,15 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         bin_valid = ops.valid & ~is_self
 
     binned, base, used_prologue = _route_ops(state, ops, capacity, hashes,
-                                             placement, bin_valid, group)
+                                             placement, bin_valid, group,
+                                             prev)
     payloads = [base, ops.keys]
     if do_write:
         payloads.append(ops.vals.to(torch.int32))
     if ops.op is not None:
         payloads.append(ops.op.to(torch.int32))
+    if prev is not None:
+        payloads.append(ops.esel.to(torch.int32))
     payloads.append((ops.valid & binned.kept).to(torch.int32))
     inc = routing.dispatch(binned, payloads, group)
 
@@ -582,6 +689,7 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     b_in, k_in = next(it), next(it)
     v_in = next(it) if do_write else None
     o_in = next(it) if ops.op is not None else None
+    e_in = next(it) if prev is not None else None
     m_in = next(it)
     if group is not None:
         if elide:
@@ -597,7 +705,7 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     (val, found, code, n_mm, rounds, tokens,
      gen, wpre, wpost) = _shard_apply(state, b_in, k_in, v_in, o_in,
                                       m_in.to(torch.bool), kinds, l1_meta,
-                                      group)
+                                      group, prev, e_in)
     local = None
     if group is not None:
         val, found, code = val[0], found[0], code[0]
@@ -685,7 +793,7 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         estats=estats, mix=mix, t_start=t_start,
         t_issued=time.perf_counter(), event=event,
         pending=pending if forwards else None, conflict=conflict,
-        keys=ops.keys if forwards else None)
+        keys=ops.keys if forwards else None, prev=prev)
 
 
 def dht_commit(rnd: InFlightRound):
@@ -700,7 +808,8 @@ def dht_commit(rnd: InFlightRound):
 
     Returns the reference's tuple ``(state', prev', vals, found, code,
     estats)``; ``state'`` is the input state updated in place, ``prev'``
-    None.  ``estats`` has the reference's keys; values derived from the
+    the dual-epoch round's previous-epoch table (None otherwise; only
+    INVALID flags ever change it).  ``estats`` has the reference's keys; values derived from the
     data are 0-d tensors on the state's device, static geometry and the
     host-side counts (``rounds``, ``lock_tokens``) are int."""
     if rnd.committed:
@@ -724,7 +833,7 @@ def dht_commit(rnd: InFlightRound):
         "overlap_frac": min(hidden / dur, 1.0) if dur > 0 else 0.0,
     }
     obs_metrics.inc("engine.rounds")
-    return rnd.state, None, vals, found, rnd.code, rnd.estats
+    return rnd.state, rnd.prev, vals, found, rnd.code, rnd.estats
 
 
 def dht_execute(state: DHTState, ops: OpBatch, *,
@@ -744,6 +853,6 @@ def dht_execute(state: DHTState, ops: OpBatch, *,
 __all__ = [
     "KINDS", "InFlightRound", "OP_MIGRATE", "OP_READ", "OP_WRITE",
     "OpBatch", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP", "W_UPDATE",
-    "dht_commit", "dht_execute", "dht_issue", "migrate_ops", "mixed_ops",
-    "read_ops", "write_ops",
+    "dht_commit", "dht_execute", "dht_issue", "dual_fusable", "migrate_ops",
+    "mixed_ops", "read_ops", "write_ops",
 ]

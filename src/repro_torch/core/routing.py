@@ -14,7 +14,9 @@ returns the replies the same way:
 - fused pack/unpack: ``dispatch``/``collect`` run the route kernels
   (``kernels/ops.route_pack``/``route_unpack``; plain torch on the CPU);
 - multi-key fan-out (:func:`flatten_fanout`): the m probes per query of
-  a neighbourhood read go out as one flat batch.
+  a neighbourhood read, or the two epochs of a dual-epoch read
+  (:func:`merge_dual_epoch` combines their replies), go out as one flat
+  batch.
 
 Two backends.  With ``axis_name=None`` the S shards are virtual and the
 exchange is a reshape.  With ``axis_name`` a ``torch.distributed``
@@ -363,6 +365,18 @@ def unflatten_fanout(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
     """Inverse of :func:`flatten_fanout` for replies: (n*m, ...) ->
     (n, m, ...)."""
     return x.reshape((n, m) + tuple(x.shape[1:]))
+
+
+def merge_dual_epoch(found_new: torch.Tensor, vals_new: torch.Tensor,
+                     found_old: torch.Tensor, vals_old: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Combine the replies of a dual-epoch read: the new epoch's owner is
+    authoritative (it sees writes made during the migration), the old
+    epoch's owner backfills entries still in flight.  Returns ``(vals,
+    found)``."""
+    found = found_new | found_old
+    vals = torch.where(found_new[:, None], vals_new, vals_old)
+    return torch.where(found[:, None], vals, 0), found
 
 
 def wire_stats(b: Binned, send_lanes: int, reply_lanes: int, *,

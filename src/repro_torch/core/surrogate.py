@@ -15,6 +15,12 @@ On the card the keys come from the ``round_sig`` kernel and the
 neighbourhood's keys from the ``stencil_keys`` kernel
 (``kernels/ops.py``); the stencil points are the keys' even words, so the
 plain ``stencil_points`` never runs there.
+
+An elastic cache (``surrogate_create(elastic=True)``) places entries on
+a consistent-hash ring, so :func:`resize` can grow or shrink it online;
+between the begin and the finish of a migration, :func:`lookup` and
+:func:`lookup_or_interpolate` take the previous epoch's table as
+``prev`` and read both epochs in one round.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
 from . import dht as dht_ops
 from . import interp as interp_ops
-from . import neighbors, routing
+from . import membership, migrate, neighbors, routing
 from .interp import PROV_MISS, InterpConfig
 from .layout import (
     DHTConfig,
@@ -61,11 +67,27 @@ class SurrogateConfig:
             raise ValueError("val_words too small for n_outputs")
 
 
-def surrogate_create(cfg: SurrogateConfig, *,
+def surrogate_create(cfg: SurrogateConfig, *, elastic: bool = False,
+                     n_virtual: int = 64,
                      device: str | torch.device | None = None) -> DHTState:
     """The empty cache on ``device`` (CUDA unless the caller asks for
-    another).  Elastic placement is a later slice."""
-    return dht_create(cfg.dht, device=device)
+    another).  ``elastic=True`` places entries on a consistent-hash ring
+    of ``n_virtual`` vnodes a shard, so the cache can be resized online
+    (:func:`resize`)."""
+    ring = (membership.ring_create(cfg.dht.n_shards, n_virtual)
+            if elastic else None)
+    return dht_create(cfg.dht, ring, device=device)
+
+
+def resize(cfg: SurrogateConfig, state: DHTState, new_n_shards: int, *,
+           batch: int = migrate.DEFAULT_BATCH
+           ) -> tuple[SurrogateConfig, DHTState, dict]:
+    """Grow or shrink the cache online; cached results survive the move.
+    POET's occupancy climbs over a run, so resizing before evictions
+    start destroying hits is the elastic workload.  Returns ``(cfg',
+    state', stats)``; ``state`` is freed (``migrate.migration_finish``)."""
+    state, stats = migrate.dht_resize(state, new_n_shards, batch=batch)
+    return dataclasses.replace(cfg, dht=state.cfg), state, stats
 
 
 def make_keys(cfg: SurrogateConfig, inputs: torch.Tensor) -> torch.Tensor:
@@ -75,10 +97,17 @@ def make_keys(cfg: SurrogateConfig, inputs: torch.Tensor) -> torch.Tensor:
 
 
 def lookup(cfg: SurrogateConfig, state: DHTState, inputs: torch.Tensor, *,
-           axis_name=None):
-    """Query the cache.  Returns ``(state', outputs, found, stats)``."""
-    state, val_words, found, stats = dht_ops.dht_read(
-        state, make_keys(cfg, inputs), axis_name=axis_name)
+           prev: DHTState | None = None, axis_name=None):
+    """Query the cache.  Returns ``(state', outputs, found, stats)``.
+    ``prev`` (the previous-epoch table of an in-flight migration) takes
+    the dual-epoch read, so entries still moving stay visible."""
+    keys = make_keys(cfg, inputs)
+    if prev is None:
+        state, val_words, found, stats = dht_ops.dht_read(
+            state, keys, axis_name=axis_name)
+    else:
+        state, _prev, val_words, found, stats = dht_ops.dht_read_dual(
+            state, prev, keys, axis_name=axis_name)
     return state, unpack_floats(val_words, cfg.n_outputs), found, stats
 
 
@@ -333,26 +362,33 @@ def lookup_or_interpolate(cfg: SurrogateConfig, state: DHTState,
 
     Enumerates the +-``icfg.radius`` stencil around each query's rounded
     key (plus the optional coarse tier), probes all stencil keys in ONE
-    routing round (:func:`dht_read_many`) and gates the blend on
+    routing round (:func:`dht_read_many`; both epochs in that one round
+    through :func:`dht_read_many_dual` when ``prev``, the previous-epoch
+    table of an in-flight migration, is given) and gates the blend on
     ``icfg.max_neighbor_dist``/``icfg.min_neighbors``.  ``valid`` masks
     whole rows: they probe nothing and report ``PROV_MISS``.
 
-    Returns ``(state', outputs (n, n_outputs), provenance (n,), stats)``."""
-    if prev is not None:
-        raise routing.not_ported("lookup_or_interpolate(prev=...)", "11")
+    Returns ``(state', outputs (n, n_outputs), provenance (n,), stats)``,
+    or with ``prev`` ``(state', prev', outputs, provenance, stats)``."""
     keys, points = _stencil(cfg, inputs, icfg)
     vmask = neighbors.dedup_mask(keys)
     if valid is None:
         valid = torch.ones(inputs.shape[0], dtype=torch.bool,
                            device=inputs.device)
     vmask = vmask & valid[:, None]
-    state, val_words, found, rstats = dht_ops.dht_read_many(
-        state, keys, vmask, axis_name=axis_name)
+    if prev is None:
+        state, val_words, found, rstats = dht_ops.dht_read_many(
+            state, keys, vmask, axis_name=axis_name)
+    else:
+        state, prev, val_words, found, rstats = dht_ops.dht_read_many_dual(
+            state, prev, keys, vmask, axis_name=axis_name)
     outputs, provenance, stats = _interp_tail(
         cfg, inputs, points, val_words, found, icfg, valid,
         probe_hits=rstats["hits"], transport_stats=rstats)
     _record_provenance(stats)
-    return state, outputs, provenance, stats
+    if prev is None:
+        return state, outputs, provenance, stats
+    return state, prev, outputs, provenance, stats
 
 
 def lookup_interpolate_or_compute(cfg: SurrogateConfig, state: DHTState,

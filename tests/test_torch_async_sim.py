@@ -3,7 +3,7 @@ against the JAX package's: the numpy murmur hashes against the
 reference's and against the port's plain ``hash64``/``checksum`` on seeded
 rows, the torn-read workload's stats in all three modes at the reference
 test's size, the issue/commit oracle's crash/recover/repair transitions,
-and the ring placement that waits for elastic membership."""
+and ring placement."""
 import dataclasses
 
 import numpy as np
@@ -125,5 +125,21 @@ def test_oracle_replica_transitions_match_reference():
 
 
 def test_async_dht_ring_waits_for_elastic_membership():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.AsyncDHT(DHTConfig(), ring=object())
+    """Ring placement (elastic membership, now ported): every key's
+    bucket lies on the shard ``ring_owner_np`` names, the port's ring
+    and the reference's place keys alike, and the simulator's bucket is
+    the reference simulator's under the same ring."""
+    from repro.core.membership import ring_create as j_ring_create
+    from repro_torch.core.membership import ring_create, ring_owner_np
+
+    cfg, jcfg = (DHTConfig(n_shards=4, buckets_per_shard=256),
+                 JConfig(n_shards=4, buckets_per_shard=256))
+    got = T.AsyncDHT(cfg, ring=ring_create(4, n_virtual=16))
+    want = J.AsyncDHT(jcfg, ring=j_ring_create(4, n_virtual=16))
+    keys = _rows(9, 300, cfg.key_words)
+    owner = ring_owner_np(got.ring, T.hash64_np(keys)[0])
+    buckets = [got._bucket_of(k) for k in keys]
+    assert buckets == [want._bucket_of(k) for k in keys]
+    np.testing.assert_array_equal(
+        np.array(buckets) // cfg.buckets_per_shard, owner)
+    assert len(set(owner.tolist())) == 4

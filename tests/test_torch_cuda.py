@@ -605,6 +605,51 @@ def test_engine_on_card_matches_cpu(gen):
         assert torch.equal(a, b)
 
 
+def test_migration_on_card_matches_cpu(gen):
+    """A ring table grows from 4 to 8 shards in steps of 64 rows, with a
+    dual read after each step (a few old-epoch checksums corrupted, so
+    the read flags them INVALID in the old slab): both epochs' words,
+    the reads and the stats equal the CPU's; a dual read launches the
+    probe kernel once over each epoch's slab."""
+    from repro_torch.core import (migration_begin, migration_finish,
+                                  migration_read, migration_step,
+                                  ring_create, ring_resize)
+
+    cfg = DHTConfig(n_shards=4, buckets_per_shard=256)
+    keys, vals = _words(gen, 300, 20, "cpu"), _words(gen, 300, 26, "cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = dht_create(cfg, ring_create(4), device=device)
+        k = keys.to(device)
+        dht_write(st, k, vals.to(device))
+        mig = migration_begin(st, ring_resize(st.ring, 8), batch=64)
+        mig.old.flat_csum[:64] ^= 1
+        rows = []
+        while not mig.done:
+            mig, step = migration_step(mig)
+            ops.reset_launches()
+            mig, v, f, ds = migration_read(mig, k)
+            if device == "cuda":
+                assert ops.launches()["probe"] == 2
+            rows.append((v.cpu(), f.cpu(), step,
+                         {n: int(ds[n]) for n in ("hits", "mismatches",
+                                                  "hits_old_epoch")},
+                         {n: a.copy() for n, a in
+                          state_to_numpy(mig.old).items()}))
+        st, stats = migration_finish(mig)
+        out[device] = (state_to_numpy(st), rows, stats)
+    card, cpu = out["cuda"], out["cpu"]
+    for name in cpu[0]:
+        np.testing.assert_array_equal(card[0][name], cpu[0][name], name)
+    assert card[2] == cpu[2]
+    for a, b in zip(card[1], cpu[1]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert a[2:4] == b[2:4]
+        for name in b[4]:
+            np.testing.assert_array_equal(a[4][name], b[4][name], name)
+    assert card[1][0][3]["hits_old_epoch"] > 0
+
+
 def test_commit_waits_on_its_round_not_the_device(gen):
     """A read round is issued, then ~50 ms of sleep is queued on the same
     stream: dht_read_commit returns while the sleep still runs (it waits

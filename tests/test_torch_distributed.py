@@ -1,10 +1,13 @@
 """The port's multi-rank backend (``repro_torch.core.distributed``,
-ROADMAP item 7) on 2 gloo ranks on the CPU, against the reference.
+ROADMAP item 7) on gloo ranks on the CPU, against the reference.
 
 Two spawned groups of 2 ranks (``tests/torch_dist_ranks.py``: ``modes``
-and ``tier``) run many checks each and return their rows; one subprocess
-runs the reference's own ``ShardedDHT`` on 2 forced host devices.  All
-three run at once, from one module fixture, each with a collective
+and ``tier``) run many checks each and return their rows, and a group of
+3 (``elastic``) runs a leave and a join through the lockstep
+``apply_ring``; one subprocess runs the reference's own ``ShardedDHT``
+on 2 forced host devices, another the reference's single-device
+``shard_leave``/``shard_join`` on the elastic group's batch.  All of
+them run at once, from one module fixture, each with a collective
 timeout in the ranks and a join timeout here, so a hang fails the tests
 instead of stalling the suite.  The group's batch is the ranks' batches
 in rank order.  The oracles:
@@ -102,6 +105,47 @@ slab("retry/slab", d.state)
 np.savez(sys.argv[1], **out)
 """
 
+# the elastic group's changes on the reference's single-device backend
+# (its sharded leave/join cannot run here: ROADMAP.md F3), in a process
+# of its own so that it runs beside the other reference
+REFERENCE_ELASTIC = """
+import sys
+import numpy as np
+import jax, jax.numpy as jnp
+sys.path.insert(0, {tests!r})
+import torch_dist_ranks as R
+from repro.core import DHTConfig, dht_create, dht_read, dht_write
+from repro.core import ring_create, shard_join, shard_leave
+
+out = {{}}
+
+def put(prefix, v):
+    if isinstance(v, dict):
+        for k, x in v.items():
+            put(prefix + "/" + k, x)
+    else:
+        out[prefix] = np.asarray(v)
+
+def slab(prefix, st):
+    for k in ("keys", "vals", "meta", "csum"):
+        out[prefix + "/" + k] = np.asarray(getattr(st, k))
+
+e = {{k: jnp.asarray(v) for k, v in R.elastic_inputs().items()}}
+st = dht_create(DHTConfig(n_shards=R.ELASTIC_WORLD,
+                          buckets_per_shard=R.ELASTIC_BUCKETS),
+                ring_create(R.ELASTIC_WORLD))
+st, _ = dht_write(st, e["keys"], e["vals"])
+slab("elastic/init", st)
+for step, change in (("leave", shard_leave), ("join", shard_join)):
+    st, stats = change(st, 1, batch=R.ELASTIC_BATCH)
+    put("elastic/" + step + "/stats", stats)
+    st, o, f, s = dht_read(st, e["keys"])
+    put("elastic/" + step + "/read", {{"out": o, "found": f,
+                                      "epoch": s["epoch"]}})
+    slab("elastic/" + step + "/slab", st)
+np.savez(sys.argv[1], **out)
+"""
+
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -143,12 +187,19 @@ def runs(tmp_path_factory):
         env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=2",
                  JAX_PLATFORMS="cpu"),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)}
+    procs["reference elastic"] = subprocess.Popen(
+        [sys.executable, "-c",
+         textwrap.dedent(REFERENCE_ELASTIC.format(tests=TESTS)),
+         str(out / "reference_elastic.npz")],
+        env=_env(JAX_PLATFORMS="cpu"), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
     for group in R.GROUPS:
         port = _free_port()
-        for rank in range(R.WORLD):
+        world = R.GROUP_WORLD.get(group, R.WORLD)
+        for rank in range(world):
             procs[f"{group} rank {rank}"] = subprocess.Popen(
                 [sys.executable, os.path.join(TESTS, "torch_dist_ranks.py"),
-                 group, str(rank), str(R.WORLD), str(port), str(out)],
+                 group, str(rank), str(world), str(port), str(out)],
                 env=_env(), stdout=subprocess.DEVNULL,
                 stderr=subprocess.PIPE, text=True)
     try:
@@ -157,9 +208,10 @@ def runs(tmp_path_factory):
     finally:
         _finish(procs)
     res["reference"] = dict(np.load(out / "reference.npz"))
+    res["reference"].update(np.load(out / "reference_elastic.npz"))
     for group in R.GROUPS:
         res[group] = [dict(np.load(out / f"{group}_rank{r}.npz"))
-                      for r in range(R.WORLD)]
+                      for r in range(R.GROUP_WORLD.get(group, R.WORLD))]
     return res
 
 
@@ -532,6 +584,95 @@ def test_lookup_interpolate_one_round_through_group_matches_traced(runs):
 
 
 # ---------------------------------------------------------------------------
+# elastic membership on 3 ranks: the lockstep apply_ring
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS = ("leave", "join")
+
+
+def _live_pairs(slab: dict, shard: int) -> set:
+    """The (key, value) words of shard ``shard``'s live buckets."""
+    meta = slab["meta"][shard]
+    live = ((meta & 1) != 0) & ((meta & 2) == 0)
+    return {(k.tobytes(), v.tobytes()) for k, v in
+            zip(slab["keys"][shard][live], slab["vals"][shard][live])}
+
+
+def _assert_same_entries(got: dict, want: dict, what: str):
+    """Per shard, the same live (key, value) pairs.  Slot positions may
+    differ: the lockstep rounds take each rank's sources 32 at a time,
+    the single-device migration the global source list 96 at a time, so
+    the inserts land in another order."""
+    for s in range(R.ELASTIC_WORLD):
+        assert _live_pairs(got, s) == _live_pairs(want, s), f"{what} {s}"
+
+
+def test_elastic_leave_join_matches_single_device_reference(runs):
+    """3 gloo ranks, ``ShardedDHT.create(ring=)``: after the write, the
+    leave of shard 1 and its join, every shard holds the live entries
+    the reference's single-device ``shard_leave``/``shard_join`` leave
+    there; the reads, ``n_live``, ``n_planned``, ``moved``, the evictions
+    and the epoch are the reference's."""
+    ranks, ref = runs["elastic"], runs["reference"]
+    _assert_same_entries(_slab(ranks, "init"),
+                         _lanes(ref, "elastic/init"), "init")
+    for step in ELASTIC_STEPS:
+        _assert_same_entries(_slab(ranks, f"{step}/slab"),
+                             _lanes(ref, f"elastic/{step}/slab"), step)
+        for row in ("out", "found", "epoch"):
+            got = (_cat(ranks, f"{step}/read/{row}") if row != "epoch"
+                   else ranks[0][f"{step}/read/epoch"])
+            np.testing.assert_array_equal(
+                got, ref[f"elastic/{step}/read/{row}"], f"{step} {row}")
+        want = _lanes(ref, f"elastic/{step}/stats")
+        for r in ranks:
+            got = _lanes(r, f"{step}/stats")
+            for k in ("n_live", "n_planned", "moved", "evicted_at_dest",
+                      "epoch"):
+                assert int(got[k]) == int(want[k]), (step, k)
+    leave = _lanes(ranks[0], "leave/stats")
+    assert 0 < int(leave["moved"]) == int(leave["n_planned"])
+    assert int(leave["evicted_at_dest"]) == 0
+
+
+def test_elastic_leave_join_matches_virtual_backend(runs):
+    """The same changes on the port's virtual-shard backend (rank 0):
+    the same live entries per shard, reads and stats."""
+    ranks = runs["elastic"]
+    virt = ranks[0]
+    _assert_same_entries(_slab(ranks, "init"),
+                         _lanes(virt, "virtual/init"), "init")
+    for step in ELASTIC_STEPS:
+        _assert_same_entries(_slab(ranks, f"{step}/slab"),
+                             _lanes(virt, f"virtual/{step}/slab"), step)
+        for row in ("out", "found"):
+            np.testing.assert_array_equal(
+                _cat(ranks, f"{step}/read/{row}"),
+                virt[f"virtual/{step}/read/{row}"], f"{step} {row}")
+        want = _lanes(virt, f"virtual/{step}/stats")
+        got = _lanes(ranks[1], f"{step}/stats")
+        assert set(got) <= set(want)
+        for k in got:
+            assert int(got[k]) == int(want[k]), (step, k)
+
+
+def test_elastic_leaver_drains_and_rejoins(runs):
+    """The leaver's rows hold no live entry after the leave, its entries
+    went to both other ranks, and the join brings entries back; every
+    row reads back found in the new epoch."""
+    ranks = runs["elastic"]
+    init, left, back = (_slab(ranks, p) for p in ("init", "leave/slab",
+                                                  "join/slab"))
+    moved = _live_pairs(init, 1)
+    assert moved and not _live_pairs(left, 1)
+    assert all(moved & _live_pairs(left, s) for s in (0, 2))
+    assert _live_pairs(back, 1)
+    for step, epoch in (("leave", 1), ("join", 2)):
+        assert _cat(ranks, f"{step}/read/found").all()
+        assert int(ranks[2][f"{step}/read/epoch"]) == epoch
+
+
+# ---------------------------------------------------------------------------
 # errors, without a group
 # ---------------------------------------------------------------------------
 
@@ -547,24 +688,37 @@ def test_sharded_create_needs_a_group():
 
 
 @pytest.mark.parametrize("method,item", [
-    ("apply_ring", "11"), ("leave", "11"), ("join", "11"),
     ("crash", "12"), ("recover", "12"), ("repair", "12"),
     ("write_replicated_fn", "12"), ("write_replicated_refresh_fn", "12"),
     ("repair_fn", "12"), ("telemetry_snapshot", "14")])
 def test_later_items_raise(method, item):
-    """What the slice hands on raises, naming its ROADMAP item: the ring
-    and resharding (11), replication and repair (12), the telemetry
-    registry (14)."""
+    """What the slice hands on raises, naming its ROADMAP item:
+    replication and repair (12), the telemetry registry (14)."""
     from repro_torch.core import DHTConfig, dht_create
     from repro_torch.core.distributed import ShardedDHT
 
     cfg = DHTConfig(n_shards=2, buckets_per_shard=64)
     d = ShardedDHT(cfg=cfg, state=dht_create(cfg, device="cpu", shards=1),
                    group=None)
-    args = {"apply_ring": (None,), "leave": (0,), "join": (0,),
-            "crash": (0,), "recover": (0,), "repair": (0,)}.get(method, ())
+    args = {"crash": (0,), "recover": (0,), "repair": (0,)}.get(method, ())
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         getattr(d, method)(*args)
+
+
+def test_elastic_changes_need_a_ring_of_the_group():
+    """``join`` needs a ring, ``apply_ring`` one of the table's shard
+    count, and ``create`` a ring as wide as the group."""
+    from repro_torch.core import DHTConfig, dht_create, ring_create
+    from repro_torch.core.distributed import ShardedDHT
+
+    cfg = DHTConfig(n_shards=2, buckets_per_shard=64)
+    d = ShardedDHT(cfg=cfg, state=dht_create(cfg, device="cpu", shards=1),
+                   group=None)
+    assert d.ring is None
+    with pytest.raises(ValueError, match="needs a ring"):
+        d.join(0)
+    with pytest.raises(ValueError, match="ring of 3 shards"):
+        ShardedDHT.create(cfg, device="cpu", ring=ring_create(3))
 
 
 def test_rank_state_holds_one_shard():

@@ -255,12 +255,13 @@ def test_l1_meta_round_matches_reference(mode):
 @pytest.mark.parametrize("what,exc,match", [
     pytest.param("elide_self", ValueError, "elision needs",
                  id="elide_self"),
-    pytest.param("prev", NotImplementedError, "ROADMAP", id="prev"),
+    pytest.param("prev", ValueError, "esel", id="prev"),
     pytest.param("axis_name", TypeError, "ProcessGroup", id="axis_name")])
 def test_later_slices_raise(what, exc, match):
-    """``prev`` belongs to a later slice (item 11).  ``axis_name`` must be
-    a process group (a mesh axis name is not), and ``elide_self`` needs
-    one, as the reference asserts (``op_engine.py:760-761``)."""
+    """``prev`` makes a dual-epoch round, which needs the ``esel`` lane
+    (as the reference asserts).  ``axis_name`` must be a process group
+    (a mesh axis name is not), and ``elide_self`` needs one, as the
+    reference asserts (``op_engine.py:760-761``)."""
     cfg = T.DHTConfig(n_shards=2, buckets_per_shard=64)
     st = T.dht_create(cfg, device="cpu")
     ops = T.read_ops(torch.zeros((4, KW), dtype=torch.int32))

@@ -9,15 +9,14 @@ import repro_torch.core as tcore
 
 # modules of repro.core with a port file under repro_torch/core/
 PORTED = ("neighbors", "hashing", "layout", "dht", "surrogate", "interp",
-          "l1cache", "op_engine", "pipeline")
+          "l1cache", "op_engine", "pipeline", "membership", "migrate")
 
 # public names of ported modules whose port is still to come: ROADMAP item
 WAITING = {
-    # item 11: elastic membership and the dual-epoch reads
-    "dht_free": 11, "with_ring": 11, "dht_read_dual": 11,
-    "dht_read_many_dual": 11, "dual_fusable": 11,
-    # item 12: replication
+    # item 12: replication, and the anti-entropy repair half of migrate
     "dht_write_replicated": 12, "replica_placement": 12,
+    "Repair": 12, "RepairPlan": 12, "plan_repair": 12, "repair_begin": 12,
+    "repair_diff": 12, "repair_run": 12, "repair_step": 12,
 }
 
 
@@ -58,4 +57,4 @@ def test_waiting_list_names_only_missing_reference_names():
     names = set(_ported_names())
     assert set(WAITING) <= names
     assert not [n for n in WAITING if hasattr(tcore, n)]
-    assert set(WAITING.values()) <= {11, 12}
+    assert set(WAITING.values()) <= {12}

@@ -226,13 +226,18 @@ def test_flatten_fanout_and_merge_wire_stats_match_reference():
 
 
 def test_later_slices_raise_not_ported():
+    """Replication is ROADMAP item 12: a replicated table's neighbourhood
+    query raises naming it, with and without the previous epoch (the
+    dual-epoch form itself is held in tests/test_torch_migrate.py)."""
     _, tcfg = _cfgs()
-    st = T.surrogate_create(tcfg, device="cpu")
+    rcfg = dataclasses.replace(tcfg, dht=dataclasses.replace(
+        tcfg.dht, n_shards=2, n_replicas=2))
+    st = T.surrogate_create(rcfg, device="cpu")
     keys = torch.zeros((2, 3, 20), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         T.dht.dht_read_many_dual(st, st, keys)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.lookup_or_interpolate(tcfg, st, torch.zeros(2, 10), prev=st)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        T.lookup_or_interpolate(rcfg, st, torch.zeros(2, 10), prev=st)
 
 
 # ---------------------------------------------------------------------------

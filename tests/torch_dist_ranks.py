@@ -27,6 +27,11 @@ SURR_N = 96
 # bucket counts: the modes streams, the L1/pipeline streams, the surrogate
 BUCKETS = 512
 TIER_BUCKETS = 1024
+# the elastic group: 3 ranks, so a leaver's entries fan out to two
+ELASTIC_WORLD = 3
+ELASTIC_N = 192         # the group's keys, 64 a rank
+ELASTIC_BUCKETS = 512
+ELASTIC_BATCH = 96      # the group's rows a migrate round, 32 a rank
 
 
 def words(rng, n: int, w: int) -> np.ndarray:
@@ -89,6 +94,12 @@ def surrogate_inputs(seed: int = 11) -> list:
                          (x1[::2] * np.float32(1 + 1e-6))]).astype(
         np.float32)
     return [x1, x2]
+
+
+def elastic_inputs(seed: int = 7) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"keys": words(rng, ELASTIC_N, KW),
+            "vals": words(rng, ELASTIC_N, VW)}
 
 
 def block(a: np.ndarray, rank: int, world: int = WORLD) -> np.ndarray:
@@ -345,7 +356,48 @@ def group_tier(rank: int, out: _Out) -> None:
     out.slab("surr/lic_slab", d.state)
 
 
-GROUPS = {"modes": group_modes, "tier": group_tier}
+def group_elastic(rank: int, out: _Out) -> None:
+    """Elastic membership on 3 ranks: a table on a ring takes the group's
+    batch, shard 1 leaves (its entries fan out to ranks 0 and 2) and joins
+    again through the lockstep ``apply_ring``; each rank reads its rows
+    after each change.  Rank 0 also runs the virtual-shard backend's
+    ``shard_leave``/``shard_join`` on the same batch."""
+    from repro_torch.core import (DHTConfig, dht_create, dht_read,
+                                  dht_write, ring_create, shard_join,
+                                  shard_leave)
+    from repro_torch.core.distributed import ShardedDHT
+
+    world = ELASTIC_WORLD
+    inp = elastic_inputs()
+    keys, vals = (_t(block(inp[k], rank, world)) for k in ("keys", "vals"))
+    cfg = DHTConfig(n_shards=world, buckets_per_shard=ELASTIC_BUCKETS)
+    d = ShardedDHT.create(cfg, device="cpu", ring=ring_create(world))
+    out.put("write", d.write(keys, vals))
+    out.slab("init", d.state)
+    for step, change in (("leave", d.leave), ("join", d.join)):
+        out.put(f"{step}/stats", change(1, batch=ELASTIC_BATCH))
+        o, f, s = d.read(keys)
+        out.put(f"{step}/read", {"out": o, "found": f,
+                                 "epoch": s["epoch"]})
+        out.slab(f"{step}/slab", d.state)
+    if rank:
+        return
+    st = dht_create(cfg, ring_create(world), device="cpu")
+    dht_write(st, _t(inp["keys"]), _t(inp["vals"]))
+    out.slab("virtual/init", st)
+    for step, change in (("leave", shard_leave), ("join", shard_join)):
+        st, stats = change(st, 1, batch=ELASTIC_BATCH)
+        out.put(f"virtual/{step}/stats", stats)
+        _, o, f, s = dht_read(st, _t(inp["keys"]))
+        out.put(f"virtual/{step}/read", {"out": o, "found": f,
+                                         "epoch": s["epoch"]})
+        out.slab(f"virtual/{step}/slab", st)
+
+
+GROUPS = {"modes": group_modes, "tier": group_tier,
+          "elastic": group_elastic}
+# ranks a group runs on (WORLD unless named)
+GROUP_WORLD = {"elastic": ELASTIC_WORLD}
 
 
 def main(argv) -> int:
