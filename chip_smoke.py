@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --faults-uniform-ids N   # phase 11 (a) alone
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each kernel against its
 plain PyTorch version on the card, drives the main paths (the lock-free
 DHT at full size, key rounding, the POET surrogate twin, the
 neighbourhood-interpolation query, the L1 tier, the pipeline, elastic
-membership and online resharding, the multi-rank backend, and gemma3-12b
-prefill and decode), checks the results, and times every kernel.  One
+membership and online resharding, replication with crash failover and
+repair, the multi-rank backend, and gemma3-12b prefill and decode),
+checks the results, and times every kernel.  One
 JSON line per phase:
 
 1. env     - card name and power limit (nvidia-smi), CUDA, device count;
@@ -92,7 +94,29 @@ JSON line per phase:
              256, with cached reads around the leave (the epoch flush)
              and lookup/lookup_or_interpolate(prev=) mid-grow, on the
              card and on the CPU: slab words, reads and stats equal;
-11. sharded - the multi-rank backend on NCCL at world size 1 (one rank,
+11. faults - crash tolerance: (a) faults-full: phase 4's table with
+             n_replicas=2 on a ring of 8 beside the same table at k=1;
+             bench_crash.py's mix over the paper's 712,500 ids: 2^20
+             Zipf(0.99) rows written in rounds of 2^16 (capacity 2^16)
+             at k=1 and k=2 in turns, the crash of shard 2 (wiped),
+             reads of every pre-crash row, 2^20 uniform rows written
+             during the outage, the recovery, the availability gap, the
+             repair plan and repair_run; gates: 0 extra dispatch rounds
+             and wire_amp 2.0 against k=1, a healthy k=2 read moves k=1's
+             wire words and makes no more host syncs in its issue half,
+             no read fails over while the ring is healthy, every row
+             readable before the crash is found during the outage with
+             its value but those whose surviving copy was evicted before
+             the crash, reads fail over, diff_after 0, no read fails over
+             after the repair, and the acked keys lost no more than the
+             copies evicted; one replicated write, outage read, plan and
+             repair round held against the plain versions; (b)
+             faults-parity: the same sequence at B=2^16 with 2^14 keys
+             and an L1 read before and after the crash (its epoch
+             fence), card against CPU: slab words, rows and counts equal.
+             Sharded replication needs k <= S ranks, so at NCCL world
+             size 1 it cannot run here;
+12. sharded - the multi-rank backend on NCCL at world size 1 (one rank,
              one shard): (a) sharded-full: ShardedDHT with S=1 x
              B=2^24 (3.2 GB), rounds of 2^16 keys (write, read, 95/5
              mixed, migrate), a cached read (L1 1024 x 4) twice, a
@@ -113,7 +137,7 @@ JSON line per phase:
              equal to the virtual backend with the same ring, and
              apply_ring to the next epoch moves nothing and bumps the
              epoch;
-12. lm     - gemma3-12b: (a) the local-attention kernel against its
+13. lm     - gemma3-12b: (a) the local-attention kernel against its
              plain version at the prefill shape (B=2, S=4096, H=16, Hk=8,
              D=256, window 1024) in bf16 and float32 and at edge shapes,
              within local_attn_kernel.tolerance (f32 1e-5; bf16 one ulp
@@ -128,21 +152,27 @@ JSON line per phase:
              steps (the ring buffer wraps) within 2e-2; (d) lm-parity:
              the reduced model on the card against the CPU, forward and
              40 decode steps at rtol/atol 1e-4;
-13. timing - each kernel, its plain version and the nearest single
+14. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
              local-attention kernel beside its operation bound); hash64
              and stencil_keys also traced (trace_cold): their own device
              time beside the event interval.
 
-Then the ``kernels`` line (launch counts per phase; every kernel must
+Then the ``kernels`` line (launch counts per phase, the launches made to
+hold a kernel against its plain version left out; every kernel must
 launch in every phase whose path calls it), the card's name and power
-limit, and the result line.  Any failure raises and exits non-zero
+limit, and the result line.  With ``--faults-uniform-ids N`` only the
+build and faults-full run, with the uniform half's ids below N; where
+repair leaves copies missing, a ``faults_diff`` line gives, for that
+pass and two more, the missing copies and those whose probe window on
+the recovered shard is full of other keys.  Any failure raises and exits non-zero
 before the result line; without a CUDA device, or without the
 repository around this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -186,6 +216,13 @@ ELASTIC_TIMING_REPS = 5        # dual and plain reads timed in turns
 ELASTIC_PARITY_BUCKETS = 1 << 12
 ELASTIC_PARITY_KEYS = 3000
 ELASTIC_PARITY_BATCH = 256
+FAULT_KEYS = 1 << 20           # faults-full: keys before the crash, and during
+FAULT_BATCH = 1 << 16          # rows a write or repair round; the capacity
+FAULT_ID_RANGE = 712_500       # bench_crash's ids (the paper's key range)
+FAULT_VICTIM = 2
+FAULT_PARITY_BUCKETS = 1 << 16
+FAULT_PARITY_KEYS = 1 << 13    # keys a half of the card/CPU stream
+FAULT_PARITY_BATCH = 1 << 11
 SHARD_BUCKETS = 1 << 24        # sharded-full: one rank, one shard, 3.2 GB
 SHARD_MODE_WRITES = 1 << 10    # fine/coarse (coarse: an exchange a write)
 SHARD_REPS = 5                 # timed repeats, sharded and virtual in turns
@@ -229,7 +266,7 @@ KERNEL_SOURCES = {
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
 ENGINE_PHASES = ("dht", "poet", "interp", "l1", "pipeline", "elastic",
-                 "sharded")
+                 "faults", "sharded")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
@@ -237,7 +274,7 @@ KERNEL_PHASES = {
     "round_sig": ("keys", "poet", "interp", "l1", "pipeline", "elastic",
                   "sharded"),
     "stencil_keys": ("interp", "elastic", "sharded"),
-    "l1_probe": ("l1", "elastic", "sharded"),
+    "l1_probe": ("l1", "elastic", "faults", "sharded"),
     "local_attention": ("lm",),
 }
 
@@ -1018,7 +1055,11 @@ def kernel_pairs():
 
 def compare_calls(calls: dict, errs: dict, where: str) -> dict:
     """Hold every captured kernel call against the plain version; fold
-    the largest error per kernel into ``errs``."""
+    the largest error per kernel into ``errs``.  The kernel launches made
+    here count in no phase: the launch counts are restored after."""
+    from repro_torch.kernels import build
+
+    counted = dict(build.LAUNCHES)
     pairs = kernel_pairs()
     out = {}
     for name, arg_list in calls.items():
@@ -1029,6 +1070,7 @@ def compare_calls(calls: dict, errs: dict, where: str) -> dict:
                   for args in arg_list)
         errs[name] = max(errs.get(name, 0.0), err)
         out[name] = {"calls": len(arg_list), "max_abs_err": err}
+    build.LAUNCHES.update(counted)
     emit("kernel_parity", where=where, result=out,
          tolerance="bit for bit (max_abs_err 0)")
     return out
@@ -2365,6 +2407,419 @@ def phase_elastic(cfg_big, errs):
 
 
 # ---------------------------------------------------------------------------
+# faults: k-successor replication, crash failover, anti-entropy repair
+# ---------------------------------------------------------------------------
+
+def fault_workload(gen, n: int, device, uniform_ids: int = FAULT_ID_RANGE):
+    """bench_crash.py's mix over the paper's 712,500-id range: the first
+    half Zipf(0.99) ids (``zipf_ids``, F7), the second half uniform ids
+    (below ``uniform_ids``);
+    key words from the id as ``benchmarks/common.make_keys_vals``
+    makes them, values a pure function of the key (a duplicate write is
+    idempotent, a read is checkable).  Returns ``(ids, keys, vals)``."""
+    import torch
+
+    from repro_torch.core.layout import MASK32, to_i32
+
+    z = zipf_ids(gen, n // 2, FAULT_ID_RANGE, s=0.99)
+    u = torch.randint(0, uniform_ids, (n - n // 2,), generator=gen)
+    ids = torch.cat([z, u])
+    w = torch.arange(20, dtype=torch.int64)
+    keys = (ids[:, None] * (w * 2654435761 + 1)) & MASK32
+    keys[:, 0] = ids & MASK32
+    keys[:, 1] = ids >> 32
+    v = torch.arange(26, dtype=torch.int64)
+    vals = (keys[:, :1] * (2 * v + 1) * 2654435761 + v) & MASK32
+    return ids, to_i32(keys).to(device), to_i32(vals).to(device)
+
+
+def _read_ok(st, keys, vals, rows: int = FAULT_BATCH):
+    """Per row: found, and the value equal; the rounds' fallback_reads
+    summed; each round's ms."""
+    import torch
+
+    from repro_torch.core import dht_read
+
+    found = torch.empty(keys.shape[0], dtype=torch.bool, device=keys.device)
+    equal = torch.empty_like(found)
+    fallback, ms = 0, []
+    for lo in range(0, keys.shape[0], rows):
+        (_, out, f, rs), secs = _timed(lambda: dht_read(st, keys[lo:lo + rows]))
+        found[lo:lo + rows] = f
+        equal[lo:lo + rows] = (out == vals[lo:lo + rows]).all(dim=-1)
+        fallback += int(rs["fallback_reads"])
+        ms.append(secs * 1e3)
+    return found, found & equal, fallback, ms
+
+
+def _overflowing(st, shard: int) -> int:
+    """How many of the copies ``shard`` still lacks find their probe
+    window there full of live entries of other keys (no repair pass can
+    place them; the others were displaced by a later insert)."""
+    import torch
+
+    from repro_torch.core import plan_repair
+    from repro_torch.core.hashing import base_bucket
+    from repro_torch.core.layout import live_mask
+    from repro_torch.kernels import ops
+
+    src = plan_repair(st, shard).src
+    if not src.numel():
+        return 0
+    cfg = st.cfg
+    base = base_bucket(ops.hash64(st.flat_keys[src].contiguous())[:, 1],
+                       cfg.buckets_per_shard, cfg.n_probe)
+    win = (shard * cfg.buckets_per_shard + base.long()[:, None]
+           + torch.arange(cfg.n_probe, device=base.device))
+    return int(live_mask(st.flat_meta[win]).all(dim=-1).sum())
+
+
+def _distinct(ids, mask) -> int:
+    return int(ids[mask.cpu()].unique().numel())
+
+
+def _faults_full(cfg_big, errs, uniform_ids: int):
+    """(a) faults-full: dht-full's table with n_replicas=2 on a ring of 8
+    beside the same table at k=1; FAULT_KEYS Zipf keys written before the
+    crash of shard FAULT_VICTIM (wiped) and FAULT_KEYS uniform keys
+    during the outage, in FAULT_BATCH-row rounds at capacity FAULT_BATCH;
+    reads through the failover, the availability gap after the recovery,
+    and repair_run.  The kernel calls of one
+    replicated write, one outage read, the plan and the first repair
+    round are held against their plain versions."""
+    import torch
+
+    from repro_torch.core import (W_DROPPED, crash_shard, dht_create,
+                                  dht_read_async, dht_read_commit,
+                                  dht_write, dht_write_replicated,
+                                  plan_repair, recover_shard, repair_begin,
+                                  repair_diff, repair_run, repair_step,
+                                  ring_create)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+
+    cfg1 = dataclasses.replace(cfg_big, capacity=FAULT_BATCH)
+    cfg2 = dataclasses.replace(cfg1, n_replicas=2)
+    ring = ring_create(cfg_big.n_shards)
+    st1 = dht_create(cfg1, ring, device=DEVICE)
+    st2 = dht_create(cfg2, ring, device=DEVICE)
+    gen = torch.Generator().manual_seed(90)
+    ids, keys, vals = fault_workload(gen, 2 * FAULT_KEYS, DEVICE,
+                                     uniform_ids)
+    pre, post = slice(0, FAULT_KEYS), slice(FAULT_KEYS, 2 * FAULT_KEYS)
+    res = {}
+
+    # healthy writes: the same batches at k=1 and k=2, in turns
+    w = {"k1_ms": [], "k2_ms": [], "k1_wire": 0, "k2_wire": 0,
+         "k1_dispatches": 0, "k2_dispatches": 0, "k1_passes": [],
+         "k2_passes": [], "acked": 0, "replica_writes": 0,
+         "evicted_copies": 0, "dropped": 0}
+    acked_pre = torch.empty(FAULT_KEYS, dtype=torch.bool, device=DEVICE)
+    cap = Capture(ops)
+    for lo in range(0, FAULT_KEYS, FAULT_BATCH):
+        k, v = keys[lo:lo + FAULT_BATCH], vals[lo:lo + FAULT_BATCH]
+        with metrics.counting() as d1:
+            (_, ws1), s1 = _timed(lambda: dht_write(st1, k, v))
+        with (metrics.counting() as d2,
+              cap if lo == 0 else contextlib.nullcontext()):
+            (_, ws2), s2 = _timed(lambda: dht_write_replicated(st2, k, v))
+        w["k1_ms"].append(s1 * 1e3)
+        w["k2_ms"].append(s2 * 1e3)
+        w["k1_wire"] += int(ws1["wire_words"])
+        w["k2_wire"] += int(ws2["wire_words"])
+        w["k1_dispatches"] += d1.delta
+        w["k2_dispatches"] += d2.delta
+        w["k1_passes"].append(int(ws1["rounds"]))
+        w["k2_passes"].append(int(ws2["rounds"]))
+        for lane in ("acked", "replica_writes", "evicted_copies", "dropped"):
+            w[lane] += int(ws2[lane])
+        acked_pre[lo:lo + FAULT_BATCH] = ws2["code"] != W_DROPPED
+    compare_calls(cap.calls, errs, "faults: a replicated write round")
+    del cap
+    extra_rounds = w["k2_dispatches"] - w["k1_dispatches"]
+    wire_amp = w["k2_wire"] / w["k1_wire"]
+    check(extra_rounds == 0, f"faults: {extra_rounds} extra write rounds")
+    check(wire_amp == 2.0, f"faults: write wire amplification {wire_amp}")
+    check(bool(acked_pre.all()) and w["dropped"] == 0,
+          f"faults: healthy writes unacked or dropped ({w['dropped']})")
+    res["writes"] = {
+        "batches": FAULT_KEYS // FAULT_BATCH,
+        "write_round_ms_k1_median": statistics.median(w["k1_ms"]),
+        "write_round_ms_k2_median": statistics.median(w["k2_ms"]),
+        "write_round_ms_k1_all": w["k1_ms"],
+        "write_round_ms_k2_all": w["k2_ms"],
+        "dispatch_rounds_k1": w["k1_dispatches"],
+        "dispatch_rounds_k2": w["k2_dispatches"],
+        "extra_write_rounds": extra_rounds, "wire_amp": wire_amp,
+        "write_passes_k1": w["k1_passes"], "write_passes_k2": w["k2_passes"],
+        "acked": w["acked"], "replica_writes": w["replica_writes"],
+        "evicted_copies": w["evicted_copies"]}
+
+    # healthy reads: k=2 moves what k=1 moves; nothing fails over
+    _, ok1, _, r1_ms = _read_ok(st1, keys[pre], vals[pre])
+    f2, ok_pre, fb2, r2_ms = _read_ok(st2, keys[pre], vals[pre])
+    _, _, _, rs1 = dht_read_commit(dht_read_async(st1, keys[:FAULT_BATCH]))
+    _, _, _, rs2 = dht_read_commit(dht_read_async(st2, keys[:FAULT_BATCH]))
+    read_wire_ratio = int(rs2["wire_words"]) / int(rs1["wire_words"])
+    check(read_wire_ratio == 1.0 and fb2 == 0,
+          f"faults: healthy k=2 read wire ratio {read_wire_ratio}, "
+          f"fallback {fb2}")
+    # host syncs of an issue half: the replica select adds none (after
+    # one call of each, which sets up torch's state)
+    for st in (st1, st2):
+        dht_read_commit(dht_read_async(st, keys[:FAULT_BATCH]))
+    sy1, sites1, rnd = issue_syncs(
+        lambda: dht_read_async(st1, keys[:FAULT_BATCH]))
+    dht_read_commit(rnd)
+    sy2, sites2, rnd = issue_syncs(
+        lambda: dht_read_async(st2, keys[:FAULT_BATCH]))
+    dht_read_commit(rnd)
+    check(sy2 <= sy1, f"faults: a replicated read issue half syncs {sy2} "
+                      f"times ({sites2}), a plain one {sy1} ({sites1})")
+    wsy1, _, _ = issue_syncs(lambda: dht_write(st1, keys[:FAULT_BATCH],
+                                               vals[:FAULT_BATCH]))
+    wsy2, wsites2, _ = issue_syncs(lambda: dht_write_replicated(
+        st2, keys[:FAULT_BATCH], vals[:FAULT_BATCH]))
+    res["healthy_read"] = {
+        "read_round_ms_k1_median": statistics.median(r1_ms),
+        "read_round_ms_k2_median": statistics.median(r2_ms),
+        "read_wire_ratio": read_wire_ratio, "fallback_reads": fb2,
+        "readable_rows_k1": int(ok1.sum()),
+        "readable_rows": int(ok_pre.sum()),
+        "readable_keys": _distinct(ids[pre], ok_pre),
+        "read_issue_syncs_k1": sy1, "read_issue_syncs_k2": sy2,
+        "read_issue_sync_sites_k1": sites1,
+        "read_issue_sync_sites_k2": sites2,
+        "write_call_syncs_k1": wsy1, "write_call_syncs_k2": wsy2,
+        "write_call_sync_sites_k2": wsites2}
+    del st1
+
+    # the crash, and reads through the failover
+    st2, crash_s = _timed(lambda: crash_shard(st2, FAULT_VICTIM))
+    with Capture(ops) as cap:
+        _, _, fb, _ = _read_ok(st2, keys[:FAULT_BATCH], vals[:FAULT_BATCH])
+    compare_calls(cap.calls, errs, "faults: an outage read round")
+    del cap
+    f_out, ok_out, fb_out, out_ms = _read_ok(st2, keys[pre], vals[pre])
+    missing = ok_pre & ~ok_out
+    wrong = f_out & ~ok_out
+    check(int(wrong.sum()) == 0, "faults: an outage read returned a wrong "
+                                 "value")
+    check(_distinct(ids[pre], missing) <= w["evicted_copies"],
+          f"faults: {int(missing.sum())} rows readable before the crash "
+          f"missing during the outage, {w['evicted_copies']} copies evicted")
+    check(fb_out > 0, "faults: no read failed over")
+    res["outage"] = {
+        "crash_ms": crash_s * 1e3,
+        "read_round_ms_median": statistics.median(out_ms),
+        "read_round_ms_all": out_ms, "fallback_reads": fb_out,
+        "found_rows": int(f_out.sum()), "missing_rows": int(missing.sum()),
+        "missing_keys": _distinct(ids[pre], missing)}
+
+    # writes during the outage: the victim's copies are not sent
+    acked_post = torch.empty(FAULT_KEYS, dtype=torch.bool, device=DEVICE)
+    ev_post, post_ms = 0, []
+    for lo in range(0, FAULT_KEYS, FAULT_BATCH):
+        k = keys[post][lo:lo + FAULT_BATCH]
+        v = vals[post][lo:lo + FAULT_BATCH]
+        (_, ws), secs = _timed(lambda: dht_write_replicated(st2, k, v))
+        acked_post[lo:lo + FAULT_BATCH] = ws["code"] != W_DROPPED
+        ev_post += int(ws["evicted_copies"])
+        post_ms.append(secs * 1e3)
+    check(bool(acked_post.all()), "faults: a write during the outage was "
+                                  "not acked")
+    res["outage_writes"] = {"write_round_ms_median": statistics.median(post_ms),
+                            "evicted_copies": ev_post}
+
+    # recovery: the availability gap, then anti-entropy repair
+    st2 = recover_shard(st2, FAULT_VICTIM)
+    f_gap, _, _, _ = _read_ok(st2, keys, vals)
+    plan_ms = []
+    for _ in range(3):
+        plan, secs = _timed(lambda: plan_repair(st2, FAULT_VICTIM))
+        plan_ms.append(secs * 1e3)
+    with Capture(ops) as cap:
+        plan_repair(st2, FAULT_VICTIM)
+        rep = repair_begin(st2, FAULT_VICTIM, batch=FAULT_BATCH)
+        (rep, step), secs = _timed(lambda: repair_step(rep))
+    compare_calls(cap.calls, errs, "faults: repair plan and first round")
+    del cap
+    step_ms = [secs * 1e3]
+    while not rep.done:
+        (rep, step), secs = _timed(lambda: repair_step(rep))
+        step_ms.append(secs * 1e3)
+    st2 = rep.state
+    diff = repair_diff(st2, FAULT_VICTIM)
+    if diff:
+        # a repair insert that meets a full window evicts a copy there,
+        # perhaps one healed before it: the missing copies and those of
+        # them whose window is full, after this pass and two more
+        passes = []
+        for _ in range(3):
+            passes.append({"diff": repair_diff(st2, FAULT_VICTIM),
+                           "window_full": _overflowing(st2, FAULT_VICTIM)})
+            st2, _ = repair_run(st2, FAULT_VICTIM, batch=FAULT_BATCH)
+        emit("faults_diff", uniform_ids=uniform_ids, passes=passes)
+    check(diff == 0, f"faults: repair left a diff of {diff}")
+    _, ok_fin, fb_fin, _ = _read_ok(st2, keys, vals)
+    acked = torch.cat([ok_pre, acked_post])
+    lost = acked & ~ok_fin
+    lost_keys = _distinct(ids, lost)
+    evicted = w["evicted_copies"] + ev_post
+    check(lost_keys <= evicted,
+          f"faults: {lost_keys} acked keys lost, {evicted} copies evicted")
+    check(fb_fin == 0, f"faults: {fb_fin} reads still fail over")
+    res["repair"] = {
+        "gap_rows": int((~f_gap).sum()), "gap_frac": float((~f_gap).float()
+                                                          .mean()),
+        "plan_ms_median": statistics.median(plan_ms), "plan_ms_all": plan_ms,
+        "round_ms_median": statistics.median(step_ms),
+        "round_ms_all": step_ms,
+        "entries_per_s": rep.healed / (sum(step_ms) / 1e3),
+        "n_candidates": rep.plan.n_candidates,
+        "n_present": rep.plan.n_present, "n_planned": rep.plan.n_missing,
+        "healed": rep.healed, "skipped": rep.skipped, "rounds": rep.rounds,
+        "diff_after": diff}
+    res["lost_acked"] = {"keys": lost_keys, "rows": int(lost.sum()),
+                         "acked_keys": _distinct(ids, acked),
+                         "evicted_copies_before_crash": w["evicted_copies"],
+                         "evicted_copies_during_outage": ev_post}
+    del st2
+    return res
+
+
+def _faults_stream(device):
+    """(b) faults-parity: the faults-full sequence at B=2^16 with
+    FAULT_PARITY_KEYS keys a half in FAULT_PARITY_BATCH-row rounds, and
+    an L1 (256 x 4) read before and after the crash (its epoch fence).
+    Returns the slab words after the writes, the outage writes and the
+    repair, and every step's rows and counts."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import (DHTConfig, L1Config, crash_shard,
+                                  dht_create, dht_read, dht_read_cached,
+                                  dht_write_replicated, l1_create,
+                                  plan_repair, recover_shard, repair_diff,
+                                  repair_run, ring_create)
+
+    cfg = DHTConfig(key_words=20, val_words=26, n_shards=8, n_replicas=2,
+                    buckets_per_shard=FAULT_PARITY_BUCKETS,
+                    capacity=FAULT_PARITY_BATCH)
+    gen = torch.Generator().manual_seed(91)
+    _, keys, vals = fault_workload(gen, 2 * FAULT_PARITY_KEYS, device)
+    half = FAULT_PARITY_KEYS
+    st = dht_create(cfg, ring_create(8), device=device)
+    l1 = l1_create(L1Config(n_sets=256, n_ways=4), 8, device=device)
+    out = {"slabs": [], "rows": [], "counts": []}
+
+    def snap():
+        out["slabs"].append({k: v.copy()
+                             for k, v in state_to_numpy(st).items()})
+
+    def writes(lo, hi):
+        nonlocal st
+        for a in range(lo, hi, FAULT_PARITY_BATCH):
+            st, ws = dht_write_replicated(st, keys[a:a + FAULT_PARITY_BATCH],
+                                          vals[a:a + FAULT_PARITY_BATCH])
+            out["rows"].append(ws["code"].cpu())
+            out["counts"].append({k: int(ws[k]) for k in (
+                "acked", "replica_writes", "evicted_copies", "inserted",
+                "updated", "evicted", "dropped", "rounds")})
+
+    def reads(lo, hi):
+        nonlocal st
+        st, o, f, rs = dht_read(st, keys[lo:hi])
+        out["rows"] += [o.cpu(), f.cpu()]
+        out["counts"].append({k: int(rs[k]) for k in (
+            "hits", "misses", "fallback_reads", "dropped")})
+
+    def cached():
+        nonlocal st, l1
+        st, l1, o, f, rs = dht_read_cached(st, l1, keys[:FAULT_PARITY_BATCH])
+        out["rows"] += [o.cpu(), f.cpu()]
+        out["counts"].append({k: int(rs[k]) for k in (
+            "hits", "l1_hits", "fallback_reads")})
+
+    writes(0, half)
+    snap()
+    cached()
+    cached()
+    st = crash_shard(st, FAULT_VICTIM)
+    cached()
+    reads(0, half)
+    writes(half, 2 * half)
+    snap()
+    st = recover_shard(st, FAULT_VICTIM)
+    reads(0, 2 * half)
+    plan = plan_repair(st, FAULT_VICTIM)
+    out["rows"].append(plan.src.cpu())
+    st, rep = repair_run(st, FAULT_VICTIM, batch=FAULT_PARITY_BATCH)
+    out["counts"].append({**rep, "diff": repair_diff(st, FAULT_VICTIM)})
+    snap()
+    reads(0, 2 * half)
+    return out
+
+
+def phase_faults(cfg_big, errs, uniform_ids: int = FAULT_ID_RANGE):
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    full = _faults_full(cfg_big, errs, uniform_ids)
+    card = _faults_stream(DEVICE)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    emit("faults", S=cfg_big.n_shards, B=cfg_big.buckets_per_shard,
+         n_replicas=2, victim=FAULT_VICTIM, keys_before_crash=FAULT_KEYS,
+         keys_during_outage=FAULT_KEYS, batch=FAULT_BATCH,
+         capacity=FAULT_BATCH, id_range=FAULT_ID_RANGE,
+         uniform_ids=uniform_ids,
+         sharded_note="sharded replication needs k <= S ranks: at NCCL "
+         "world size 1 it cannot run; it waits for the 4-chip cell of "
+         "ROADMAP item 16 (on the CPU: 4 gloo ranks, "
+         "tests/test_torch_faults.py)",
+         max_memory_allocated_gb=peak / 1e9, launches=launches, **full)
+    wr, rp = full["writes"], full["repair"]
+    print(f"faults write round ms (median of {wr['batches']}): replicated "
+          f"{wr['write_round_ms_k2_median']}, plain "
+          f"{wr['write_round_ms_k1_median']}; wire_amp {wr['wire_amp']}, "
+          f"extra_write_rounds {wr['extra_write_rounds']}", flush=True)
+    print(f"faults outage read round ms: "
+          f"{full['outage']['read_round_ms_median']}; fallback_reads "
+          f"{full['outage']['fallback_reads']}", flush=True)
+    print(f"faults plan ms: {rp['plan_ms_median']}; repair round ms: "
+          f"{rp['round_ms_median']}; entries per second: "
+          f"{rp['entries_per_s']}; diff_after: {rp['diff_after']}",
+          flush=True)
+    la = full["lost_acked"]
+    print(f"faults lost_acked: {la['keys']} keys; copies evicted: "
+          f"{la['evicted_copies_before_crash']} before the crash, "
+          f"{la['evicted_copies_during_outage']} during the outage",
+          flush=True)
+    print(f"faults peak memory GB: {peak / 1e9}", flush=True)
+
+    cpu = _faults_stream("cpu")
+    eq = {"slabs": all(all((a[k] == b[k]).all() for k in a)
+                       for a, b in zip(card["slabs"], cpu["slabs"])),
+          "rows": _same(card["rows"], cpu["rows"]),
+          "counts": card["counts"] == cpu["counts"]}
+    check(all(eq.values()), f"faults-parity: card and CPU differ {eq}")
+    fence = [c["l1_hits"] for c in card["counts"] if "l1_hits" in c]
+    check(fence[1] > 0 and fence[2] == 0,
+          f"faults-parity: the L1 did not serve, or served across the "
+          f"crash ({fence})")
+    emit("faults_parity", B=FAULT_PARITY_BUCKETS, keys=2 * FAULT_PARITY_KEYS,
+         batch=FAULT_PARITY_BATCH, equal=eq, l1_hits=fence,
+         repair=card["counts"][-2])
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # sharded: the multi-rank backend at world size 1
 # ---------------------------------------------------------------------------
 
@@ -3249,7 +3704,7 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls):
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     try:
         import torch
     except ImportError:
@@ -3274,8 +3729,14 @@ def main() -> int:
     cfg_big = DHTConfig(key_words=20, val_words=26, n_shards=8,
                         buckets_per_shard=BIG_BUCKETS, n_probe=6,
                         mode="lockfree")
-    gen = torch.Generator().manual_seed(0)
     errs: dict[str, float] = {}
+    if argv[:1] == ["--faults-uniform-ids"]:
+        # the faults phase alone, its uniform half below argv[1]: what
+        # repair leaves at that load (the `faults_diff` line)
+        phase_faults(cfg_big, errs, int(argv[1]))
+        print(smi, flush=True)
+        return 0
+    gen = torch.Generator().manual_seed(0)
     _st, wcalls, rcalls, lcalls = phase_kernels(cfg_big, gen, errs)
     launches = {"dht": phase_dht(cfg_big)}
     launches["keys"], kcalls = phase_keys(errs)
@@ -3285,6 +3746,7 @@ def main() -> int:
     launches["l1"] = phase_l1(cfg_big, errs)
     launches["pipeline"] = phase_pipeline(cfg_big, poet_plain)
     launches["elastic"] = phase_elastic(cfg_big, errs)
+    launches["faults"] = phase_faults(cfg_big, errs)
     launches["sharded"] = phase_sharded(errs)
     tols: dict[str, float] = {}        # the bit-exact kernels: 0
     launches["lm"], acalls = phase_lm(errs, tols)
@@ -3316,4 +3778,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

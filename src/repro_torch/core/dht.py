@@ -12,8 +12,10 @@ part of a batch from the L1 cache (``core/l1cache.py``) first.  The
 returns, the commit half waits for it.  The table and the cache are
 updated in place.  :func:`dht_read_dual` reads during an online
 migration (``core/migrate.py``): each key fans out to its new- and
-old-epoch owners inside one round.  The replicated forms belong to a
-later slice and raise.
+old-epoch owners inside one round.  :func:`dht_write_replicated` writes
+each row to the k shards of its ring successor set in the same round;
+under replication every read and cached read goes to the first live
+replica of each key.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
 from . import l1cache, routing
 from .layout import DHTState, shard_watermark, to_i32
+from .membership import ring_successors
 from .op_engine import (
     W_DROPPED,
     W_EVICT,
@@ -36,6 +39,7 @@ from .op_engine import (
     dht_issue,
     dual_fusable,
     read_ops,
+    replica_placement,
     write_ops,
 )
 
@@ -140,6 +144,80 @@ def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
     return state, total
 
 
+def dht_write_replicated(state: DHTState, keys: torch.Tensor,
+                         vals: torch.Tensor,
+                         valid: torch.Tensor | None = None, *,
+                         axis_name=None, l1_meta: bool = False
+                         ) -> tuple[DHTState, dict]:
+    """DHT_write under k-successor replication: each row fans out to the
+    ``cfg.n_replicas`` distinct shards of its ring successor set inside
+    ONE engine round (``routing.flatten_fanout`` with the row's hash pair
+    repeated and a precomputed placement), so replication costs wire
+    words, never rounds.  The window base depends only on the low hash
+    word, so every copy sits in the same probe window of its own slab.
+
+    Copies bound for a dead shard are masked out of the routing; a row
+    is **acknowledged** when at least one copy applied.  ``code`` is the
+    first applied copy's code (``W_DROPPED`` where no copy landed, so a
+    retry loop treats a row whose replicas are all down like an
+    overflow).  Extra lanes: ``acked`` and ``replica_writes`` (secondary
+    copies applied: the write amplification), 0-d tensors, and, beyond
+    the reference's lanes, ``evicted_copies``: the copies that displaced
+    a resident entry (``evicted`` counts each row's first copy only), the
+    count that bounds what a crash can lose.
+
+    At ``n_replicas == 1``, or with no ring, this is :func:`dht_write`,
+    bit for bit."""
+    cfg = state.cfg
+    k = cfg.n_replicas
+    if k == 1 or state.ring is None:
+        state, stats = dht_write(state, keys, vals, valid,
+                                 axis_name=axis_name, l1_meta=l1_meta)
+        stats["replica_writes"] = torch.zeros((), dtype=torch.int32,
+                                              device=keys.device)
+        stats["acked"] = (stats["inserted"] + stats["updated"]
+                          + stats["evicted"])
+        stats["evicted_copies"] = stats["evicted"]
+        return state, stats
+    if valid is None:
+        valid = _ones(keys)
+    n = keys.shape[0]
+    ring = state.ring.to(keys.device)
+    h = kops.hash64(keys.contiguous())
+    h_hi, h_lo = h[:, 0], h[:, 1]
+    succ = ring_successors(ring, h_hi, k)                  # (n, k)
+    ok = (succ >= 0) & ring.alive_dev[
+        succ.clamp(0, cfg.n_shards - 1).long()]
+    cvalid = valid[:, None] & ok                           # (n, k) copies
+    flat_k, flat_valid = routing.flatten_fanout(
+        keys[:, None, :].expand((n, k) + tuple(keys.shape[1:])), cvalid)
+    flat_v, _ = routing.flatten_fanout(
+        vals[:, None, :].expand((n, k) + tuple(vals.shape[1:])))
+    dest = torch.where(flat_valid, succ.reshape(-1), 0).to(torch.int32)
+    hashes = (h_hi.repeat_interleave(k), h_lo.repeat_interleave(k))
+    cap = cfg.capacity
+    state, _, _val, _found, code, es = dht_execute(
+        state, OpBatch(keys=flat_k, valid=flat_valid,
+                       vals=flat_v.to(torch.int32)),
+        kinds=("write",), axis_name=axis_name,
+        capacity=k * cap if cap else None, hashes=hashes,
+        placement=(dest, ring.epoch), l1_meta=l1_meta)
+    code2 = routing.unflatten_fanout(code, n, k)            # (n, k)
+    applied = cvalid & (code2 != W_DROPPED)
+    acked = applied.any(dim=-1)
+    first = torch.argmax(applied.to(torch.int32), dim=-1)
+    code_row = code2.gather(-1, first[:, None])[:, 0]
+    code_row = torch.where(acked, code_row, W_DROPPED).to(torch.int32)
+    stats = _write_stats(code_row, es, l1_meta=l1_meta)
+    n_applied = applied.sum().to(torch.int32)
+    n_acked = acked.sum().to(torch.int32)
+    stats["acked"] = n_acked
+    stats["replica_writes"] = n_applied - n_acked
+    stats["evicted_copies"] = (applied & (code2 == W_EVICT)).sum().to(
+        torch.int32)
+    return state, stats
+
+
 def dht_read_async(state: DHTState, keys: torch.Tensor,
                    valid: torch.Tensor | None = None, *, axis_name=None,
                    l1_meta: bool = False, pending=None) -> InFlightRound:
@@ -192,15 +270,22 @@ def dht_read_cached_async(state: DHTState, l1: l1cache.L1State,
     """Issue a cached read (the first half of :func:`dht_read_cached`):
     the L1 probe, the residue's engine round and the L1 refill, all
     enqueued; pair with :func:`dht_read_cached_commit`."""
-    if state.cfg.n_replicas > 1:
-        raise routing.not_ported("cached reads under replication", "12")
     if valid is None:
         valid = _ones(keys)
     l1cfg = l1.cfg
     h = kops.hash64(keys.contiguous())
     hashes = (h[:, 0], h[:, 1])
     set_idx, way_idx = l1cache.l1_slots(l1cfg, *hashes)
-    dest, epoch = _owner_epoch(state, hashes[0])
+    # under replication a dead owner's reads go to its first live
+    # successor; the L1 refill below stamps ``owner=dest``, the SERVING
+    # shard, so a line filled by a failover stays coherent against that
+    # shard's watermark
+    if state.cfg.n_replicas > 1 and state.ring is not None:
+        dest, epoch, fb = replica_placement(state, hashes[0])
+        n_fallback = (valid & fb).sum().to(torch.int32)
+    else:
+        dest, epoch = _owner_epoch(state, hashes[0])
+        n_fallback = 0
     own = to_i32(shard_watermark(state.meta))
     if axis_name is None:
         # the whole table is at hand: every shard's watermark is
@@ -212,7 +297,11 @@ def dht_read_cached_async(state: DHTState, l1: l1cache.L1State,
 
         known = l1.shard_wmark.clone()
         known[dist.get_rank(routing.process_group(axis_name))] = own[0]
-    flags = l1cache.serve_flags(l1, known, epoch)
+    # the liveness gate fences a crashed shard's lines (the crash's
+    # epoch bump already does; the gate holds even without it)
+    alive = (None if state.ring is None
+             else state.ring.to(keys.device).alive_dev)
+    flags = l1cache.serve_flags(l1, known, epoch, alive=alive)
     hit, cval = l1cache.l1_probe(l1cfg, l1, keys, set_idx, flags)
     hit = hit & valid
 
@@ -241,7 +330,7 @@ def dht_read_cached_async(state: DHTState, l1: l1cache.L1State,
         "mismatches": es["mismatches"],
         "dropped": es["dropped"],
         "lock_tokens": es["lock_tokens"],
-        "fallback_reads": es["fallback_reads"],
+        "fallback_reads": n_fallback,
         "epoch": es["epoch"],
         "wire_words": es["wire_words"],
         "fill_frac": es["fill_frac"],

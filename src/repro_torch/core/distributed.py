@@ -28,10 +28,21 @@ batch once it has run out); the counts meet in one ``all_reduce(SUM)``
 and each rank retires its own stale sources.  No dual reads are needed:
 the call returns when the move is done.
 
-Not in this slice: replication and repair (``crash``, ``recover``,
-``repair`` and the replicated closures; ROADMAP item 12) and the
-telemetry registry (``telemetry_snapshot``; item 14).  Each raises
-``NotImplementedError`` naming its item.
+k-successor replication: with ``cfg.n_replicas > 1`` and a ring,
+:meth:`ShardedDHT.write` fans every row out to its k ring successors in
+the same exchange round (``write_replicated_fn``), and reads go to the
+first live replica.  :meth:`ShardedDHT.crash` drops a shard's liveness
+bit on every rank (the victim zeroes its own slab), :meth:`recover`
+raises it again, and :meth:`repair` heals the recovered shard in
+lockstep: the ranks agree on the reference's global repair plan by
+gathering their candidates' (flat index, hash) words, the members of a
+hash group compare their key rows, the candidates' keys travel to the
+recovered rank once for the presence probe, and each get-or-put round
+carries, from every rank, its own source rows of the plan's slice, so
+the recovered rank receives them in the plan's order.
+
+Not in this slice: the telemetry registry (``telemetry_snapshot``;
+ROADMAP item 14), which raises ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -42,12 +53,29 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
 from . import dht as dht_ops
 from . import l1cache, routing
+from .hashing import base_bucket
 from .layout import DHTConfig, DHTState, dht_create, live_mask, resolve_device
-from .membership import ring_create, ring_join, ring_leave
-from .migrate import _owners, _retire
+from .membership import (
+    ring_crash,
+    ring_create,
+    ring_join,
+    ring_leave,
+    ring_recover,
+    ring_successors,
+)
+from .faults import wipe_shard
+from .migrate import (
+    _owners,
+    _retire,
+    first_copies,
+    hash_key64,
+    repair_round,
+    window_present,
+)
 from .op_engine import (
     W_DROPPED,
     W_EVICT,
@@ -324,14 +352,47 @@ class ShardedDHT:
         return fn
 
     def write_replicated_fn(self):
-        raise routing.not_ported("ShardedDHT.write_replicated_fn", "12")
+        """Replicated write round (``dht.dht_write_replicated``): every
+        row fans out to its k ring successors inside the same exchange
+        round.  :meth:`write` takes it when ``cfg.n_replicas > 1`` and a
+        ring is attached.  ``(state, keys, vals, valid) -> (state',
+        stats)``; ``stats`` adds ``acked`` and ``replica_writes``."""
+        self._no_l1("write")
+
+        def fn(state, keys, vals, valid):
+            state, stats = dht_ops.dht_write_replicated(
+                state, keys, vals, valid, axis_name=self.group)
+            return state, _psum_stats(stats, self.group)
+
+        return fn
 
     def write_replicated_refresh_fn(self):
-        raise routing.not_ported("ShardedDHT.write_replicated_refresh_fn",
-                                 "12")
+        """Replicated write that also refreshes the L1 watermarks (the
+        copies move k shards' watermarks in one round).  ``(state, l1,
+        keys, vals, valid) -> (state', l1', stats)``."""
+
+        def fn(state, l1, keys, vals, valid):
+            state, stats = dht_ops.dht_write_replicated(
+                state, keys, vals, valid, axis_name=self.group,
+                l1_meta=True)
+            l1 = l1cache.with_shard_wmarks(l1, stats.pop("wmark_post"))
+            return state, l1, _psum_stats(stats, self.group)
+
+        return fn
 
     def repair_fn(self):
-        raise routing.not_ported("ShardedDHT.repair_fn", "12")
+        """Anti-entropy get-or-put round pinned to an explicit destination
+        (the recovered shard; the replica select would send the rows to
+        their live owners, which hold them already).  ``(state, keys,
+        vals, valid, dest) -> (state', found, code, estats)``."""
+
+        def fn(state, keys, vals, valid, dest):
+            state, _, _out, found, code, es = dht_execute(
+                state, migrate_ops(keys, vals, valid), kinds=("migrate",),
+                axis_name=self.group, placement=(dest, state.ring.epoch))
+            return state, found, code, _psum_stats(es, self.group)
+
+        return fn
 
     # -- stateful wrappers --------------------------------------------------
     def _ones(self, shape) -> torch.Tensor:
@@ -343,21 +404,41 @@ class ShardedDHT:
             self._ones_cache[shape] = mask
         return mask
 
+    @property
+    def replicated(self) -> bool:
+        """Writes fan out to k ring successors."""
+        return self.cfg.n_replicas > 1 and self.ring is not None
+
     def _write_dispatch(self, keys, vals, valid) -> dict:
         if self.l1 is not None:
-            self.state, self.l1, stats = self.write_refresh_fn()(
-                self.state, self.l1, keys, vals, valid)
+            fn = (self.write_replicated_refresh_fn() if self.replicated
+                  else self.write_refresh_fn())
+            self.state, self.l1, stats = fn(self.state, self.l1, keys, vals,
+                                            valid)
         else:
-            self.state, stats = self.write_fn()(self.state, keys, vals,
-                                                valid)
+            fn = (self.write_replicated_fn() if self.replicated
+                  else self.write_fn())
+            self.state, stats = fn(self.state, keys, vals, valid)
         return stats
 
+    def _n_retry(self, stats: dict, retry: torch.Tensor) -> int:
+        """The group's count of rows to re-issue.  Unreplicated, the
+        group's dropped lane counts exactly them (a routed row always
+        comes back with a write code); replicated, ``dropped`` counts
+        copies and a row drops only when none of its copies applied, so
+        the rows are summed over the group."""
+        if not self.replicated:
+            return int(stats["dropped"])
+        n = retry.sum().reshape(1)
+        dist.all_reduce(n, op=dist.ReduceOp.SUM, group=self.group)
+        return int(n.item())
+
     def write(self, keys, vals, valid=None, *, max_retries: int = 2) -> dict:
-        """Write this rank's rows; rows the router dropped on overflow are
-        re-issued up to ``max_retries`` times.  The retry decision is the
-        group's (every rank takes the same number of rounds); only the
-        final round's unrecovered drops stay on ``dropped``, and
-        ``write_retries`` counts the extra rounds."""
+        """Write this rank's rows; rows dropped (on an overflow, or with
+        every replica down) are re-issued up to ``max_retries`` times.
+        The retry decision is the group's (every rank takes the same
+        number of rounds); only the final round's unrecovered drops stay
+        on ``dropped``, and ``write_retries`` counts the extra rounds."""
         valid = self._ones(keys.shape[0]) if valid is None else valid
         total = None
         attempt = 0
@@ -365,16 +446,16 @@ class ShardedDHT:
             stats = self._write_dispatch(keys, vals, valid)
             code = stats["code"]
             retry = valid & (code == W_DROPPED)
-            # the group's dropped lane counts exactly these rows: a
-            # routed row always comes back with a write code
-            n_retry = int(stats["dropped"])
+            n_retry = self._n_retry(stats, retry)
             final = n_retry == 0 or attempt >= max_retries
             if total is None:
                 total = dict(stats)
             else:
-                for lane in ("inserted", "updated", "evicted", "lock_tokens",
-                             "wire_words", "rounds"):
-                    total[lane] = total[lane] + stats[lane]
+                for lane in ("inserted", "updated", "evicted", "acked",
+                             "replica_writes", "evicted_copies",
+                             "lock_tokens", "wire_words", "rounds"):
+                    if lane in total:
+                        total[lane] = total[lane] + stats[lane]
                 # a retried row's fresh outcome overrides its drop code
                 total["code"] = torch.where(code != W_DROPPED, code,
                                             total["code"])
@@ -564,14 +645,153 @@ class ShardedDHT:
             raise ValueError("join needs a ring")
         return self.apply_ring(ring_join(self.ring, shard_id), batch)
 
+    # -- crash tolerance ---------------------------------------------------
     def crash(self, shard_id: int, *, wipe: bool = True) -> None:
-        raise routing.not_ported("ShardedDHT.crash", "12")
+        """Abrupt death of shard ``shard_id``, on every rank: liveness bit
+        down, epoch + 1, placement kept (``membership.ring_crash``) and,
+        unless ``wipe=False``, the victim rank's slab zeroed.  Reads fail
+        over to the ring successors in the same rounds; with
+        ``cfg.n_replicas > 1`` every acked write survives on its other
+        copies.  The epoch bump fences every L1 line cached before."""
+        if self.ring is None:
+            raise ValueError("crash tolerance needs a ring")
+        ring = ring_crash(self.ring, shard_id)
+        st = self.state
+        if wipe and dist.get_rank(self.group) == shard_id:
+            wipe_shard(st, 0)
+        self.state = DHTState(self.cfg, st.flat_keys, st.flat_vals,
+                              st.flat_meta, st.flat_csum, ring)
+        obs_metrics.inc("faults.crashes")
 
     def recover(self, shard_id: int) -> None:
-        raise routing.not_ported("ShardedDHT.recover", "12")
+        """The crashed shard returns (empty) at epoch + 1; :meth:`repair`
+        re-converges its replica set."""
+        if self.ring is None:
+            raise ValueError("crash tolerance needs a ring")
+        st = self.state
+        self.state = DHTState(self.cfg, st.flat_keys, st.flat_vals,
+                              st.flat_meta, st.flat_csum,
+                              ring_recover(self.ring, shard_id))
+        obs_metrics.inc("faults.recoveries")
+
+    def _gather(self, x: torch.Tensor, counts: list) -> torch.Tensor:
+        """The ranks' ``x`` rows (rank r holds ``counts[r]``) concatenated
+        in rank order, on every rank: one ``all_gather`` of rows padded to
+        the largest count."""
+        width = max(counts)
+        if width == 0:
+            return x
+        pad = x.new_zeros((width,) + tuple(x.shape[1:]))
+        pad[:x.shape[0]] = x
+        parts = [torch.empty_like(pad) for _ in counts]
+        dist.all_gather(parts, pad, group=self.group)
+        return torch.cat([p[:c] for p, c in zip(parts, counts)])
+
+    def _counts(self, n: int) -> list:
+        """Every rank's ``n``, in rank order."""
+        mine = torch.tensor([n], dtype=torch.int64, device=self.state.device)
+        parts = [torch.empty_like(mine) for _ in range(self.cfg.n_shards)]
+        dist.all_gather(parts, mine, group=self.group)
+        return torch.cat(parts).tolist()
+
+    def _plan_repair(self, shard_id: int):
+        """The reference's global repair plan, agreed in lockstep.
+        Returns ``(missing, n_candidates, n_present, counts)``: this
+        rank's planned source rows (local bucket ids, ascending), the
+        group's counts, and every rank's count of planned rows."""
+        cfg, st = self.cfg, self.state
+        me = dist.get_rank(self.group)
+        dev = st.device
+        flat = st.flat_keys[:-1]
+        h = kops.hash64(flat.contiguous())
+        covered = (ring_successors(self.ring, h[:, 0], cfg.n_replicas)
+                   == shard_id).any(dim=-1)
+        cand = live_mask(st.meta).reshape(-1) & covered
+        if me == shard_id:
+            cand = torch.zeros_like(cand)
+        idx = torch.nonzero(cand).reshape(-1)
+        counts = self._counts(idx.shape[0])
+        # the group's candidates in flat (rank-major) order: their flat
+        # ids and hash words, so every rank finds the same first copies
+        g_h64 = self._gather(hash_key64(h[idx]), counts)
+        lo = sum(counts[:me])
+
+        def rows_of(pos):
+            # each rank hands over its members' key rows, in rank order
+            mine = pos[(pos >= lo) & (pos < lo + counts[me])] - lo
+            n_mine = self._counts(mine.shape[0])
+            return self._gather(flat[idx[mine]], n_mine)
+
+        keep = first_copies(g_h64, rows_of)[lo:lo + counts[me]]
+        idx = idx[keep]
+        present = self._present(shard_id, flat[idx], h[idx, 1])
+        missing = idx[~present]
+        totals = torch.stack([torch.full((), idx.shape[0], device=dev),
+                              present.sum()]).reshape(2)
+        dist.all_reduce(totals, op=dist.ReduceOp.SUM, group=self.group)
+        n_candidates, n_present = totals.tolist()
+        return (missing, n_candidates, n_present,
+                self._counts(missing.shape[0]))
+
+    def _present(self, shard_id: int, keys, h_lo) -> torch.Tensor:
+        """Which of this rank's candidate ``keys`` the recovered rank
+        holds live in their probe window already: one exchange round to
+        it (capacity agreed) and back, one ``probe`` launch there without
+        checksum validation."""
+        cfg = self.cfg
+        dest = torch.full((keys.shape[0],), shard_id, dtype=torch.int32,
+                          device=keys.device)
+        cap = routing.plan_capacity(dest, cfg.n_shards, group=self.group)
+        binned = routing.bin_by_dest(dest, cfg.n_shards, cap)
+        base = base_bucket(h_lo, cfg.buckets_per_shard, cfg.n_probe)
+        k_in, b_in, m_in = routing.dispatch(
+            binned, [keys, base, torch.ones_like(dest)], self.group)
+        found = window_present(self.state, k_in.contiguous(),
+                               b_in.contiguous())
+        (hit,) = routing.collect(binned, [found & (m_in > 0)], self.group)
+        return hit & binned.kept
 
     def repair(self, shard_id: int, batch: int = 512) -> dict:
-        raise routing.not_ported("ShardedDHT.repair", "12")
+        """Anti-entropy repair of a recovered shard, in lockstep on every
+        rank: the group agrees on the reference's global plan (see the
+        module's docstring), then streams the planned copies back in
+        get-or-put rounds of ``batch`` rows of the plan (rounded up to a
+        multiple of the world size), each pinned to the recovered shard,
+        every rank sending its own rows of the slice.  Returns the
+        group's ``{n_candidates, n_present, n_planned, healed, skipped,
+        rounds, diff_after}``."""
+        if self.ring is None:
+            raise ValueError("crash tolerance needs a ring")
+        if not bool(self.ring.alive[shard_id]):
+            raise ValueError("the repair target must be recovered (live) "
+                             "first")
+        world = self.cfg.n_shards
+        me = dist.get_rank(self.group)
+        batch = -(-batch // world) * world
+        missing, n_cand, n_present, counts = self._plan_repair(shard_id)
+        n_planned = sum(counts)
+        lo_me = sum(counts[:me])
+        st = self.state
+        tally = torch.zeros(3, dtype=torch.int64, device=st.device)
+        rounds = -(-n_planned // batch)
+        for r in range(rounds):
+            # this rank's rows of the plan's slice [r * batch, +batch)
+            a = min(max(r * batch - lo_me, 0), counts[me])
+            e = min(max((r + 1) * batch - lo_me, 0), counts[me])
+            rows = missing[a:e]
+            valid = torch.ones(rows.shape[0], dtype=torch.bool,
+                               device=st.device)
+            tally += repair_round(st, rows, valid, shard_id, self.group)
+        dist.all_reduce(tally, op=dist.ReduceOp.SUM, group=self.group)
+        dropped, healed, skipped = tally.tolist()
+        if dropped:
+            raise RuntimeError(f"repair rounds dropped {dropped} rows")
+        obs_metrics.inc("repair.rounds", rounds)
+        obs_metrics.inc("repair.keys_healed", healed)
+        return {"n_candidates": n_cand, "n_present": n_present,
+                "n_planned": n_planned, "healed": healed,
+                "skipped": skipped, "rounds": rounds,
+                "diff_after": sum(self._plan_repair(shard_id)[3])}
 
 
 __all__ = ["ReducedStats", "ShardedDHT", "ShardedRound"]

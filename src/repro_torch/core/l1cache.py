@@ -149,15 +149,23 @@ def l1_slots(cfg: L1Config, h_hi: torch.Tensor, h_lo: torch.Tensor
     return set_idx, way_idx
 
 
-def serve_flags(l1: L1State, known_wmark: torch.Tensor, epoch
-                ) -> torch.Tensor:
+def serve_flags(l1: L1State, known_wmark: torch.Tensor, epoch,
+                alive: torch.Tensor | None = None) -> torch.Tensor:
     """(sets, ways) bool: which lines are coherent now: live, of the
     current membership epoch, and stamped with their owner's latest known
-    watermark (``known_wmark``, (S,) int32 bit-view words).  The
-    reference's ``alive`` gate belongs to replication (a later slice)."""
+    watermark (``known_wmark``, (S,) int32 bit-view words).
+
+    ``alive`` (the ring's per-shard liveness, a bool tensor on the L1's
+    device) also fences lines whose serving shard has crashed: a failover
+    flushes the dead shard's lines like an epoch change.  ``ring_crash``
+    bumps the epoch already, which kills every line cached before the
+    crash; the gate holds for a liveness flip that skipped the bump."""
     owner = l1.owner.clamp(0, known_wmark.shape[0] - 1).long()
-    return (l1.live & (l1.epoch == int(epoch))
-            & (l1.wmark == known_wmark[owner]))
+    ok = (l1.live & (l1.epoch == int(epoch))
+          & (l1.wmark == known_wmark[owner]))
+    if alive is not None:
+        ok = ok & alive[l1.owner.clamp(0, alive.shape[0] - 1).long()]
+    return ok
 
 
 def l1_probe(cfg: L1Config, l1: L1State, keys: torch.Tensor,

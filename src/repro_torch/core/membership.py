@@ -18,7 +18,11 @@ sort wrongly), ``owners`` and ``succ`` int32.  A fresh ring's tensors
 sit on the CPU; attaching the ring to a table (``dht_create``,
 ``with_ring``) moves them to the table's device.  ``n_live`` and
 ``epoch`` are Python ints, so a round reads no ring scalar back from the
-card.
+card.  Liveness is kept twice: ``alive`` on the host for planners, and
+its device twin ``alive_dev``, which the replica select and the L1's
+crash gate read, so a replicated round copies nothing from the host.  A
+crash or a recovery (which flip liveness without rebuilding placement)
+update the twin on its device.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ class RingState:
                                           at the tail)
     owners    : (n_slots,) int32 tensor   shard of each vnode (-1 dead)
     alive     : (S,) bool numpy           per-shard liveness
+    alive_dev : (S,) bool tensor          the same, beside ``positions``
     n_live    : int                       live vnodes (prefix of positions)
     epoch     : int                       bumped on every membership change
     succ      : (n_slots, K) int32 tensor first K distinct shards walking
@@ -68,6 +73,7 @@ class RingState:
     n_live: int
     epoch: int
     succ: torch.Tensor
+    alive_dev: torch.Tensor
     n_virtual: int = 64
     host: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -87,7 +93,8 @@ class RingState:
             return self
         return dataclasses.replace(
             self, positions=self.positions.to(device),
-            owners=self.owners.to(device), succ=self.succ.to(device))
+            owners=self.owners.to(device), succ=self.succ.to(device),
+            alive_dev=self.alive_dev.to(device))
 
 
 def _vnode_positions(n_shards: int, n_virtual: int) -> np.ndarray:
@@ -127,7 +134,8 @@ def _from_host(pos: np.ndarray, own: np.ndarray, alive: np.ndarray,
         positions=torch.from_numpy(pos.astype(np.int64)),
         owners=torch.from_numpy(own.astype(np.int32)),
         alive=alive, n_live=int(n_live), epoch=int(epoch),
-        succ=torch.from_numpy(succ.astype(np.int32)), n_virtual=n_virtual,
+        succ=torch.from_numpy(succ.astype(np.int32)),
+        alive_dev=torch.from_numpy(alive.copy()), n_virtual=n_virtual,
         host={"positions": pos, "owners": own, "succ": succ})
 
 
@@ -220,6 +228,17 @@ def ring_join(ring: RingState, shard_id: int) -> RingState:
                     epoch=ring.epoch + 1)
 
 
+def _set_live(ring: RingState, alive: np.ndarray, shard_id: int
+              ) -> RingState:
+    """``ring`` with liveness ``alive`` (one bit flipped at ``shard_id``)
+    and epoch + 1, placement kept; the device twin is updated on its
+    device."""
+    twin = ring.alive_dev.clone()
+    twin[shard_id] = bool(alive[shard_id])
+    return dataclasses.replace(ring, alive=alive, alive_dev=twin,
+                               epoch=ring.epoch + 1)
+
+
 def ring_crash(ring: RingState, shard_id: int) -> RingState:
     """Abrupt shard death: the liveness bit drops and the epoch bumps,
     WITHOUT rebuilding placement, so every key's owner and successor set
@@ -228,14 +247,13 @@ def ring_crash(ring: RingState, shard_id: int) -> RingState:
     alive = _flip(ring, shard_id, False)
     if not alive.any():
         raise ValueError("cannot crash the last live shard")
-    return dataclasses.replace(ring, alive=alive, epoch=ring.epoch + 1)
+    return _set_live(ring, alive, shard_id)
 
 
 def ring_recover(ring: RingState, shard_id: int) -> RingState:
     """A crashed shard returns to its placement slot: liveness back on,
     epoch + 1."""
-    return dataclasses.replace(ring, alive=_flip(ring, shard_id, True),
-                               epoch=ring.epoch + 1)
+    return _set_live(ring, _flip(ring, shard_id, True), shard_id)
 
 
 def ring_resize(ring: RingState, new_n_shards: int) -> RingState:

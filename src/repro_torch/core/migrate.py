@@ -30,8 +30,20 @@ bucket that has not moved yet, nor change what a dual read sees in the
 old epoch).
 
 Conveniences: :func:`dht_resize` (S -> S' shards), :func:`shard_leave`,
-:func:`shard_join`, :func:`adopt_ring` (modulo -> ring placement).  The
-anti-entropy repair half of the reference module is ROADMAP item 12.
+:func:`shard_join`, :func:`adopt_ring` (modulo -> ring placement).
+
+Anti-entropy repair: after a crashed shard recovers
+(``faults.recover_shard``) its slab is empty but its replica
+responsibilities are unchanged (a crash never rebuilt placement), so
+every key whose successor set holds the shard has surviving copies on
+the other successors.  :func:`plan_repair` enumerates exactly those
+keys on the device (``hash64`` over all S*B stored keys, the successor
+lookup, the live mask), dedupes replica copies of one key (the first
+flat slot wins) and drops the keys already present in the recovered
+shard's probe window (one ``probe`` launch without checksum
+validation).  :func:`repair_step` streams them back in bounded
+get-or-put rounds pinned to the shard; :func:`repair_diff` is the
+convergence check (0 when healed).
 """
 from __future__ import annotations
 
@@ -42,7 +54,9 @@ import torch
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
 from .dht import dht_read_dual
+from .hashing import base_bucket
 from .layout import (
+    MASK32,
     DHTConfig,
     DHTState,
     dht_create,
@@ -56,8 +70,9 @@ from .membership import (
     ring_leave,
     ring_owner_of,
     ring_resize,
+    ring_successors,
 )
-from .op_engine import W_EVICT, dht_execute, migrate_ops
+from .op_engine import W_EVICT, _probe_window, dht_execute, migrate_ops
 
 DEFAULT_BATCH = 256
 
@@ -351,9 +366,217 @@ def shard_join(state: DHTState, shard_id: int, *,
                                 state.cfg, batch))
 
 
+# ---------------------------------------------------------------------------
+# anti-entropy repair
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RepairPlan:
+    """The watermark diff: which surviving-replica entries the recovered
+    shard is missing."""
+
+    shard_id: int
+    src: torch.Tensor     # (M,) int64 flat src bucket ids of the copies
+    n_candidates: int     # deduped keys whose replica set holds shard_id
+    n_present: int        # already there (re-written, or repaired before)
+
+    @property
+    def n_missing(self) -> int:
+        return int(self.src.shape[0])
+
+
+def hash_key64(h: torch.Tensor) -> torch.Tensor:
+    """(n, 2) int32 ``hash64`` words -> (n,) int64 ``hi << 32 | lo``, one
+    sortable word per key (a bijection of the pair)."""
+    return (h[:, 0].to(torch.int64) << 32) | (h[:, 1].to(torch.int64)
+                                              & MASK32)
+
+
+def first_copies(h64: torch.Tensor, rows_of) -> torch.Tensor:
+    """(M,) bool: which of M candidate copies, in flat order, is the
+    first of its key, as ``np.unique(rows, axis=0, return_index=True)``
+    picks them.  Keys are grouped by their 64-bit hash word ``h64`` (one
+    stable sort); only the members of a group of two or more compare
+    rows, ``rows_of(pos)`` handing over the key rows of the ascending
+    positions ``pos``, so a hash collision never merges two keys.  Reads
+    one count back to the host."""
+    m = h64.shape[0]
+    keep = torch.ones(m, dtype=torch.bool, device=h64.device)
+    if m < 2:
+        return keep
+    order = torch.argsort(h64, stable=True)
+    hs = h64[order]
+    same = hs[1:] == hs[:-1]
+    grouped = torch.zeros(m, dtype=torch.bool, device=h64.device)
+    grouped[1:] |= same
+    grouped[:-1] |= same
+    member = torch.zeros_like(keep)
+    member[order] = grouped
+    pos = torch.nonzero(member).reshape(-1)
+    if pos.shape[0] == 0:
+        return keep
+    # the members' exact classes: per distinct row, its first position
+    _, inverse = torch.unique(rows_of(pos), dim=0, return_inverse=True)
+    first = torch.full((pos.shape[0],), m, dtype=torch.int64,
+                       device=pos.device)
+    first.scatter_reduce_(0, inverse, pos, "amin")
+    keep[pos] = first[inverse] == pos
+    return keep
+
+
+def window_present(state: DHTState, keys: torch.Tensor,
+                   abs_base: torch.Tensor) -> torch.Tensor:
+    """Which keys a live, key-equal bucket of the probe window at flat
+    bucket ``abs_base`` holds already: one ``probe`` launch without
+    checksum validation (a window never written is all zero and holds
+    none)."""
+    found, _sel, _val = _probe_window(state, abs_base, keys, validate=False)
+    return found == 1
+
+
+def plan_repair(state: DHTState, shard_id: int) -> RepairPlan:
+    """Diff of the recovered shard against its replica peers, on the
+    device.
+
+    Enumerates the live entries on the *other* shards whose k-successor
+    set holds ``shard_id`` (the copies the shard should hold), keeps one
+    copy of each key (the first flat slot), and removes the keys already
+    present in the shard's probe window.  ``src`` is in flat order, the
+    reference's; two counts come back to the host."""
+    cfg, ring = state.cfg, state.ring
+    if ring is None:
+        raise ValueError("repair needs a membership ring")
+    if state.n_local != cfg.n_shards:
+        raise ValueError("plan_repair needs the whole table (a rank's "
+                         "shard repairs through ShardedDHT.repair)")
+    flat = state.flat_keys[:-1]
+    h = kops.hash64(flat.contiguous())
+    succ = ring_successors(ring, h[:, 0], cfg.n_replicas)
+    row = torch.arange(cfg.n_shards, dtype=torch.int32,
+                       device=flat.device).repeat_interleave(
+        cfg.buckets_per_shard)
+    cand = (live_mask(state.meta).reshape(-1)
+            & (succ == shard_id).any(dim=-1) & (row != shard_id))
+    idx = torch.nonzero(cand).reshape(-1)
+    idx = idx[first_copies(hash_key64(h[idx]),
+                           lambda pos: flat[idx[pos]])]
+    base = base_bucket(h[idx, 1], cfg.buckets_per_shard, cfg.n_probe)
+    present = window_present(
+        state, flat[idx],
+        (base + shard_id * cfg.buckets_per_shard).to(torch.int32))
+    n_candidates, n_present = torch.stack(
+        [torch.full((), idx.shape[0], device=idx.device),
+         present.sum()]).tolist()
+    return RepairPlan(shard_id=shard_id, src=idx[~present],
+                      n_candidates=n_candidates, n_present=n_present)
+
+
+@dataclasses.dataclass
+class Repair:
+    """An in-flight anti-entropy pass for one recovered shard."""
+
+    plan: RepairPlan
+    state: DHTState
+    batch: int = DEFAULT_BATCH
+    cursor: int = 0
+    healed: int = 0         # keys re-inserted at the recovered shard
+    skipped: int = 0        # present after all (a racing write, a re-plan)
+    rounds: int = 0
+
+    @property
+    def done(self) -> bool:
+        return self.cursor >= self.plan.n_missing
+
+
+def repair_begin(state: DHTState, shard_id: int,
+                 batch: int = DEFAULT_BATCH) -> Repair:
+    """Plan the diff and open a bounded repair stream.  The recovered
+    shard must be live again (``faults.recover_shard``)."""
+    if state.ring is None:
+        raise ValueError("repair needs a membership ring")
+    if not bool(state.ring.alive[shard_id]):
+        raise ValueError("the repair target must be recovered (live) first")
+    return Repair(plan=plan_repair(state, shard_id), state=state,
+                  batch=batch)
+
+
+def repair_round(state: DHTState, rows: torch.Tensor, valid: torch.Tensor,
+                 shard_id: int, axis_name=None) -> torch.Tensor:
+    """One get-or-put round of the copies in flat slots ``rows`` (those
+    ``valid``), pinned to ``shard_id`` by ``placement`` (the replica
+    select would send them to their live owners, which hold them
+    already), at capacity 0 so the count-driven plan sizes the round to
+    its one destination.  The table's buffers change in place.  Returns
+    ``[dropped, healed, skipped]`` (int64, on the device; under a process
+    group this rank's rows' counts)."""
+    keys, vals = state.flat_keys[rows], state.flat_vals[rows]
+    step_st = DHTState(dataclasses.replace(state.cfg, capacity=0),
+                       state.flat_keys, state.flat_vals, state.flat_meta,
+                       state.flat_csum, state.ring)
+    dest = torch.full((rows.shape[0],), shard_id, dtype=torch.int32,
+                      device=rows.device)
+    _, _, _vals, found, _code, es = dht_execute(
+        step_st, migrate_ops(keys, vals, valid), kinds=("migrate",),
+        axis_name=axis_name, placement=(dest, state.ring.epoch))
+    return torch.stack([es["dropped"].to(torch.int64), (valid & ~found).sum(),
+                        (valid & found).sum()])
+
+
+def repair_step(rep: Repair) -> tuple[Repair, dict[str, int]]:
+    """Heal one bounded batch in ONE get-or-put round pinned to the
+    recovered shard (:func:`repair_round`).  Reads the round's counts
+    back to the host once."""
+    plan = rep.plan
+    if rep.done:
+        return rep, {"healed": 0, "skipped": 0, "remaining": 0}
+    lo = rep.cursor
+    hi = min(lo + rep.batch, plan.n_missing)
+    n = hi - lo
+    dev = plan.src.device
+    pad = torch.zeros(rep.batch, dtype=torch.int64, device=dev)
+    pad[:n] = plan.src[lo:hi]
+    valid = torch.arange(rep.batch, device=dev) < n
+    dropped, healed, skipped = repair_round(rep.state, pad, valid,
+                                            plan.shard_id).tolist()
+    if dropped:
+        raise RuntimeError(f"repair round dropped {dropped} rows")
+    rep.cursor = hi
+    rep.healed += healed
+    rep.skipped += skipped
+    rep.rounds += 1
+    obs_metrics.inc("repair.rounds")
+    obs_metrics.inc("repair.keys_healed", healed)
+    return rep, {"healed": healed, "skipped": skipped,
+                 "remaining": plan.n_missing - rep.cursor}
+
+
+def repair_diff(state: DHTState, shard_id: int) -> int:
+    """Convergence check: how many replica copies the shard still lacks
+    (0 after a completed repair)."""
+    return plan_repair(state, shard_id).n_missing
+
+
+def repair_run(state: DHTState, shard_id: int,
+               batch: int = DEFAULT_BATCH) -> tuple[DHTState, dict[str, int]]:
+    """Drive a full anti-entropy pass -> ``(state', stats)``; the table
+    is healed in place."""
+    rep = repair_begin(state, shard_id, batch)
+    while not rep.done:
+        rep, _ = repair_step(rep)
+    return rep.state, {
+        "n_candidates": rep.plan.n_candidates,
+        "n_present": rep.plan.n_present,
+        "n_planned": rep.plan.n_missing,
+        "healed": rep.healed,
+        "skipped": rep.skipped,
+        "rounds": rep.rounds,
+    }
+
+
 __all__ = [
-    "DEFAULT_BATCH", "Migration", "MigrationPlan", "adopt_ring",
-    "dht_resize", "migration_begin", "migration_finish", "migration_read",
-    "migration_step", "plan_migration", "shard_join", "shard_leave",
-    "stale_sources",
+    "DEFAULT_BATCH", "Migration", "MigrationPlan", "Repair", "RepairPlan",
+    "adopt_ring", "dht_resize", "migration_begin", "migration_finish",
+    "migration_read", "migration_step", "plan_migration", "plan_repair",
+    "repair_begin", "repair_diff", "repair_run", "repair_step",
+    "shard_join", "shard_leave", "stale_sources",
 ]

@@ -58,8 +58,14 @@ slab (the other epoch's rows get a harmless in-range base) and selects
 by ``esel``.  Such a round is read-only; a checksum-failed bucket is
 flagged INVALID in whichever slab it was read from.
 
-Not in this slice: replication (``cfg.n_replicas > 1`` raises
-``NotImplementedError`` naming ROADMAP item 12).
+k-successor replication (``cfg.n_replicas > 1`` on a ring): a round's
+owner lookup is the crash-tolerant replica select
+(:func:`replica_placement`): a key whose owner's liveness bit is down
+goes to the first live shard of its successor set, read from the ring's
+device twin of the liveness bits, and the rows so served are counted in
+the ``fallback_reads`` lane.  Replicated writes fan out in
+``dht.dht_write_replicated``.  An installed ``core.faults.FaultPlan``
+drops rows of eligible single-device rounds before routing.
 """
 from __future__ import annotations
 
@@ -71,7 +77,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
-from . import routing
+from . import faults, routing
 from .hashing import base_bucket, owner_shard, ring_owner
 from .layout import (
     GEN_SHIFT,
@@ -86,6 +92,7 @@ from .layout import (
     to_i32,
     u32,
 )
+from .membership import ring_successors
 
 # op tags
 OP_READ = 0
@@ -451,14 +458,38 @@ def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
 # the engine
 # ---------------------------------------------------------------------------
 
+def replica_placement(state: DHTState, h_hi):
+    """Crash-tolerant placement under k-successor replication: each key
+    goes to its owner unless the owner's liveness bit is down, then to
+    the first live shard of its successor set (where every shard of the
+    set is down, to the owner: the probe misses and the write drops, as
+    at an unreachable rank).  Returns ``(dest, epoch, fallback)``,
+    ``fallback`` marking the keys not served by their owner.  Needs a
+    ring and ``cfg.n_replicas > 1``; reads the liveness bits from the
+    ring's device twin, with no host copy."""
+    r = state.ring.to(h_hi.device)
+    succ = ring_successors(r, h_hi, state.cfg.n_replicas)   # (..., k)
+    own = succ[..., 0]
+    s = r.alive_dev.shape[0]
+    ok = (succ >= 0) & r.alive_dev[succ.clamp(0, s - 1).long()]
+    # argmax takes no bool; on ties it returns the first maximum
+    col = torch.argmax(ok.to(torch.int32), dim=-1)
+    dest = succ.gather(-1, col[..., None])[..., 0]
+    dest = torch.where(ok.any(dim=-1), dest, own)
+    return dest.to(torch.int32), r.epoch, dest != own
+
+
 def _owner_epoch(state: DHTState, h_hi):
     """Owner placement and the membership epoch: the paper's static
     ``hash % S`` (epoch 0), or the state's consistent-hash ring (its
-    successor vnode and its epoch, a Python int).  The replica select is
-    a later slice."""
+    successor vnode and its epoch, a Python int); under replication the
+    crash-tolerant replica select (:func:`replica_placement`)."""
     r = state.ring
     if r is None:
         return owner_shard(h_hi, state.cfg.n_shards), 0
+    if state.cfg.n_replicas > 1:
+        dest, epoch, _fb = replica_placement(state, h_hi)
+        return dest, epoch
     r = r.to(h_hi.device)
     return ring_owner(h_hi, r.positions, r.owners, r.n_live), r.epoch
 
@@ -499,8 +530,6 @@ def _route_ops(state: DHTState, ops: OpBatch, capacity: int | None,
 
 def _check_supported(state: DHTState, kinds, ops: OpBatch, prev=None,
                      placement=None, pending=None, axis_name=None) -> None:
-    if state.cfg.n_replicas > 1:
-        raise routing.not_ported("k-successor replication", "12")
     if not kinds or any(k not in KINDS for k in kinds):
         raise ValueError(f"kinds must be a non-empty subset of {KINDS}")
     if prev is None:
@@ -646,6 +675,13 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         raise ValueError("write/migrate batches need a value lane")
     if ops.op is None and len(kinds) != 1:
         raise ValueError("untagged batches must be uniform-kind")
+    # deterministic fault injection (core/faults.py): dropped rows come
+    # back W_DROPPED / not found, like a routing overflow.  Single-device
+    # rounds only, as in the reference, whose traced sharded rounds never
+    # see the plan; with none installed nothing here touches the card
+    fplan = faults.get_plan()
+    if fplan is not None and group is None:
+        ops = fplan.perturb(ops, kinds)
     conflict = None
     if pending is not None:
         if kinds != ("read",) or ops.op is not None:
@@ -654,6 +690,19 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         if len(pending):
             conflict = pending.conflicts(ops.keys, ops.valid)
             ops = OpBatch(keys=ops.keys, valid=ops.valid & ~conflict)
+    # replica-select lane: under replication the round's placement is the
+    # first live replica, and the rows not served by their owner are
+    # counted.  Callers that pass ``placement`` (the L1 front end, the
+    # replicated write fan-out, repair) do their own accounting.
+    n_fallback = 0
+    if (cfg.n_replicas > 1 and state.ring is not None
+            and placement is None and prev is None):
+        if hashes is None:
+            h = kops.hash64(ops.keys.contiguous())
+            hashes = (h[:, 0], h[:, 1])
+        dest_r, epoch_r, fb = replica_placement(state, hashes[0])
+        placement = (dest_r, epoch_r)
+        n_fallback = (ops.valid & fb).sum().to(torch.int32)
     elidable = group is not None and kinds == ("read",) and ops.op is None
     elide = elidable if elide_self is None else bool(elide_self)
     if elide and not elidable:
@@ -768,7 +817,7 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         "bin_max_load": bcounts.max(),
         "bin_imbalance": bmax * float(cfg.n_shards) / btotal,
         "hot_frac": bmax / btotal,
-        "fallback_reads": 0,
+        "fallback_reads": n_fallback,
     }
     if l1_meta:
         estats["bucket_gen"] = gen_out
@@ -854,5 +903,5 @@ __all__ = [
     "KINDS", "InFlightRound", "OP_MIGRATE", "OP_READ", "OP_WRITE",
     "OpBatch", "W_DROPPED", "W_EVICT", "W_INSERT", "W_SKIP", "W_UPDATE",
     "dht_commit", "dht_execute", "dht_issue", "dual_fusable", "migrate_ops",
-    "mixed_ops", "read_ops", "write_ops",
+    "mixed_ops", "read_ops", "replica_placement", "write_ops",
 ]

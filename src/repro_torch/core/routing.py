@@ -212,7 +212,7 @@ def auto_capacity(n_local: int, n_dest: int, factor: float = 4.0,
 
 def _to_lanes(p: torch.Tensor) -> torch.Tensor:
     """(n, *tail) payload -> (n, w) int32 lane view (bit-exact)."""
-    q = p.reshape(p.shape[0], -1)
+    q = p.reshape(p.shape[0], math.prod(p.shape[1:]))   # 0 rows too
     if q.dtype == torch.bool:
         return q.to(torch.int32)
     if q.element_size() != 4:

@@ -28,7 +28,10 @@ from ..core.layout import INVALID, OCCUPIED
 def route_pack(mat: torch.Tensor, inv: torch.Tensor,
                fill_row: torch.Tensor) -> torch.Tensor:
     """(n, L) item lanes -> (rows, L) send buffer: row i is
-    ``mat[inv[i]]``, or the fill row where ``inv[i] == -1``."""
+    ``mat[inv[i]]``, or the fill row where ``inv[i] == -1`` (every row
+    when ``mat`` has none)."""
+    if mat.shape[0] == 0:
+        return fill_row[None, :].expand(inv.shape[0], -1).clone()
     picked = mat[inv.clamp(min=0).long()]
     return torch.where((inv >= 0)[:, None], picked, fill_row[None, :])
 

@@ -87,11 +87,12 @@ def test_hash64_kernel_edges(gen, n, kw, misaligned):
 @pytest.mark.parametrize("n,rows,width", [(1, 16, 1), (80, 64, 22),
                                           (65536, 131072, 48), (50, 77, 21),
                                           (300, 513, 28), (9, 1001, 48),
-                                          (131072, 131072, 22)])
+                                          (131072, 131072, 22), (0, 64, 22)])
 def test_route_kernels_match_plain(gen, n, rows, width):
     """Bit for bit, with fill rows (-1) and an index past n, which the
     kernel clamps to the last row; route_pack also from a matrix one word
-    off its 16-byte alignment (the 4-byte path)."""
+    off its 16-byte alignment (the 4-byte path), and from no rows at all
+    (a rank with nothing to send: every row is fill)."""
     mat = _words(gen, n, width)
     inv = torch.randint(-1, n, (rows,), generator=gen).to(torch.int32).cuda()
     inv[:3] = -1
@@ -648,6 +649,68 @@ def test_migration_on_card_matches_cpu(gen):
         for name in b[4]:
             np.testing.assert_array_equal(a[4][name], b[4][name], name)
     assert card[1][0][3]["hits_old_epoch"] > 0
+
+
+def test_replication_on_card_matches_cpu(gen):
+    """k=2 on a ring of 4: a replicated write, the crash of shard 1, a
+    failover read, a write during the outage, the recovery, the repair
+    plan and run: every slab word, code, count and the plan's sources
+    equal the CPU's.  The replica select reads the ring's device twin of
+    the liveness bits: a replicated read issue half syncs the host no
+    more often than an unreplicated one."""
+    import warnings
+
+    from repro_torch.core import (crash_shard, dht_write_replicated,
+                                  plan_repair, recover_shard, repair_run,
+                                  ring_create)
+
+    keys, vals = _words(gen, 512, 20, "cpu"), _words(gen, 512, 26, "cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg = DHTConfig(n_shards=4, n_replicas=2, buckets_per_shard=1024,
+                        capacity=256)
+        st = dht_create(cfg, ring_create(4), device=device)
+        k, v = keys.to(device), vals.to(device)
+        rows, counts = [], []
+        st, ws = dht_write_replicated(st, k[:256], v[:256])
+        rows.append(ws["code"].cpu())
+        counts.append({n: int(ws[n]) for n in ("acked", "replica_writes")})
+        st = crash_shard(st, 1)
+        st, o, f, rs = dht_read(st, k[:256])
+        rows += [o.cpu(), f.cpu()]
+        counts.append(int(rs["fallback_reads"]))
+        st, ws = dht_write_replicated(st, k[256:], v[256:])
+        rows.append(ws["code"].cpu())
+        st = recover_shard(st, 1)
+        rows.append(plan_repair(st, 1).src.cpu())
+        st, rep = repair_run(st, 1, batch=64)
+        counts.append(rep)
+        st, o, f, rs = dht_read(st, k)
+        rows += [o.cpu(), f.cpu()]
+        out[device] = (state_to_numpy(st), rows, counts)
+    card, cpu = out["cuda"], out["cpu"]
+    for name in cpu[0]:
+        np.testing.assert_array_equal(card[0][name], cpu[0][name], name)
+    assert all(torch.equal(a, b) for a, b in zip(card[1], cpu[1]))
+    assert card[2] == cpu[2] and card[2][1] > 0
+
+    def syncs(st):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                dht_read_commit(dht_read_async(st, keys.cuda()))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    plain = DHTConfig(n_shards=4, buckets_per_shard=1024)
+    rep2 = DHTConfig(n_shards=4, n_replicas=2, buckets_per_shard=1024)
+    st1 = dht_create(plain, ring_create(4), device="cuda")
+    st2 = crash_shard(dht_create(rep2, ring_create(4), device="cuda"), 1)
+    syncs(st1), syncs(st2)          # first calls set up torch's state
+    assert syncs(st2) <= syncs(st1)
 
 
 def test_commit_waits_on_its_round_not_the_device(gen):

@@ -1,6 +1,7 @@
 """``repro_torch.core`` exports every public name of ``repro.core`` whose
 home module is ported, so code can swap one package for the other.  Names
-whose port waits for a later ROADMAP item are listed with that item."""
+whose port waits for a later ROADMAP item would be listed with that item;
+none is left."""
 import importlib
 import types
 
@@ -9,15 +10,11 @@ import repro_torch.core as tcore
 
 # modules of repro.core with a port file under repro_torch/core/
 PORTED = ("neighbors", "hashing", "layout", "dht", "surrogate", "interp",
-          "l1cache", "op_engine", "pipeline", "membership", "migrate")
+          "l1cache", "op_engine", "pipeline", "membership", "migrate",
+          "faults")
 
 # public names of ported modules whose port is still to come: ROADMAP item
-WAITING = {
-    # item 12: replication, and the anti-entropy repair half of migrate
-    "dht_write_replicated": 12, "replica_placement": 12,
-    "Repair": 12, "RepairPlan": 12, "plan_repair": 12, "repair_begin": 12,
-    "repair_diff": 12, "repair_run": 12, "repair_step": 12,
-}
+WAITING: dict = {}
 
 
 def _home(name):
@@ -52,9 +49,17 @@ def test_core_exports_every_ported_name():
 
 
 def test_waiting_list_names_only_missing_reference_names():
-    """Each waiting name is a ported module's public name of repro.core
-    that the port does not export yet: the list shrinks as items land."""
+    """Nothing is left waiting: every public name of a ported module of
+    repro.core is exported, the replication, fault and repair names of
+    item 12 (the last to wait) among them, with every public name of
+    the reference's ``faults`` module."""
     names = set(_ported_names())
-    assert set(WAITING) <= names
-    assert not [n for n in WAITING if hasattr(tcore, n)]
-    assert set(WAITING.values()) <= {12}
+    assert WAITING == {}
+    item12 = {"dht_write_replicated", "replica_placement", "Repair",
+              "RepairPlan", "plan_repair", "repair_begin", "repair_diff",
+              "repair_run", "repair_step", "FaultPlan", "crash_shard",
+              "recover_shard"}
+    assert item12 <= names
+    from repro.core import faults as jfaults
+    assert not [n for n in item12 | set(jfaults.__all__)
+                if n not in tcore.__all__ or not hasattr(tcore, n)]

@@ -226,18 +226,28 @@ def test_flatten_fanout_and_merge_wire_stats_match_reference():
 
 
 def test_later_slices_raise_not_ported():
-    """Replication is ROADMAP item 12: a replicated table's neighbourhood
-    query raises naming it, with and without the previous epoch (the
-    dual-epoch form itself is held in tests/test_torch_migrate.py)."""
+    """Replication (ROADMAP item 12) is ported, so a replicated table's
+    neighbourhood query no longer raises: with no ring to name the
+    successors, ``n_replicas=2`` places keys as ``hi % S`` does, as in
+    the reference, and the dual-epoch forms give the unreplicated
+    table's answers (replication on a ring: tests/test_torch_faults.py;
+    the dual-epoch form itself: tests/test_torch_migrate.py)."""
     _, tcfg = _cfgs()
-    rcfg = dataclasses.replace(tcfg, dht=dataclasses.replace(
-        tcfg.dht, n_shards=2, n_replicas=2))
-    st = T.surrogate_create(rcfg, device="cpu")
-    keys = torch.zeros((2, 3, 20), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        T.dht.dht_read_many_dual(st, st, keys)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.lookup_or_interpolate(rcfg, st, torch.zeros(2, 10), prev=st)
+    out = []
+    for k in (1, 2):
+        rcfg = dataclasses.replace(tcfg, dht=dataclasses.replace(
+            tcfg.dht, n_shards=2, n_replicas=k))
+        st = T.surrogate_create(rcfg, device="cpu")
+        x = torch.linspace(1.0, 2.0, 20).reshape(2, 10)
+        T.store(rcfg, st, x, torch.ones(2, rcfg.n_outputs))
+        keys = torch.arange(120, dtype=torch.int32).reshape(2, 3, 20)
+        _, _, v, f, s = T.dht.dht_read_many_dual(st, st, keys)
+        _, _, o, p, _ = T.lookup_or_interpolate(rcfg, st, x, prev=st)
+        out.append((v, f, int(s["hits"]), o, p))
+    (v1, f1, h1, o1, p1), (v2, f2, h2, o2, p2) = out
+    assert torch.equal(v1, v2) and torch.equal(f1, f2) and h1 == h2
+    assert torch.equal(o1, o2) and torch.equal(p1, p2)
+    assert bool((p2 == T.PROV_EXACT).all())
 
 
 # ---------------------------------------------------------------------------

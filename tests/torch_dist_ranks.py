@@ -1,5 +1,6 @@
-"""Rank bodies of tests/test_torch_distributed.py: one process per rank of
-a gloo group on the CPU, running the port's multi-rank backend
+"""Rank bodies of tests/test_torch_distributed.py (and, for the ``faults``
+group, tests/test_torch_faults.py): one process per rank of a gloo group
+on the CPU, running the port's multi-rank backend
 (``repro_torch.core.distributed``) on seeded inputs and saving what it
 saw to ``<out>/<group>_rank<r>.npz``.
 
@@ -32,6 +33,15 @@ ELASTIC_WORLD = 3
 ELASTIC_N = 192         # the group's keys, 64 a rank
 ELASTIC_BUCKETS = 512
 ELASTIC_BATCH = 96      # the group's rows a migrate round, 32 a rank
+# the faults group (tests/test_torch_faults.py): 4 ranks, k = 2
+FAULT_WORLD = 4
+FAULT_BUCKETS = 4096
+FAULT_N = 256           # the group's batch: 64 rows a rank
+FAULT_CAP = 64          # per (source, destination) pair: nothing drops
+FAULT_VICTIM = 1
+FAULT_BATCH = 64        # the group's rows a repair round
+FAULT_RETRY_CAP = 48    # single device: below the bins of 256 rows
+FAULT_SHARDED_RETRY_CAP = 8     # a pair's bins hold ~16 rows (k=1)
 
 
 def words(rng, n: int, w: int) -> np.ndarray:
@@ -100,6 +110,25 @@ def elastic_inputs(seed: int = 7) -> dict:
     rng = np.random.default_rng(seed)
     return {"keys": words(rng, ELASTIC_N, KW),
             "vals": words(rng, ELASTIC_N, VW)}
+
+
+def kv(n: int, seed: int):
+    """Keys with values a pure function of the key (tests/test_faults.py's
+    ``_kv``): a duplicate write is idempotent and a read is checkable."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**31, size=(n, KW), dtype=np.int64)
+    vals = np.zeros((n, VW), np.uint32)
+    for w in range(VW):
+        vals[:, w] = (keys[:, 0] * (2 * w + 1) * 2654435761 + w) & 0xFFFFFFFF
+    return keys.astype(np.uint32), vals
+
+
+def fault_inputs() -> dict:
+    """The crash sequence's batches: written before and during the
+    outage."""
+    k1, v1 = kv(FAULT_N, 4)
+    k2, v2 = kv(FAULT_N, 6)
+    return {"k1": k1, "v1": v1, "k2": k2, "v2": v2}
 
 
 def block(a: np.ndarray, rank: int, world: int = WORLD) -> np.ndarray:
@@ -394,10 +423,114 @@ def group_elastic(rank: int, out: _Out) -> None:
         out.slab(f"virtual/{step}/slab", st)
 
 
+def _read_rows(out: "_Out", prefix: str, res) -> None:
+    o, f, s = res
+    out.put(prefix, {"out": o, "found": f, "hits": s["hits"],
+                     "misses": s["misses"],
+                     "fallback_reads": s["fallback_reads"]})
+
+
+def _virtual_crash(out: "_Out") -> None:
+    """The crash sequence on the port's virtual-shard backend (the
+    group's batches whole): the slab words after each mutating step."""
+    from repro_torch.core import (DHTConfig, crash_shard, dht_create,
+                                  dht_write_replicated, recover_shard,
+                                  repair_run, ring_create)
+
+    inp = fault_inputs()
+    cfg = DHTConfig(n_shards=FAULT_WORLD, n_replicas=2,
+                    buckets_per_shard=FAULT_BUCKETS, capacity=FAULT_N)
+    st = dht_create(cfg, ring_create(FAULT_WORLD), device="cpu")
+    st, _ = dht_write_replicated(st, _t(inp["k1"]), _t(inp["v1"]))
+    out.slab("virtual/s_w1", st)
+    st = crash_shard(st, FAULT_VICTIM)
+    st, _ = dht_write_replicated(st, _t(inp["k2"]), _t(inp["v2"]))
+    out.slab("virtual/s_w2", st)
+    st = recover_shard(st, FAULT_VICTIM)
+    st, _ = repair_run(st, FAULT_VICTIM, batch=FAULT_BATCH)
+    out.slab("virtual/s_rep", st)
+
+
+def group_faults(rank: int, out: _Out) -> None:
+    """Crash tolerance on 4 ranks, k=2, capacity > 0: a replicated write,
+    the crash of shard FAULT_VICTIM (wiped), a failover read, a write
+    during the outage, the recovery, reads across the availability gap,
+    the lockstep repair and a second (idle) one; then the L1 crash fence
+    on a table with an L1, and the write retry on overflow at k=1 and
+    k=2.  Rank 0 also runs the sequence on the virtual backend."""
+    import torch
+
+    from repro_torch.core import DHTConfig, L1Config, ring_create
+    from repro_torch.core.distributed import ShardedDHT
+
+    world = FAULT_WORLD
+
+    def rows(a):
+        return _t(block(a, rank, world))
+
+    def table(k, cap, **kw):
+        cfg = DHTConfig(n_shards=world, n_replicas=k,
+                        buckets_per_shard=FAULT_BUCKETS, capacity=cap)
+        return ShardedDHT.create(cfg, device="cpu", ring=ring_create(world),
+                                 **kw)
+
+    inp = fault_inputs()
+    k1, v1, k2, v2 = (rows(inp[n]) for n in ("k1", "v1", "k2", "v2"))
+    d = table(2, FAULT_CAP)
+    out.put("sharded/w1", d.write(k1, v1))
+    out.slab("sharded/s_w1", d.state)
+    d.crash(FAULT_VICTIM)
+    _read_rows(out, "sharded/r_out1", d.read(k1))
+    out.put("sharded/w2", d.write(k2, v2))
+    out.slab("sharded/s_w2", d.state)
+    d.recover(FAULT_VICTIM)
+    _read_rows(out, "sharded/r_gap1", d.read(k1))
+    _read_rows(out, "sharded/r_gap2", d.read(k2))
+    out.put("sharded/rep", d.repair(FAULT_VICTIM, batch=FAULT_BATCH))
+    out.slab("sharded/s_rep", d.state)
+    _read_rows(out, "sharded/r_fin1", d.read(k1))
+    _read_rows(out, "sharded/r_fin2", d.read(k2))
+    out.put("sharded/rep2", d.repair(FAULT_VICTIM, batch=FAULT_BATCH))
+
+    keys, vals = (rows(a) for a in kv(FAULT_N, 9))
+    d = table(2, FAULT_CAP, l1cfg=L1Config(n_sets=64, n_ways=4))
+    d.write(keys, vals)
+    for i in range(4):
+        if i == 2:
+            d.crash(FAULT_VICTIM)
+        o, f, s = d.read(keys)
+        out.put(f"fence/{i}", {"out": o, "found": f,
+                               "l1_hits": s["l1_hits"],
+                               "fallback_reads": s["fallback_reads"]})
+
+    keys, vals = (rows(a) for a in kv(FAULT_N, 5))
+    for k in (1, 2):
+        first = table(k, FAULT_SHARDED_RETRY_CAP).write(keys, vals,
+                                                        max_retries=0)
+        d = table(k, FAULT_SHARDED_RETRY_CAP)
+        ws = d.write(keys, vals)
+        out.put(f"retry{k}", {"first_dropped": first["dropped"],
+                              "write_retries": ws["write_retries"],
+                              "dropped": ws["dropped"], "code": ws["code"],
+                              **{lane: ws[lane] for lane in (
+                                  "acked", "replica_writes") if lane in ws}})
+        out.slab(f"retry{k}/slab", d.state)
+        # read back in thin chunks: a pair's bin holds at most its cap
+        step = FAULT_SHARDED_RETRY_CAP
+        got = [d.read(keys[lo:lo + step])
+               for lo in range(0, keys.shape[0], step)]
+        out.put(f"retry{k}/out", torch.cat([g[0] for g in got]))
+        out.put(f"retry{k}/found", torch.cat([g[1] for g in got]))
+    if rank == 0:
+        _virtual_crash(out)
+
+
 GROUPS = {"modes": group_modes, "tier": group_tier,
           "elastic": group_elastic}
 # ranks a group runs on (WORLD unless named)
 GROUP_WORLD = {"elastic": ELASTIC_WORLD}
+# groups run by other test files than tests/test_torch_distributed.py
+OTHER_GROUPS = {"faults": group_faults}
 
 
 def main(argv) -> int:
@@ -412,7 +545,7 @@ def main(argv) -> int:
         world_size=world, timeout=datetime.timedelta(seconds=60))
     out = _Out()
     try:
-        GROUPS[name](rank, out)
+        {**GROUPS, **OTHER_GROUPS}[name](rank, out)
     finally:
         dist.destroy_process_group()
     np.savez(f"{out_dir}/{name}_rank{rank}.npz", **out)
