@@ -10,7 +10,8 @@ plain PyTorch version on the card, drives the main paths (the lock-free
 DHT at full size, key rounding, the POET surrogate twin, the
 neighbourhood-interpolation query, the L1 tier, the pipeline, elastic
 membership and online resharding, replication with crash failover and
-repair, the multi-rank backend, and gemma3-12b prefill and decode),
+repair, the multi-rank backend, the telemetry, and gemma3-12b prefill
+and decode),
 checks the results, and times every kernel.  One
 JSON line per phase:
 
@@ -30,6 +31,20 @@ JSON line per phase:
              every read must hit, the checksum kernel must launch once per
              write pass; then the same stream at B=2^16 on the card and on
              the CPU must leave identical slab words;
+4b. obs    - the telemetry (``repro_torch.obs``) on phase 4's table: (a)
+             5 write, read and 95/5 rounds with recording on and off in
+             turns (after an untimed pair): median ms and range of each,
+             and the host syncs of each issue and commit half, which must
+             be the engine's count in both modes (1 a read issue half; a
+             write's 1 + its passes + 1 where they end early; 0 at
+             commit); (b) the registry's counters against the sums of
+             the stat lanes the caller saw, ``engine.fill_frac`` once a
+             round; (c) the JSONL and Chrome exports complete, and the
+             report's timeline of the last rounds; (d) with the fence on,
+             the median bin/dispatch/apply/collect/commit ms of 5 read,
+             write and get-or-put rounds (``obs_spans``); (e) the cost
+             model fitted over rounds of 2^12..2^16 keys, every
+             coefficient >= 0 (``obs_costmodel``);
 5. keys    - make_keys (the round_sig kernel) on 2 M values spanning
              1e-30..1e30: kernel against plain on the card bit for bit,
              and the card against the CPU, where a mismatch is allowed
@@ -136,7 +151,10 @@ JSON line per phase:
              ShardedDHT.create(ring=ring_create(1)): the four rounds
              equal to the virtual backend with the same ring, and
              apply_ring to the next epoch moves nothing and bumps the
-             epoch;
+             epoch; (e) telemetry at world 1 (B=2^20, a fresh registry):
+             telemetry_snapshot() after a write and two reads against
+             the lanes the wrappers returned, and the all-to-all words
+             torch.profiler saw in one read beside its wire words;
 13. lm     - gemma3-12b: (a) the local-attention kernel against its
              plain version at the prefill shape (B=2, S=4096, H=16, Hk=8,
              D=256, window 1024) in bf16 and float32 and at edge shapes,
@@ -226,6 +244,9 @@ FAULT_PARITY_BATCH = 1 << 11
 SHARD_BUCKETS = 1 << 24        # sharded-full: one rank, one shard, 3.2 GB
 SHARD_MODE_WRITES = 1 << 10    # fine/coarse (coarse: an exchange a write)
 SHARD_REPS = 5                 # timed repeats, sharded and virtual in turns
+OBS_REPS = 5                   # rounds a kind and mode in the obs phase
+OBS_FIT_SIZES = (1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)
+OBS_SHARD_BUCKETS = 1 << 20    # the world-1 telemetry table (sharded (e))
 SERVER_OPS = 1 << 13           # the server baseline's batch
 SERVER_WIDTH = 24              # ops the server applies a round
 LM_ARCH = "gemma3-12b"         # full width and depth (48 layers, bf16)
@@ -265,8 +286,8 @@ KERNEL_SOURCES = {
 }
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
-ENGINE_PHASES = ("dht", "poet", "interp", "l1", "pipeline", "elastic",
-                 "faults", "sharded")
+ENGINE_PHASES = ("dht", "obs", "poet", "interp", "l1", "pipeline",
+                 "elastic", "faults", "sharded")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
@@ -1223,6 +1244,220 @@ def phase_dht(cfg_big):
     check(items_equal, "B=2^16 stream: card and CPU vals/found/code differ")
     emit("dht_parity", B=small.buckets_per_shard, tables_equal=tables_equal,
          items_equal=items_equal)
+    return launches
+
+
+def _obs_round(kind, keys, vals, mk, mv, op):
+    """One engine round of ``kind`` (write, read, mixed_95_5, migrate)
+    through the issue and commit halves -> ``(ops, kinds, mix)``: the
+    batch, its kinds and the op counts the caller issued."""
+    from repro_torch.core import migrate_ops, mixed_ops, read_ops, write_ops
+
+    n = keys.shape[0]
+    if kind == "write":
+        return write_ops(keys, vals), ("write",), {"write": n}
+    if kind == "read":
+        return read_ops(keys), ("read",), {"read": n}
+    if kind == "migrate":
+        return migrate_ops(mk, mv), ("migrate",), {"migrate": n}
+    n_write = int((op == 1).sum())
+    return (mixed_ops(op, mk, mv), ("read", "write"),
+            {"read": n - n_write, "write": n_write})
+
+
+def phase_obs(cfg_big):
+    """The telemetry of the engine on dht-full's table: (a) recording on
+    against off in turns (round ms; host syncs of each issue and commit
+    half); (b) the registry's counters against the lanes the caller saw;
+    (c) the JSONL and Chrome exports and the report's timeline; (d) the
+    fenced phase spans of read, write and get-or-put rounds; (e) the
+    cost model fitted over rounds of 2^12..2^16 keys."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import dht_commit, dht_create, dht_issue, dht_write
+    from repro_torch.kernels import ops
+    from repro_torch.obs import costmodel, metrics, report, trace
+
+    st = dht_create(cfg_big, device=DEVICE)
+    wk, wv, _, _, _ = _stream(cfg_big, DEVICE, seed=99)
+    dht_write(st, wk, wv)               # warm-up: first-call costs
+    torch.cuda.synchronize()
+    reg = metrics.MetricRegistry()
+    prev = metrics.set_registry(reg)
+    tracer = obs.get_tracer()
+    tracer.clear()
+    ops.reset_launches()
+    seen: list = []                     # (stats, mix) of every recorded round
+    kinds = ("write", "read", "mixed_95_5")
+    try:
+        def run(kind, stream, record):
+            sop, sk, mix = _obs_round(kind, *stream)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (contextlib.nullcontext() if record
+                  else metrics.disabled()):
+                es = dht_commit(dht_issue(st, sop, kinds=sk))[5]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(int(es["dropped"]) == 0, f"obs {kind}: rows dropped")
+            if record:
+                seen.append((es, mix))
+            return ms
+
+        # (a) on and off in turns, fresh keys a rep and mode; rep 0 warms
+        # both modes up (first-call costs) and is not timed
+        times = {(m, k): [] for m in ("on", "off") for k in kinds}
+        for rep in range(OBS_REPS + 1):
+            for mode in (("on", "off") if rep % 2 else ("off", "on")):
+                stream = _stream(cfg_big, DEVICE,
+                                 seed=300 + 2 * rep + (mode == "off"))
+                for kind in kinds:
+                    ms = run(kind, stream, mode == "on")
+                    if rep:
+                        times[mode, kind].append(ms)
+        overhead = {}
+        for kind in kinds:
+            on, off = times["on", kind], times["off", kind]
+            m_on, m_off = statistics.median(on), statistics.median(off)
+            overhead[kind] = {
+                "ms_on_median": m_on, "ms_off_median": m_off,
+                "ms_on_range": [min(on), max(on)],
+                "ms_off_range": [min(off), max(off)],
+                "ms_on_all": on, "ms_off_all": off,
+                "overhead_frac": m_on / m_off - 1.0}
+        # host syncs of each half, recording on and off (fresh keys each);
+        # the sync debug mode's first window reports one sync of torch's
+        # own (first-call state), so one read round opens it first
+        syncs, sites = {}, {}
+        sop, sk, mix = _obs_round("read",
+                                  *_stream(cfg_big, DEVICE, seed=319))
+        _, _, rnd = issue_syncs(lambda: dht_issue(st, sop, kinds=sk))
+        seen.append((dht_commit(rnd)[5], mix))
+        for mode in ("on", "off"):
+            stream = _stream(cfg_big, DEVICE, seed=320 + (mode == "off"))
+            for kind in kinds:
+                sop, sk, mix = _obs_round(kind, *stream)
+                with (contextlib.nullcontext() if mode == "on"
+                      else metrics.disabled()):
+                    n_i, s_i, rnd = issue_syncs(
+                        lambda: dht_issue(st, sop, kinds=sk))
+                    n_c, s_c, out = issue_syncs(lambda: dht_commit(rnd))
+                es = out[5]
+                if mode == "on":
+                    seen.append((es, mix))
+                syncs[f"{kind}_{mode}"] = {"issue": n_i, "commit": n_c,
+                                           "write_passes": es["rounds"]}
+                sites[f"{kind}_{mode}"] = s_i + s_c
+        # the engine's count, on and off alike: the capacity plan, then one
+        # flag read a write pass and one more where the passes end early
+        # (the pass count depends on the keys); none at commit
+        for key, got in syncs.items():
+            p = got["write_passes"]
+            want = 1 + (p + (p < cfg_big.n_probe)
+                        if not key.startswith("read") else 0)
+            got["expected_issue"] = want
+            check(got["issue"] == want and got["commit"] == 0,
+                  f"obs {key}: {got['issue']} syncs an issue half ({want} "
+                  f"expected), {got['commit']} a commit ({sites})")
+
+        # (b) the counters against the lanes the caller saw
+        check(reg.counter("engine.rounds") == len(seen),
+              f"obs: engine.rounds {reg.counter('engine.rounds')}, "
+              f"{len(seen)} rounds recorded")
+        lanes = {}
+        for lane, name in trace._COUNTER_LANES.items():
+            want = sum(int(es[lane]) for es, _ in seen if lane in es)
+            lanes[name] = (reg.counter(name), want)
+        for kind in ("read", "write"):
+            lanes[f"engine.ops.{kind}"] = (
+                reg.counter(f"engine.ops.{kind}"),
+                sum(m.get(kind, 0) for _, m in seen))
+        bad = {k: v for k, v in lanes.items() if v[0] != v[1]}
+        check(not bad, f"obs: counters differ from the lanes: {bad}")
+        fill = reg.histogram("engine.fill_frac")
+        check(fill is not None and fill.count == len(seen),
+              "obs: engine.fill_frac is not observed once a round")
+        snap = reg.snapshot()
+        n_counted = len(seen)
+
+        # (c) exports
+        with tempfile.TemporaryDirectory() as tmp:
+            n_ev = len(tracer.events())
+            n_lines = tracer.to_jsonl(f"{tmp}/trace.jsonl")
+            with open(f"{tmp}/trace.jsonl") as f:
+                rows = [json.loads(line) for line in f]
+            n_chrome = tracer.to_chrome_trace(f"{tmp}/trace.json")
+            with open(f"{tmp}/trace.json") as f:
+                chrome = json.load(f)["traceEvents"]
+        n_spans = sum(len(e.spans) for e in tracer.events())
+        check(n_lines == len(rows) == n_ev == len(seen)
+              and n_chrome == len(chrome) == n_ev + n_spans,
+              f"obs exports: {n_lines} lines, {len(rows)} read back, "
+              f"{n_chrome} chrome events ({n_ev} rounds, {n_spans} spans)")
+        print(report.render_timeline(rows, last=6), flush=True)
+
+        def span_ms(events, source):
+            out = {}
+            for ph in trace.PHASES:
+                vals = [e.spans[ph][1] * 1e3 for e in events
+                        if e.source == source and ph in e.spans]
+                if vals:
+                    out[ph] = statistics.median(vals)
+            return out
+
+        def round_ms(events, source):
+            return statistics.median(e.dur * 1e3 for e in events
+                                     if e.source == source)
+
+        issue_spans = {k: span_ms(tracer.events(), f"engine.{k}")
+                       for k in ("write", "read")}
+        issue_round = {k: round_ms(tracer.events(), f"engine.{k}")
+                       for k in ("write", "read")}
+
+        # (d) fenced phase spans
+        tracer.clear()
+        trace.set_fence(True)
+        try:
+            for rep in range(OBS_REPS):
+                stream = _stream(cfg_big, DEVICE, seed=330 + rep)
+                for kind in ("write", "read", "migrate"):
+                    run(kind, stream, True)
+        finally:
+            trace.set_fence(False)
+        fenced = {k: span_ms(tracer.events(), f"engine.{k}")
+                  for k in ("read", "write", "migrate")}
+        fenced_round = {k: round_ms(tracer.events(), f"engine.{k}")
+                        for k in fenced}
+        check(all(set(v) == set(trace.PHASES) for v in fenced.values()),
+              f"obs: fenced rounds lack phases: {fenced}")
+
+        # (e) the cost model over unfenced rounds of 2^12..2^16 keys
+        tracer.clear()
+        for n in OBS_FIT_SIZES:
+            for rep in range(3):
+                stream = [t[:n] for t in _stream(cfg_big, DEVICE,
+                                                 seed=340 + rep)]
+                for kind in ("write", "read"):
+                    run(kind, stream, True)
+        model = costmodel.fit(tracer.events())
+        check(min(model.coef()) >= 0.0,
+              f"obs cost model: a negative coefficient {model}")
+    finally:
+        metrics.set_registry(prev)
+    launches = ops.launches()
+    emit("obs", S=cfg_big.n_shards, B=cfg_big.buckets_per_shard,
+         reps=OBS_REPS, overhead=overhead, syncs=syncs,
+         rounds_counted=n_counted, counters_vs_lanes=lanes,
+         trace_events=n_ev, chrome_events=n_chrome,
+         snapshot_counters=snap["counters"])
+    emit("obs_spans", fenced_ms=fenced, fenced_round_ms=fenced_round,
+         issue_time_ms=issue_spans, unfenced_round_ms=issue_round)
+    emit("obs_costmodel", sizes=list(OBS_FIT_SIZES), **model.to_dict())
+    tracer.clear()
+    del st
     return launches
 
 
@@ -3076,6 +3311,63 @@ def _sharded_ring(cfg) -> dict:
             "read_epoch_after": int(rst["epoch"])}
 
 
+def _sharded_telemetry(cfg) -> dict:
+    """(e) The group's telemetry at world size 1, on a B=2^20 table from
+    a fresh registry: ``telemetry_snapshot()`` after a write and two
+    reads against the lanes the wrappers returned, and the all-to-all
+    words ``torch.profiler`` saw in one read beside its wire lanes (every
+    row self-owned: the buffer holds only the elided self block, the
+    wire words only the prologue)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.distributed import ShardedDHT
+    from repro_torch.obs import costmodel, metrics
+
+    tcfg = dataclasses.replace(cfg, buckets_per_shard=OBS_SHARD_BUCKETS)
+    keys, vals, _, _, _ = _stream(tcfg, DEVICE, seed=70)
+    reg = metrics.MetricRegistry()
+    prev = metrics.set_registry(reg)
+    try:
+        d = ShardedDHT.create(tcfg, device=DEVICE)
+        ws = d.write(keys, vals)
+        _, _, r1 = d.read(keys)
+        _, _, r2 = d.read(keys)
+        snap = d.telemetry_snapshot()
+        c = snap["counters"]
+        want = {
+            "engine.rounds": 3 + int(ws["write_retries"]),
+            "engine.wire_words": sum(int(x["wire_words"])
+                                     for x in (ws, r1, r2)),
+            "engine.inserted": int(ws["inserted"]),
+            "dht.hits": int(r1["hits"]) + int(r2["hits"]),
+            "dht.misses": int(r1["misses"]) + int(r2["misses"]),
+            "engine.ops.write": N_KEYS, "engine.ops.read": 2 * N_KEYS}
+        got = {k: c.get(k, 0) for k in want}
+        check(got == want and snap == reg.snapshot()
+              and snap["histograms"]["engine.fill_frac"]["count"]
+              == want["engine.rounds"],
+              f"sharded telemetry: {got} against the lanes {want}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            _, _, rs = d.read(keys)
+            torch.cuda.synchronize()
+        events = prof.events()
+        names = sorted({e.name for e in events
+                        if "alltoall" in e.name.lower().replace("_", "")})
+        profiled = costmodel.profiled_alltoall_words(events)
+        del d
+    finally:
+        metrics.set_registry(prev)
+    return {"snapshot_counters": got, "engine_rounds": c["engine.rounds"],
+            "profiled_alltoall_words": profiled,
+            "wire_words": int(rs["wire_words"]),
+            "prologue_words": 2 * tcfg.n_shards,
+            "alltoall_event_names": names}
+
+
 def _sharded_timing(cfg) -> dict:
     """(b) the four rounds on fresh sharded and virtual tables in turns
     (fresh keys each repeat), the exchange alone by CUDA events, and the
@@ -3258,6 +3550,7 @@ def phase_sharded(errs):
         check(all(eq.values()), f"sharded vs virtual backend differ: {eq}")
         del saved, inputs
         ring = _sharded_ring(cfg)
+        telemetry = _sharded_telemetry(cfg)
         timing = _sharded_timing(cfg)
         server = _server_baseline(cfg)
     finally:
@@ -3266,7 +3559,7 @@ def phase_sharded(errs):
          B=cfg.buckets_per_shard,
          table_gb=cfg.n_shards * cfg.shard_bytes / 1e9,
          read_wire_words=wire, equal_to_virtual=eq, launches=launches,
-         ring=ring, **timing)
+         ring=ring, telemetry=telemetry, **timing)
     emit("sharded_server", **server)
     return launches
 
@@ -3739,6 +4032,7 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator().manual_seed(0)
     _st, wcalls, rcalls, lcalls = phase_kernels(cfg_big, gen, errs)
     launches = {"dht": phase_dht(cfg_big)}
+    launches["obs"] = phase_obs(cfg_big)
     launches["keys"], kcalls = phase_keys(errs)
     launches["poet"], _ref, poet_plain = phase_poet()
     del _ref

@@ -115,8 +115,11 @@ def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
     (stats gain ``wmark_post``).  ``max_retries > 0`` re-issues rows the
     router dropped on a capacity overflow (``code == W_DROPPED``) for up
     to that many extra rounds; the default 0 is the single-round write.
-    Under a process group there is no retry here (a rank's drops are not
-    the group's): ``ShardedDHT.write`` retries on the global count."""
+    Each retry moves its rows from the ``engine.dropped`` counter (where
+    their round recorded them) to ``engine.requeued``, so
+    ``engine.dropped`` keeps meaning "lost for good".  Under a process
+    group there is no retry here (a rank's drops are not the group's):
+    ``ShardedDHT.write`` retries on the global count."""
     if valid is None:
         valid = _ones(keys)
     state, _, _, _, code, es = dht_execute(
@@ -127,8 +130,13 @@ def dht_write(state: DHTState, keys: torch.Tensor, vals: torch.Tensor,
         return state, total
     for _ in range(max_retries):
         retry = valid & (total["code"] == W_DROPPED)
-        if not bool(retry.any()):
+        n_retry = int(retry.sum())
+        if n_retry == 0:
             break
+        if obs_metrics.enabled():
+            reg = obs_metrics.get_registry()
+            reg.inc("engine.dropped", -n_retry)
+            reg.inc("engine.requeued", n_retry)
         state, _, _, _, code, es = dht_execute(
             state, write_ops(keys, vals, retry), kinds=("write",),
             l1_meta=l1_meta)
@@ -215,6 +223,14 @@ def dht_write_replicated(state: DHTState, keys: torch.Tensor,
     stats["replica_writes"] = n_applied - n_acked
     stats["evicted_copies"] = (applied & (code2 == W_EVICT)).sum().to(
         torch.int32)
+    # the engine's self-record flushes only its own lanes, so the
+    # replication counters are counted here (one read back, while
+    # recording is on); under a group the wrapper records the group's
+    if obs_metrics.enabled() and axis_name is None:
+        n_rep, n_ack = torch.stack([stats["replica_writes"],
+                                    n_acked]).tolist()
+        obs_metrics.inc("replica.writes", n_rep)
+        obs_metrics.inc("replica.acked_writes", n_ack)
     return state, stats
 
 
@@ -344,13 +360,14 @@ def dht_read_cached_async(state: DHTState, l1: l1cache.L1State,
 
 def dht_read_cached_commit(rnd: InFlightRound):
     """Commit an issued cached read -> ``(state', l1', vals, found,
-    stats)``.  On the single-device backend it reads two counts back to
-    the host for the ``l1.*`` counters (under a group the rank's counts
-    are not the group's, so it does not)."""
+    stats)``.  On the single-device backend, while recording is on, it
+    reads two counts back to the host for the ``l1.*`` counters (under a
+    group the rank's counts are not the group's: the wrapper records the
+    group's ``l1_hits`` lane)."""
     state = dht_commit(rnd)[0]
     vals, found = rnd.meta["out"]
     stats = rnd.meta["stats"]
-    if rnd.meta["local"]:
+    if rnd.meta["local"] and obs_metrics.enabled():
         n_hits, n_queries = torch.stack(
             [stats["l1_hits"], rnd.meta["valid"].sum().to(torch.int32)]
         ).tolist()

@@ -41,13 +41,22 @@ recovered rank once for the presence probe, and each get-or-put round
 carries, from every rank, its own source rows of the plan's slice, so
 the recovered rank receives them in the plan's order.
 
-Not in this slice: the telemetry registry (``telemetry_snapshot``;
-ROADMAP item 14), which raises ``NotImplementedError`` naming its item.
+Telemetry: under a group the engine records nothing itself; each
+wrapper records the group's reduced lanes as one round of the trace
+(``sharded.write``, ``sharded.read``, ``sharded.read_cached``,
+``sharded.read_many``, the ``sharded.migrate`` and ``sharded.repair``
+rounds) and the trace-only events ``sharded.apply_ring``,
+``sharded.crash``, ``sharded.recover`` and ``sharded.repair_run``, so
+every rank's registry holds what the reference's single process holds
+(:meth:`ShardedDHT.telemetry_snapshot`).  The migrate and repair rounds
+reduce their lanes only while recording is on, so every rank of a group
+must record, or none.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Any
 
 import torch
@@ -55,6 +64,7 @@ import torch.distributed as dist
 
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import dht as dht_ops
 from . import l1cache, routing
 from .hashing import base_bucket
@@ -92,6 +102,8 @@ _MAX_LANES = ("rounds", "epoch", "dispatch_rounds", "n_shards", "capacity",
               "bin_max_load")
 # per-rank fractions: the mean over ranks
 _MEAN_LANES = ("fill_frac", "bin_imbalance", "hot_frac")
+# a recorded group round's rows, summed over the ranks beside its lanes
+_OPS_LANE = "ops:"
 
 
 class ReducedStats:
@@ -101,10 +113,18 @@ class ReducedStats:
     the two ``all_reduce`` calls are launched without waiting;
     :meth:`wait` waits for them and unpacks 0-d int32 (float32 for the
     mean lanes) tensors on the rank's device.  ``code`` is per row and
-    stays the rank's."""
+    stays the rank's.
 
-    def __init__(self, stats: dict, group, device: torch.device):
+    ``pin=True`` (a round that will be recorded): on the card the reduced
+    buffers are also copied, in stream order after the reductions and
+    without waiting, into pinned host memory, so :meth:`host_lanes`
+    reads the group's scalar lanes after an event with no sync of its
+    own."""
+
+    def __init__(self, stats: dict, group, device: torch.device, *,
+                 pin: bool = False):
         self.world = dist.get_world_size(group)
+        self.order = [k for k in stats if k != "code"]
         self.kept = {k: v for k, v in stats.items() if k == "code"}
         self.layout: dict[str, list] = {}
         self.bufs, self.works = {}, []
@@ -131,28 +151,60 @@ class ReducedStats:
                                               async_op=True))
             self.bufs[red], self.layout[red] = buf, layout
         self._out: dict | None = None
+        self._waited = False
+        self._pinned = self._pinned_event = None
+        if pin and device.type == "cuda":
+            # NCCL's wait orders the current stream after the reductions
+            # without blocking the host
+            self._wait_works()
+            self._pinned = {}
+            for red, buf in self.bufs.items():
+                self._pinned[red] = torch.empty(
+                    buf.shape, dtype=torch.float64, pin_memory=True)
+                self._pinned[red].copy_(buf, non_blocking=True)
+            self._pinned_event = torch.cuda.Event()
+            self._pinned_event.record()
+
+    def _wait_works(self) -> None:
+        if not self._waited:
+            for w in self.works:
+                w.wait()
+            self._waited = True
+
+    def _unpack(self, bufs: dict) -> dict:
+        out = {}
+        for red, layout in self.layout.items():
+            ints = bufs[red].to(torch.int32)
+            fracs = None
+            for k, off, n, shape in layout:
+                if k in _MEAN_LANES:
+                    if fracs is None:
+                        fracs = bufs[red].to(torch.float32) / float(
+                            self.world)
+                    out[k] = fracs[off:off + n].reshape(shape)
+                else:
+                    out[k] = ints[off:off + n].reshape(shape)
+        return out
 
     def wait(self) -> dict:
         """The group's lanes (the same on every rank) and the rank's
         ``code``."""
         if self._out is None:
-            for w in self.works:
-                w.wait()
-            out = {}
-            for red, layout in self.layout.items():
-                ints = self.bufs[red].to(torch.int32)
-                fracs = None
-                for k, off, n, shape in layout:
-                    if k in _MEAN_LANES:
-                        if fracs is None:
-                            fracs = (self.bufs[red].to(torch.float32)
-                                     / float(self.world))
-                        out[k] = fracs[off:off + n].reshape(shape)
-                    else:
-                        out[k] = ints[off:off + n].reshape(shape)
-            out.update(self.kept)
-            self._out = out
+            self._wait_works()
+            self._out = {**self._unpack(self.bufs), **self.kept}
         return dict(self._out)
+
+    def host_lanes(self) -> dict:
+        """The group's scalar lanes as Python numbers, in the stats'
+        order (what :meth:`wait` unpacks; vector lanes left out): from
+        the pinned copy after its event where the round made one, else
+        with one copy of the unpacked lanes."""
+        if self._pinned is None:
+            lanes = obs_trace._scalarize(self.wait())
+        else:
+            self._pinned_event.synchronize()
+            lanes = obs_trace._scalarize(self._unpack(self._pinned))
+        return {k: lanes[k] for k in self.order if k in lanes}
 
 
 def _psum_stats(stats: dict, group) -> dict:
@@ -180,13 +232,17 @@ def _rank_device(group, device) -> torch.device:
 class ShardedRound:
     """An issued-but-uncommitted sharded round: the engine's
     :class:`InFlightRound` (its event and telemetry lanes), the results
-    the matching ``*_commit`` returns, and the stat lanes' reductions in
-    flight."""
+    the matching ``*_commit`` returns, the stat lanes' reductions in
+    flight, and what the commit records: the group's op counts and the
+    issue half's start and end on the host clock."""
 
     source: str
     rnd: InFlightRound
     outs: tuple
     stats: ReducedStats
+    ops: dict
+    t_start: float
+    t_issued: float
     committed: bool = False
 
 
@@ -206,7 +262,12 @@ class ShardedDHT:
     issue/commit wrappers (:meth:`read_async` / :meth:`write_async`).  A
     pipelined driver's ``PendingWrites`` must hold the group's promises,
     not the rank's: a row may repeat a key another rank is about to
-    write (gather the batch's keys and miss masks across ranks)."""
+    write (gather the batch's keys and miss masks across ranks).
+
+    Each wrapper records its round with the group's lanes and the
+    group's op counts, taken as the rank's rows times the world size:
+    the ranks' batches are of one size, as the reference's global batch
+    is cut.  Every rank must record, or none (``obs.metrics``)."""
 
     cfg: DHTConfig
     state: DHTState
@@ -440,14 +501,24 @@ class ShardedDHT:
         number of rounds); only the final round's unrecovered drops stay
         on ``dropped``, and ``write_retries`` counts the extra rounds."""
         valid = self._ones(keys.shape[0]) if valid is None else valid
+        n_ops = self._group_rows(keys.shape[0])
         total = None
         attempt = 0
         while True:
+            t_a = time.perf_counter()
             stats = self._write_dispatch(keys, vals, valid)
             code = stats["code"]
             retry = valid & (code == W_DROPPED)
             n_retry = self._n_retry(stats, retry)
             final = n_retry == 0 or attempt >= max_retries
+            flush = dict(stats)
+            if not final:
+                # this round's drops are about to be re-issued: flush
+                # them as requeued, so engine.dropped keeps meaning "lost
+                # for good"
+                flush["requeued"] = flush.pop("dropped")
+            obs_trace.record_round("sharded.write", flush,
+                                   ops={"write": n_ops}, t_start=t_a)
             if total is None:
                 total = dict(stats)
             else:
@@ -464,22 +535,34 @@ class ShardedDHT:
                 total["write_retries"] = attempt
                 return total
             attempt += 1
+            n_ops = n_retry
             valid = retry
+
+    def _group_rows(self, n: int) -> int:
+        """The group's rows of a call, each rank passing ``n``."""
+        return n * dist.get_world_size(self.group)
 
     def read(self, keys, valid=None):
         """Read this rank's rows -> ``(vals, found, stats)``."""
+        t0 = time.perf_counter()
         valid = self._ones(keys.shape[0]) if valid is None else valid
         if self.l1 is not None:
             self.state, self.l1, vals, found, stats = self.read_cached_fn()(
                 self.state, self.l1, keys, valid)
+            source = "sharded.read_cached"
         else:
             self.state, vals, found, stats = self.read_fn()(
                 self.state, keys, valid)
+            source = "sharded.read"
+        obs_trace.record_round(
+            source, stats, ops={"read": self._group_rows(keys.shape[0])},
+            t_start=t0)
         return vals, found, stats
 
     def read_many(self, keys, valid=None):
         """Neighbourhood read of this rank's (n, m, KW) rows -> ``(vals,
         found, stats)``."""
+        t0 = time.perf_counter()
         valid = self._ones(keys.shape[:2]) if valid is None else valid
         if self.l1 is not None:
             self.state, self.l1, vals, found, stats = \
@@ -487,6 +570,10 @@ class ShardedDHT:
         else:
             self.state, vals, found, stats = self.read_many_fn()(
                 self.state, keys, valid)
+        obs_trace.record_round(
+            "sharded.read_many", stats,
+            ops={"read": self._group_rows(keys.shape[0] * keys.shape[1])},
+            t_start=t0)
         return vals, found, stats
 
     # -- issue/commit wrappers ----------------------------------------------
@@ -494,12 +581,14 @@ class ShardedDHT:
     # reductions; the commit half waits for the round's event and the
     # reductions.  Nothing here reads a device value back to the host
     # beyond what the engine's issue half reads (the agreed capacity, the
-    # write passes' flags).
+    # write passes' flags); a recorded round's reduced lanes reach the
+    # host through a pinned copy read after its event.
 
     def read_async(self, keys, valid=None) -> ShardedRound:
         """Issue a read round without waiting; pair with
         :meth:`read_commit`.  At most ``pipeline_depth`` rounds should be
         in flight (use :meth:`round_queue`)."""
+        t0 = time.perf_counter()
         valid = self._ones(keys.shape[0]) if valid is None else valid
         if self.l1 is not None:
             rnd = dht_ops.dht_read_cached_async(
@@ -513,14 +602,18 @@ class ShardedDHT:
             outs = (rnd.vals, rnd.found)
             stats = dht_ops._read_stats(valid, rnd.found, rnd.estats)
             source = "sharded.read"
-        return ShardedRound(source=source, rnd=rnd, outs=outs,
-                            stats=ReducedStats(stats, self.group,
-                                               self.state.device))
+        return ShardedRound(
+            source=source, rnd=rnd, outs=outs,
+            stats=ReducedStats(stats, self.group, self.state.device,
+                               pin=obs_metrics.enabled()),
+            ops={"read": self._group_rows(keys.shape[0])}, t_start=t0,
+            t_issued=time.perf_counter())
 
     def write_async(self, keys, vals, valid=None) -> ShardedRound:
         """Issue a write round without waiting; pair with
         :meth:`write_commit`.  No retry here: it would need the drop
         count mid-pipeline; the caller re-issues dropped rows."""
+        t0 = time.perf_counter()
         valid = self._ones(keys.shape[0]) if valid is None else valid
         l1_meta = self.l1 is not None
         rnd = dht_ops.dht_write_async(self.state, keys, vals, valid,
@@ -529,21 +622,31 @@ class ShardedDHT:
         if l1_meta:
             self.l1 = l1cache.with_shard_wmarks(self.l1,
                                                 stats.pop("wmark_post"))
-        return ShardedRound(source="sharded.write", rnd=rnd,
-                            outs=(rnd.code,),
-                            stats=ReducedStats(stats, self.group,
-                                               self.state.device))
+        return ShardedRound(
+            source="sharded.write", rnd=rnd, outs=(rnd.code,),
+            stats=ReducedStats(stats, self.group, self.state.device,
+                               pin=obs_metrics.enabled()),
+            ops={"write": self._group_rows(keys.shape[0])}, t_start=t0,
+            t_issued=time.perf_counter())
 
     def _commit(self, sr: ShardedRound) -> tuple:
         """Wait for an issued round -> ``outs + (stats,)``; ``stats``
         gains the engine round's telemetry lanes (``issue_us``,
-        ``hidden_us``, ``commit_wait_us``, ``overlap_frac``)."""
+        ``hidden_us``, ``commit_wait_us``, ``overlap_frac``).  Records
+        the round with ``issue``/``hidden``/``commit`` spans."""
         if sr.committed:
             raise RuntimeError("ShardedRound committed twice")
         sr.committed = True
+        t_commit = time.perf_counter()
         dht_commit(sr.rnd)
         stats = sr.stats.wait()
         stats.update(sr.rnd.telemetry)
+        if obs_metrics.enabled():
+            obs_trace.record_round(
+                sr.source, {**sr.stats.host_lanes(), **sr.rnd.telemetry},
+                ops=sr.ops, t_start=sr.t_start,
+                phase_marks=[("issue", sr.t_start), ("hidden", sr.t_issued),
+                             ("commit", t_commit)])
         return sr.outs + (stats,)
 
     def read_commit(self, sr: ShardedRound):
@@ -563,10 +666,13 @@ class ShardedDHT:
         rounds; ``commit`` defaults to :meth:`_commit`."""
         return RoundQueue(self.pipeline_depth, commit or self._commit)
 
-    # -- later slices -----------------------------------------------------
     def telemetry_snapshot(self) -> dict:
-        raise routing.not_ported("ShardedDHT.telemetry_snapshot (the "
-                                 "metric registry)", "14")
+        """This rank's registry snapshot (plain JSON).  Every rank records
+        the group's reduced lanes, so each rank's snapshot is what the
+        reference's one process holds; merging the ranks' snapshots
+        (``obs.metrics.merge_snapshots``) therefore multiplies the counts
+        by the world size, as merging a snapshot with itself does."""
+        return obs_metrics.get_registry().snapshot()
 
     # -- elastic membership -------------------------------------------------
     @property
@@ -608,6 +714,7 @@ class ShardedDHT:
         counts = torch.zeros(3, dtype=torch.int64, device=dev)
         iota = torch.arange(per, device=dev)
         for r in range(n_rounds):
+            t_b = time.perf_counter()
             pos = iota + r * per
             valid = pos < n_src
             rows = torch.clamp(pos, max=n_src)   # past the end: the pad
@@ -617,6 +724,8 @@ class ShardedDHT:
             counts += torch.stack([(valid & ~found).sum(),
                                    (code == W_EVICT).sum(),
                                    es["dropped"].to(torch.int64)])
+            self._record_group_round("sharded.migrate", es, "migrate",
+                                     valid, t_b)
         # retire this rank's sources whose stored key now lives elsewhere
         _retire(new, src, new_ring, shard_offset=me)
         self.state = DHTState(cfg, new.flat_keys, new.flat_vals,
@@ -627,10 +736,27 @@ class ShardedDHT:
         moved, evicted, dropped, n_live, n_planned = totals.tolist()
         if dropped:
             raise RuntimeError(f"migration rounds dropped {dropped} rows")
+        result = {"n_live": n_live, "n_planned": n_planned, "moved": moved,
+                  "evicted_at_dest": evicted, "epoch": new_ring.epoch}
         obs_metrics.inc("migrate.moved", moved)
         obs_metrics.inc("migrate.evicted", evicted)
-        return {"n_live": n_live, "n_planned": n_planned, "moved": moved,
-                "evicted_at_dest": evicted, "epoch": new_ring.epoch}
+        obs_trace.record_event("sharded.apply_ring", result)
+        return result
+
+    def _record_group_round(self, source: str, es: dict, kind: str,
+                            valid: torch.Tensor, t_start: float) -> None:
+        """Record one engine round run under the group with the group's
+        lanes: its stat lanes and its rows (this rank's ``valid`` ones,
+        summed over the ranks).  Makes the reductions only while
+        recording is on."""
+        if not obs_metrics.enabled():
+            return
+        red = ReducedStats({**es, _OPS_LANE: valid.sum()}, self.group,
+                           self.state.device)
+        lanes = red.host_lanes()
+        n = lanes.pop(_OPS_LANE)
+        obs_trace.record_round(source, lanes, ops={kind: n},
+                               t_start=t_start)
 
     def leave(self, shard_id: int, batch: int = 512) -> dict:
         """Evacuate shard ``shard_id``: its entries move to the ranks that
@@ -662,6 +788,8 @@ class ShardedDHT:
         self.state = DHTState(self.cfg, st.flat_keys, st.flat_vals,
                               st.flat_meta, st.flat_csum, ring)
         obs_metrics.inc("faults.crashes")
+        obs_trace.record_event("sharded.crash", {"shard": shard_id,
+                                                 "wipe": int(wipe)})
 
     def recover(self, shard_id: int) -> None:
         """The crashed shard returns (empty) at epoch + 1; :meth:`repair`
@@ -673,6 +801,7 @@ class ShardedDHT:
                               st.flat_meta, st.flat_csum,
                               ring_recover(self.ring, shard_id))
         obs_metrics.inc("faults.recoveries")
+        obs_trace.record_event("sharded.recover", {"shard": shard_id})
 
     def _gather(self, x: torch.Tensor, counts: list) -> torch.Tensor:
         """The ranks' ``x`` rows (rank r holds ``counts[r]``) concatenated
@@ -768,6 +897,7 @@ class ShardedDHT:
         world = self.cfg.n_shards
         me = dist.get_rank(self.group)
         batch = -(-batch // world) * world
+        t0 = time.perf_counter()
         missing, n_cand, n_present, counts = self._plan_repair(shard_id)
         n_planned = sum(counts)
         lo_me = sum(counts[:me])
@@ -775,23 +905,29 @@ class ShardedDHT:
         tally = torch.zeros(3, dtype=torch.int64, device=st.device)
         rounds = -(-n_planned // batch)
         for r in range(rounds):
+            t_b = time.perf_counter()
             # this rank's rows of the plan's slice [r * batch, +batch)
             a = min(max(r * batch - lo_me, 0), counts[me])
             e = min(max((r + 1) * batch - lo_me, 0), counts[me])
             rows = missing[a:e]
             valid = torch.ones(rows.shape[0], dtype=torch.bool,
                                device=st.device)
-            tally += repair_round(st, rows, valid, shard_id, self.group)
+            got, es = repair_round(st, rows, valid, shard_id, self.group)
+            tally += got
+            self._record_group_round("sharded.repair", es, "migrate",
+                                     valid, t_b)
         dist.all_reduce(tally, op=dist.ReduceOp.SUM, group=self.group)
         dropped, healed, skipped = tally.tolist()
         if dropped:
             raise RuntimeError(f"repair rounds dropped {dropped} rows")
+        result = {"n_candidates": n_cand, "n_present": n_present,
+                  "n_planned": n_planned, "healed": healed,
+                  "skipped": skipped, "rounds": rounds,
+                  "diff_after": sum(self._plan_repair(shard_id)[3])}
         obs_metrics.inc("repair.rounds", rounds)
         obs_metrics.inc("repair.keys_healed", healed)
-        return {"n_candidates": n_cand, "n_present": n_present,
-                "n_planned": n_planned, "healed": healed,
-                "skipped": skipped, "rounds": rounds,
-                "diff_after": sum(self._plan_repair(shard_id)[3])}
+        obs_trace.record_event("sharded.repair_run", result, t_start=t0)
+        return result
 
 
 __all__ = ["ReducedStats", "ShardedDHT", "ShardedRound"]

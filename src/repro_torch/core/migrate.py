@@ -48,11 +48,13 @@ convergence check (0 when healed).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .dht import dht_read_dual
 from .hashing import base_bucket
 from .layout import (
@@ -201,6 +203,7 @@ def migration_step(mig: Migration) -> tuple[Migration, dict[str, int]]:
     plan = mig.plan
     if mig.done:
         return mig, {"moved": 0, "skipped": 0, "evicted": 0, "remaining": 0}
+    t0 = time.perf_counter()
     lo = mig.cursor
     hi = min(lo + mig.batch, plan.n_moved)
     n = hi - lo
@@ -234,8 +237,13 @@ def migration_step(mig: Migration) -> tuple[Migration, dict[str, int]]:
     obs_metrics.inc("migrate.moved", stepped)
     obs_metrics.inc("migrate.skipped", skipped)
     obs_metrics.inc("migrate.evicted", evicted)
-    return mig, {"moved": stepped, "skipped": skipped, "evicted": evicted,
-                 "remaining": plan.n_moved - mig.cursor}
+    step = {"moved": stepped, "skipped": skipped, "evicted": evicted,
+            "remaining": plan.n_moved - mig.cursor}
+    # the engine round recorded itself; this event wraps it with the
+    # migration's accounting
+    obs_trace.record_event("migrate.step", step, t_start=t0,
+                           ops={"migrate": n})
+    return mig, step
 
 
 def migration_read(mig: Migration, keys: torch.Tensor, valid=None):
@@ -507,8 +515,9 @@ def repair_round(state: DHTState, rows: torch.Tensor, valid: torch.Tensor,
     select would send them to their live owners, which hold them
     already), at capacity 0 so the count-driven plan sizes the round to
     its one destination.  The table's buffers change in place.  Returns
-    ``[dropped, healed, skipped]`` (int64, on the device; under a process
-    group this rank's rows' counts)."""
+    ``([dropped, healed, skipped], estats)``: the counts int64 on the
+    device, and the round's stat lanes (under a process group, this
+    rank's)."""
     keys, vals = state.flat_keys[rows], state.flat_vals[rows]
     step_st = DHTState(dataclasses.replace(state.cfg, capacity=0),
                        state.flat_keys, state.flat_vals, state.flat_meta,
@@ -519,7 +528,7 @@ def repair_round(state: DHTState, rows: torch.Tensor, valid: torch.Tensor,
         step_st, migrate_ops(keys, vals, valid), kinds=("migrate",),
         axis_name=axis_name, placement=(dest, state.ring.epoch))
     return torch.stack([es["dropped"].to(torch.int64), (valid & ~found).sum(),
-                        (valid & found).sum()])
+                        (valid & found).sum()]), es
 
 
 def repair_step(rep: Repair) -> tuple[Repair, dict[str, int]]:
@@ -529,6 +538,7 @@ def repair_step(rep: Repair) -> tuple[Repair, dict[str, int]]:
     plan = rep.plan
     if rep.done:
         return rep, {"healed": 0, "skipped": 0, "remaining": 0}
+    t0 = time.perf_counter()
     lo = rep.cursor
     hi = min(lo + rep.batch, plan.n_missing)
     n = hi - lo
@@ -536,8 +546,8 @@ def repair_step(rep: Repair) -> tuple[Repair, dict[str, int]]:
     pad = torch.zeros(rep.batch, dtype=torch.int64, device=dev)
     pad[:n] = plan.src[lo:hi]
     valid = torch.arange(rep.batch, device=dev) < n
-    dropped, healed, skipped = repair_round(rep.state, pad, valid,
-                                            plan.shard_id).tolist()
+    counts, _ = repair_round(rep.state, pad, valid, plan.shard_id)
+    dropped, healed, skipped = counts.tolist()
     if dropped:
         raise RuntimeError(f"repair round dropped {dropped} rows")
     rep.cursor = hi
@@ -546,8 +556,11 @@ def repair_step(rep: Repair) -> tuple[Repair, dict[str, int]]:
     rep.rounds += 1
     obs_metrics.inc("repair.rounds")
     obs_metrics.inc("repair.keys_healed", healed)
-    return rep, {"healed": healed, "skipped": skipped,
-                 "remaining": plan.n_missing - rep.cursor}
+    step = {"healed": healed, "skipped": skipped,
+            "remaining": plan.n_missing - rep.cursor}
+    obs_trace.record_event("repair.step", step, t_start=t0,
+                           ops={"migrate": n})
+    return rep, step
 
 
 def repair_diff(state: DHTState, shard_id: int) -> int:

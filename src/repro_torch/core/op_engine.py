@@ -77,6 +77,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import faults, routing
 from .hashing import base_bucket, owner_shard, ring_owner
 from .layout import (
@@ -107,6 +108,10 @@ W_EVICT = 3     # window exhausted -> overwrote the last candidate
 W_SKIP = 4      # OP_MIGRATE: key already present, nothing written
 
 KINDS = ("read", "write", "migrate")
+
+# keys of a round's packed telemetry lanes beside its stat lanes: the op
+# counts of its mix, and the forwarded rows
+_MIX, _FWD = "mix:", "forwarded:"
 
 
 @dataclasses.dataclass
@@ -588,20 +593,26 @@ class InFlightRound:
     ``conflict``/``pending``/``keys`` carry the pending-write hazard:
     rows masked out of the probe at issue because a promised write to
     their key was not issued yet, resolved at commit from the pending
-    table's published values.  ``mix`` counts the round's requests per
-    kind (0-d tensors), forwarded rows included.  ``telemetry`` is
-    filled at commit: ``issue_us``, ``hidden_us`` (host time between
-    issue returning and commit being called), ``commit_wait_us`` and
-    ``overlap_frac`` (hidden over the round's whole duration).  ``meta``
-    is free-form wrapper state.  ``prev`` is a dual-epoch round's
-    previous-epoch table (None otherwise)."""
+    table's published values.  ``telemetry`` is filled at commit:
+    ``issue_us``, ``hidden_us`` (host time between issue returning and
+    commit being called), ``commit_wait_us`` and ``overlap_frac`` (hidden
+    over the round's whole duration).  ``meta`` is free-form wrapper
+    state.  ``prev`` is a dual-epoch round's previous-epoch table (None
+    otherwise).
+
+    The round's self-record, set only when recording is on and the round
+    has no process group: ``mix`` counts its requests per kind (0-d
+    tensors), forwarded rows included; ``source`` names its trace event;
+    ``marks`` are its phase marks; ``lanes`` holds its scalar stat lanes
+    and mix counts on their way to the host (``obs.trace._HostLanes``).
+    """
 
     state: DHTState
     vals: torch.Tensor
     found: torch.Tensor
     code: torch.Tensor
     estats: dict[str, Any]
-    mix: dict[str, torch.Tensor]
+    mix: dict[str, torch.Tensor] | None
     t_start: float
     t_issued: float
     event: Any = None
@@ -612,6 +623,9 @@ class InFlightRound:
     telemetry: dict[str, float] = dataclasses.field(default_factory=dict)
     meta: dict = dataclasses.field(default_factory=dict)
     prev: DHTState | None = None
+    source: str = ""
+    marks: list = dataclasses.field(default_factory=list)
+    lanes: Any = None
 
 
 def dht_issue(state: DHTState, ops: OpBatch, *,
@@ -636,6 +650,17 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     only): rows whose key has a promised-but-unissued write are masked
     out of the probe (no bin slot, no wire), still count in the round's
     ``mix``, and are served at commit by forwarding the published value.
+
+    Telemetry: unless recording is off (``obs.metrics``) or the round
+    runs under a process group (whose wrapper records the group's
+    lanes), the round records itself at commit as one trace event named
+    ``"engine." + "+".join(kinds)`` with its
+    ``bin``/``dispatch``/``apply``/``collect``/``commit`` phase spans
+    (``OBS_FENCE=1`` fences each mark with ``torch.cuda.synchronize``).
+    The issue half then packs the round's scalar lanes and op counts into
+    one tensor and copies it to pinned host memory without waiting, so
+    the commit half reads them after the round's event with no host sync
+    of its own.
 
     ``axis_name``: a ``torch.distributed`` process group of
     ``cfg.n_shards`` ranks; ``state`` is this rank's one shard
@@ -669,6 +694,7 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     kinds = tuple(kinds)
     _check_supported(state, kinds, ops, prev, placement, pending, axis_name)
     group = _rank_group(state, axis_name)
+    rec = obs_metrics.enabled() and group is None
     cfg = state.cfg
     do_write = ("write" in kinds) or ("migrate" in kinds)
     if do_write and ops.vals is None:
@@ -732,7 +758,15 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     if prev is not None:
         payloads.append(ops.esel.to(torch.int32))
     payloads.append((ops.valid & binned.kept).to(torch.int32))
+    if rec:
+        # OBS_FENCE=1: wait for each phase's products before the next
+        # mark, so the spans measure device time, not issue time
+        obs_trace.fence(binned.pos, binned.kept, payloads)
+    t_dispatch = time.perf_counter()
     inc = routing.dispatch(binned, payloads, group)
+    if rec:
+        obs_trace.fence(inc)
+    t_apply = time.perf_counter()
 
     it = iter(inc)
     b_in, k_in = next(it), next(it)
@@ -755,6 +789,9 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
      gen, wpre, wpost) = _shard_apply(state, b_in, k_in, v_in, o_in,
                                       m_in.to(torch.bool), kinds, l1_meta,
                                       group, prev, e_in)
+    if rec:
+        obs_trace.fence(val, found, code)
+    t_collect = time.perf_counter()
     local = None
     if group is not None:
         val, found, code = val[0], found[0], code[0]
@@ -823,15 +860,29 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         estats["bucket_gen"] = gen_out
         estats["wmark_pre"] = blocks[4]
         estats["wmark_post"] = blocks[5]
-    if ops.op is None:
-        mix = {kinds[0]: ops.valid.sum()}
-    else:
-        mix = {name: (ops.valid & (ops.op == tag)).sum()
-               for name, tag in (("read", OP_READ), ("write", OP_WRITE),
-                                 ("migrate", OP_MIGRATE)) if name in kinds}
-    if conflict is not None:
-        # forwarded rows left the probe but are still this round's traffic
-        mix["read"] = mix["read"] + conflict.sum()
+    mix = lanes = None
+    marks = []
+    if rec:
+        if ops.op is None:
+            mix = {kinds[0]: ops.valid.sum()}
+        else:
+            mix = {name: (ops.valid & (ops.op == tag)).sum()
+                   for name, tag in (("read", OP_READ), ("write", OP_WRITE),
+                                     ("migrate", OP_MIGRATE))
+                   if name in kinds}
+        packed = dict(estats)
+        packed.update((_MIX + k, v) for k, v in mix.items())
+        if conflict is not None:
+            # forwarded rows left the probe but are still this round's
+            # traffic
+            n_fwd = conflict.sum()
+            mix["read"] = mix["read"] + n_fwd
+            packed[_MIX + "read"] = mix["read"]
+            packed[_FWD] = n_fwd
+        # on the card: copied to pinned memory ahead of the round's event
+        lanes = obs_trace._HostLanes(packed, pin=True)
+        marks = [("bin", t_start), ("dispatch", t_dispatch),
+                 ("apply", t_apply), ("collect", t_collect)]
     event = None
     if val_out.is_cuda:
         event = torch.cuda.Event()
@@ -842,7 +893,9 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         estats=estats, mix=mix, t_start=t_start,
         t_issued=time.perf_counter(), event=event,
         pending=pending if forwards else None, conflict=conflict,
-        keys=ops.keys if forwards else None, prev=prev)
+        keys=ops.keys if forwards else None, prev=prev,
+        source="engine." + "+".join(kinds), marks=marks,
+        lanes=lanes)
 
 
 def dht_commit(rnd: InFlightRound):
@@ -853,7 +906,10 @@ def dht_commit(rnd: InFlightRound):
     pending-write forwards: conflicted rows get the published value and
     ``found=True``, bit for bit what a read after the write round would
     have returned; a conflicted key never published raises.  Fills
-    ``rnd.telemetry`` and counts one ``engine.rounds``.
+    ``rnd.telemetry`` and, for a round that records itself, flushes its
+    lanes (read from the host copy the issue half made) with a
+    ``commit`` span and the four telemetry lanes into the registry and
+    the trace (``obs.trace.record_round``).
 
     Returns the reference's tuple ``(state', prev', vals, found, code,
     estats)``; ``state'`` is the input state updated in place, ``prev'``
@@ -881,7 +937,19 @@ def dht_commit(rnd: InFlightRound):
         "commit_wait_us": max(now - t_commit, 0.0) * 1e6,
         "overlap_frac": min(hidden / dur, 1.0) if dur > 0 else 0.0,
     }
-    obs_metrics.inc("engine.rounds")
+    if rnd.lanes is not None:
+        lanes = rnd.lanes.get()
+        stats = {k: v for k, v in lanes.items() if not k.startswith(_MIX)
+                 and k != _FWD}
+        stats.update(rnd.telemetry)
+        if lanes.get(_FWD):
+            stats["forwarded"] = lanes[_FWD]
+        obs_trace.record_round(
+            rnd.source, stats,
+            ops={k[len(_MIX):]: v for k, v in lanes.items()
+                 if k.startswith(_MIX)},
+            t_start=rnd.t_start, phase_marks=rnd.marks + [("commit",
+                                                           t_commit)])
     return rnd.state, rnd.prev, vals, found, rnd.code, rnd.estats
 
 

@@ -51,12 +51,6 @@ class Binned:
     epoch: int = 0           # membership epoch (0: static modulo placement)
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a caller gets for a feature of a later slice."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
 def process_group(axis_name, device: torch.device | None = None):
     """``axis_name`` as a ``torch.distributed`` process group (None stays
     None).  Anything else raises ``TypeError``; a group whose backend

@@ -30,6 +30,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import dht as dht_ops
 from . import interp as interp_ops
 from . import membership, migrate, neighbors, routing
@@ -153,11 +154,13 @@ def lookup_or_compute(cfg: SurrogateConfig, state: DHTState,
         stats = {"hits": rstats["hits"], "misses": rstats["misses"],
                  "mismatches": rstats["mismatches"], "stored": 0}
         if bool(found.all()):
+            _record_provenance(stats)
             return state, cached, found, stats
         computed = compute_fn(inputs)
         outputs = torch.where(found[:, None], cached, computed)
         state, wstats = store(cfg, state, inputs, computed, valid=~found)
         stats["stored"] = wstats["inserted"]
+        _record_provenance(stats)
         return state, outputs, found, stats
 
     keys = make_keys(cfg, inputs)
@@ -213,6 +216,7 @@ def lookup_or_compute_pipelined(cfg: SurrogateConfig, state: DHTState,
     outs: list = []
     founds: list = []
     if not batches:
+        _record_provenance(totals)
         return state, outs, founds, totals
     if depth < 2:
         for inputs in batches:
@@ -222,6 +226,7 @@ def lookup_or_compute_pipelined(cfg: SurrogateConfig, state: DHTState,
             founds.append(found)
             for k in ("hits", "misses", "stored"):
                 totals[k] += int(st[k])
+        # lookup_or_compute recorded each batch's provenance already
         return state, outs, founds, totals
 
     pending = PendingWrites(cfg.dht.val_words)
@@ -298,6 +303,7 @@ def lookup_or_compute_pipelined(cfg: SurrogateConfig, state: DHTState,
         founds.append(found)
         rd = nxt
     wq.drain()
+    _record_provenance(totals)
     return state, outs, founds, totals
 
 
@@ -340,15 +346,20 @@ def _interp_tail(cfg: SurrogateConfig, inputs, points, val_words, found,
     return outputs, provenance, stats
 
 
-# provenance lanes of a neighbourhood query flushed to the counters
-_PROV_LANES = ("exact", "interpolated", "misses", "probe_hits")
+# provenance lanes the lookup_* host paths flush to the counters
+_PROV_LANES = ("exact", "interpolated", "hits", "misses", "stored",
+               "probe_hits", "requeued")
 
 
 def _record_provenance(stats: dict) -> None:
-    """Add the provenance lanes of ``stats`` to the ``surrogate.<lane>``
-    counters (one read back to the host)."""
-    vals = torch.stack([stats[lane] for lane in _PROV_LANES]).tolist()
-    for lane, v in zip(_PROV_LANES, vals):
+    """Add the provenance lanes ``stats`` has to the ``surrogate.<lane>``
+    counters, reading them back to the host in one copy.  Nothing is
+    read while recording is off."""
+    if not obs_metrics.enabled():
+        return
+    lanes = obs_trace._scalarize({lane: stats[lane] for lane in _PROV_LANES
+                                  if stats.get(lane) is not None})
+    for lane, v in lanes.items():
         obs_metrics.inc(f"surrogate.{lane}", v)
 
 
@@ -422,7 +433,8 @@ def lookup_interpolate_or_compute(cfg: SurrogateConfig, state: DHTState,
         computed = compute_fn(inputs)
         outputs = torch.where(miss[:, None], computed, resolved)
         state, wstats = store(cfg, state, inputs, computed, valid=miss)
-        obs_metrics.inc("surrogate.stored", int(wstats["inserted"]))
+        if obs_metrics.enabled():
+            obs_metrics.inc("surrogate.stored", int(wstats["inserted"]))
         return state, outputs, provenance, {**stats,
                                             "stored": wstats["inserted"]}
 

@@ -924,3 +924,41 @@ def test_sharded_nccl_world_one_matches_virtual(gen):
                 np.testing.assert_array_equal(words, ref[name], name)
     finally:
         dist.destroy_process_group()
+
+
+def test_recorded_rounds_on_card_match_cpu(gen):
+    """The engine's self-record on the card: the same write, read and
+    95/5 rounds at B = 2^12 on the card and on the CPU leave equal
+    counters and equal events but the host-clock lanes; the card's
+    lanes came through the pinned copy made at issue, and a commit of
+    the recorded read waits for its round's event only."""
+    from repro_torch import obs
+
+    cfg = DHTConfig(n_shards=8, buckets_per_shard=1 << 12)
+    keys, vals = _words(gen, 4096, 20), _words(gen, 4096, 26)
+    op = (torch.rand(4096, generator=gen) < 0.05).to(torch.int32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        reg = obs.metrics.MetricRegistry()
+        prev = obs.metrics.set_registry(reg)
+        obs.get_tracer().clear()
+        try:
+            st = dht_create(cfg, device=device)
+            k, v, o = keys.to(device), vals.to(device), op.to(device)
+            st, _ = dht_write(st, k, v)
+            rnd = dht_read_async(st, k)
+            if device == "cuda":
+                assert rnd.lanes.packs[0][1].is_pinned()
+            dht_read_commit(rnd)
+            dht_execute(st, mixed_ops(o, k, v), kinds=("read", "write"))
+            got[device] = (reg.snapshot()["counters"], [
+                (e.source, e.ops, {s: x for s, x in e.stats.items()
+                                   if s not in ("issue_us", "hidden_us",
+                                                "commit_wait_us",
+                                                "overlap_frac")})
+                for e in obs.get_tracer().events()])
+        finally:
+            obs.metrics.set_registry(prev)
+            obs.get_tracer().clear()
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][0]["engine.rounds"] == 3

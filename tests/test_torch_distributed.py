@@ -24,6 +24,7 @@ in rank order.  The oracles:
 - the two surrogate forms against the reference's ``jax.jit``-traced
   forms on the virtual-shard backend.
 """
+import json
 import os
 import socket
 import subprocess
@@ -44,6 +45,7 @@ JOIN_TIMEOUT = 300          # seconds for every process of the fixture
 SEND, REPLY = 1 + R.KW + 1, R.VW + 1 + 1    # a read round's lanes a row
 
 REFERENCE = """
+import json
 import sys
 import numpy as np
 import jax, jax.numpy as jnp
@@ -51,6 +53,7 @@ sys.path.insert(0, {tests!r})
 import torch_dist_ranks as R
 from repro.core import DHTConfig
 from repro.core.distributed import ShardedDHT
+from repro.obs.metrics import MetricRegistry, set_registry
 
 mesh = jax.make_mesh((R.WORLD,), ("dht",))
 out = {{}}
@@ -76,9 +79,16 @@ for mode in R.MODES:
     cfg = DHTConfig(n_shards=R.WORLD, buckets_per_shard=R.BUCKETS,
                     mode=mode, capacity=R.CAP)
     a = ShardedDHT.create(mesh, cfg)
+    if mode == "lockfree":
+        prev = set_registry(MetricRegistry())
     put(p + "/write", a.write(keys, vals))
     o, f, s = a.read(keys)
     put(p + "/read", {{"out": o, "found": f, "stats": s}})
+    if mode == "lockfree":
+        a.read(keys)
+        out["telemetry/snapshot"] = np.array(json.dumps(
+            a.telemetry_snapshot()))
+        set_registry(prev)
     if mode == "lockfree":
         o, f, s = a.read_many(many)
         put(p + "/many", {{"out": o, "found": f, "stats": s}})
@@ -480,6 +490,59 @@ def test_elided_rows_leave_the_wire(runs):
         SEND + REPLY + 3)
 
 
+# counted as a round is traced in the reference (a cached jitted call runs
+# no Python) and as it runs in the port
+TRACE_TIME = ("routing.dispatches", "routing.collects")
+
+
+def test_sharded_telemetry_matches_reference(runs):
+    """Each rank's ``telemetry_snapshot()`` after the lock-free
+    capacity-64 table's write (its retry rounds included) and two reads,
+    from a fresh registry: every counter equals the reference
+    ShardedDHT's one-process snapshot of the same calls but the
+    ``routing.*`` counters (trace-time there), and so does every
+    histogram's count.  Merging the ranks' snapshots doubles every count,
+    as merging the reference's snapshot with itself does."""
+    from repro_torch.obs import merge_snapshots
+
+    ref = json.loads(str(runs["reference"]["telemetry/snapshot"]))
+    snaps = [json.loads(str(r["telemetry/snapshot"]))
+             for r in runs["modes"]]
+    for snap in snaps:
+        got = {k: v for k, v in snap["counters"].items()
+               if k not in TRACE_TIME}
+        want = {k: v for k, v in ref["counters"].items()
+                if k not in TRACE_TIME}
+        assert got == want
+        assert ({k: h["count"] for k, h in snap["histograms"].items()}
+                == {k: h["count"] for k, h in ref["histograms"].items()})
+    c = snaps[0]["counters"]
+    retries = int(runs["modes"][0][f"lockfree/cap{R.CAP}/write/write_retries"])
+    assert retries > 0 and c["engine.requeued"] > 0
+    assert c["engine.rounds"] == 1 + retries + 2
+    assert c["engine.ops.read"] == 2 * R.N
+    merged = merge_snapshots(snaps)
+    assert merged["counters"]["engine.rounds"] == 2 * c["engine.rounds"]
+
+
+def test_profiled_alltoall_words_match_wire_accounting(runs):
+    """The all-to-all words ``torch.profiler`` saw in one read at
+    capacity 0 (``costmodel.profiled_alltoall_words``), summed over both
+    legs and both ranks, against the group's ``wire_words`` lane.  Each
+    rank hands ``all_to_all_single`` its whole (S * cap)-row buffer both
+    ways, self block included; its wire words leave out the self block
+    (elided: padding that never crosses the fabric) and add the 2S words
+    of the count-exchange prologue, which travels in an ``all_reduce``.
+    So profiled = (wire - world * 2S) * S / (S - 1), exactly."""
+    ranks = runs["modes"]
+    s = R.WORLD
+    profiled = sum(int(r["telemetry/profiled_words"]) for r in ranks)
+    wire = int(ranks[0]["telemetry/profiled_read/wire_words"])
+    assert int(ranks[1]["telemetry/profiled_read/wire_words"]) == wire
+    assert profiled > 0
+    assert profiled * (s - 1) == (wire - R.WORLD * 2 * s) * s
+
+
 @pytest.mark.parametrize("tier", ["plain", "cached"])
 def test_async_wrappers_match_sync(runs, tier):
     """Mirrors tests/test_pipeline.py::
@@ -692,13 +755,18 @@ def test_sharded_create_needs_a_group():
     ("write_replicated_fn", "12"), ("write_replicated_refresh_fn", "12"),
     ("repair_fn", "12"), ("telemetry_snapshot", "14")])
 def test_later_items_raise(method, item):
-    """What the backend hands on raises, naming its ROADMAP item: the
-    telemetry registry (14).  Replication and repair (12) are ported
-    (tests/test_torch_faults.py runs them on 4 ranks): their closures
-    are plain functions, and crash, recover and repair of a table with
-    no ring raise ``ValueError``."""
+    """Nothing the backend hands on raises any more.  Replication and
+    repair (12) are ported (tests/test_torch_faults.py runs them on 4
+    ranks): their closures are plain functions, and crash, recover and
+    repair of a table with no ring raise ``ValueError``.  The telemetry
+    registry (14) is ported: a group-less table's snapshot is the
+    process registry's, plain JSON (the group's snapshots against the
+    reference: ``test_sharded_telemetry_matches_reference``)."""
+    import json
+
     from repro_torch.core import DHTConfig, dht_create
     from repro_torch.core.distributed import ShardedDHT
+    from repro_torch.obs import get_registry
 
     cfg = DHTConfig(n_shards=2, buckets_per_shard=64)
     d = ShardedDHT(cfg=cfg, state=dht_create(cfg, device="cpu", shards=1),
@@ -710,8 +778,10 @@ def test_later_items_raise(method, item):
         with pytest.raises(ValueError, match="ring"):
             getattr(d, method)(*args)
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            getattr(d, method)(*args)
+        snap = d.telemetry_snapshot()
+        assert json.loads(json.dumps(snap)) == snap
+        assert snap == get_registry().snapshot()
+        assert set(snap) == {"counters", "gauges", "histograms"}
 
 
 def test_elastic_changes_need_a_ring_of_the_group():

@@ -63,3 +63,32 @@ def test_waiting_list_names_only_missing_reference_names():
     from repro.core import faults as jfaults
     assert not [n for n in item12 | set(jfaults.__all__)
                 if n not in tcore.__all__ or not hasattr(tcore, n)]
+
+
+def test_obs_exports_every_reference_name_but_count_traced_rounds():
+    """``repro_torch.obs`` exports every public name of ``repro.obs`` but
+    ``count_traced_rounds``, which counts dispatches in one
+    ``jax.make_jaxpr`` trace: eager torch has no trace to count, and
+    ``counting()`` around the eager call gives the one-round property."""
+    import dataclasses
+
+    import repro.obs as jobs
+    import repro_torch.obs as tobs
+
+    missing = sorted(set(jobs.__all__) - set(tobs.__all__))
+    assert missing == ["count_traced_rounds"]
+    assert set(tobs.__all__) <= set(jobs.__all__)
+    for name in tobs.__all__:
+        assert getattr(tobs, name) is not None
+    for mod in ("metrics", "trace", "skew", "costmodel", "regress",
+                "report"):
+        j = getattr(jobs, mod)
+        t = getattr(tobs, mod)
+        want = set(getattr(j, "__all__", []))
+        if mod == "trace":
+            want -= {"count_traced_rounds"}
+        if mod == "costmodel":
+            want = (want - {"hlo_alltoall_words"}) | {
+                "profiled_alltoall_words"}
+        assert set(getattr(t, "__all__", [])) == want, mod
+    assert dataclasses.is_dataclass(tobs.trace.RoundEvent)

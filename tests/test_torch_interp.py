@@ -262,7 +262,7 @@ def test_bracketed_near_misses_interpolate_in_both():
     ts = _carry(js)
     js, jo, jp, jst = J.lookup_or_interpolate(jcfg, js, jnp.asarray(centers),
                                               J.InterpConfig(radius=1))
-    t_metrics.reset()
+    t_metrics.get_registry().reset()
     ts, to, tp, tst = T.lookup_or_interpolate(tcfg, ts, _t(centers),
                                               T.InterpConfig(radius=1))
     assert (np.asarray(jp) == J.PROV_INTERP).all()
@@ -273,7 +273,7 @@ def test_bracketed_near_misses_interpolate_in_both():
     for k in COUNTS:
         assert int(tst[k]) == int(jst[k]), k
     assert float(tst["fill_frac"]) == float(jst["fill_frac"])
-    assert t_metrics.get("surrogate.interpolated") == centers.shape[0]
+    assert t_metrics.counter_value("surrogate.interpolated") == centers.shape[0]
     _tables_equal(js, ts)
 
 

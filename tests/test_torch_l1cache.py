@@ -196,9 +196,9 @@ def test_l1_insert_matches_reference_and_dedups():
                                 s[last:last + 1], flags)
     assert bool(hit[0])
     np.testing.assert_array_equal(_u(val)[0], vals[last])
-    before = metrics.get("l1.flushes")
+    before = metrics.counter_value("l1.flushes")
     tl = T.l1_flush(tl)
-    assert metrics.get("l1.flushes") == before + 1
+    assert metrics.counter_value("l1.flushes") == before + 1
     assert not bool(tl.live.any())
     jl = J.l1_flush(jl)
     _assert_l1_equal(jl, tl)

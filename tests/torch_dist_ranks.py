@@ -176,12 +176,20 @@ def group_modes(rank: int, out: _Out) -> None:
     """All three modes: the wrappers and the engine closures at capacity
     CAP (held against the reference's ShardedDHT, drops included), the
     same stream at capacity 0 (held against the virtual-shard backend),
-    read_many with and without a mask, and the write retry."""
+    read_many with and without a mask, and the write retry.  Telemetry:
+    the rank's ``telemetry_snapshot()`` of the lock-free capacity-CAP
+    table's write and two reads (from a fresh registry; the reference
+    subprocess takes the same one), and the all-to-all words
+    ``torch.profiler`` saw in one read at capacity 0 beside the read's
+    stat lanes."""
+    import json
+
     import torch
 
     from repro_torch.core import DHTConfig, mixed_ops
     from repro_torch.core import dht_execute
     from repro_torch.core.distributed import ShardedDHT
+    from repro_torch.obs import costmodel, metrics
 
     inp = {k: _t(block(v, rank)) for k, v in mode_inputs().items()}
     keys, vals, mk, mv = inp["keys"], inp["vals"], inp["mk"], inp["mv"]
@@ -196,9 +204,26 @@ def group_modes(rank: int, out: _Out) -> None:
             cfg = DHTConfig(n_shards=WORLD, buckets_per_shard=BUCKETS,
                             mode=mode, capacity=cap)
             a = ShardedDHT.create(cfg, device="cpu")
+            telemetry = mode == "lockfree" and cap == CAP
+            if telemetry:
+                prev = metrics.set_registry(metrics.MetricRegistry())
             out.put(f"{p}/write", a.write(keys, vals))
             o, f, s = a.read(keys)
             out.put(f"{p}/read", {"out": o, "found": f, "stats": s})
+            if telemetry:
+                a.read(keys)
+                out.put("telemetry/snapshot",
+                        json.dumps(a.telemetry_snapshot()))
+                metrics.set_registry(prev)
+            if mode == "lockfree" and cap == 0:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU],
+                             record_shapes=True) as prof:
+                    _, _, s = a.read(keys)
+                out.put("telemetry/profiled_words",
+                        costmodel.profiled_alltoall_words(prof.events()))
+                out.put("telemetry/profiled_read", s)
             o, f, s = a.read_many(many)
             out.put(f"{p}/many", {"out": o, "found": f, "stats": s})
             o, f, s = a.read_many(many, first)
