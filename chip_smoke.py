@@ -10,8 +10,8 @@ plain PyTorch version on the card, drives the main paths (the lock-free
 DHT at full size, key rounding, the POET surrogate twin, the
 neighbourhood-interpolation query, the L1 tier, the pipeline, elastic
 membership and online resharding, replication with crash failover and
-repair, the multi-rank backend, the telemetry, and gemma3-12b prefill
-and decode),
+repair, the multi-rank backend, the telemetry, gemma3-12b prefill
+and decode, and the prefix-cache serving engine on llama3-405b),
 checks the results, and times every kernel.  One
 JSON line per phase:
 
@@ -170,7 +170,31 @@ JSON line per phase:
              steps (the ring buffer wraps) within 2e-2; (d) lm-parity:
              the reduced model on the card against the CPU, forward and
              40 decode steps at rtol/atol 1e-4;
-14. timing - each kernel, its plain version and the nearest single
+14. serve  - the DHT prefix-cache engine (``repro_torch.serving``): (a)
+             serve-full: llama3-405b at its published width (d_model
+             16,384, 128/8 heads of 128, d_ff 53,248, vocab 128,256,
+             untied head), 4 of 126 layers, bf16, random weights from a
+             seed; Engine(max_len 4128, pages of 64, 512 pages, the DHT
+             at 1 shard x 2^12 buckets); three batches of 2 x 4096
+             tokens, 32 greedy tokens each: cold, a shared 3072-token
+             system prompt with new tails, batch 2 again (a full hit).
+             Gates: computed/cached tokens 8192/0, 2048/6144, 0/8192; the
+             block hits, misses and publications their arithmetic, no
+             stale pointer, nothing dropped in any DHT round; batch 1's
+             pages equal prefill_collect's K/V bit for bit; batch 2's
+             last logits against a prefix-free prefill and batch 3's
+             against batch 2's within (2 L + 2) 2^-8 of the logits'
+             scale; finite logits; every kernel call of batch 2's lookup
+             and publish rounds against its plain version.  Printed: each
+             batch's prefill and decode time, the lookup and publish
+             round ms, ms a decode token, the share of batch 3's tokens
+             equal to batch 2's, the peak memory.  The phase's launches
+             are those of (a)'s three batches; (b) serve-parity: the
+             example's reduced llama3-405b (float32) through the same
+             batch shapes on the card and the CPU: tokens, counts, stats,
+             slab words and pool generations equal, pool pages and
+             logits at rtol/atol 1e-4; its launches printed apart;
+15. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
              local-attention kernel beside its operation bound); hash64
@@ -256,6 +280,15 @@ LM_DECODE = 1280               # lm-decode positions (> the 1024 window)
 LM_PARITY_STEPS = 40           # lm-parity decode steps (reduced model)
 LM_SERVE_PROMPT = 256          # lm-serve prompt tokens, teacher-forced
 LM_SERVE_NEW = 32              # lm-serve greedy tokens
+SERVE_ARCH = "llama3-405b"     # serve-full: the published width, bf16
+SERVE_LAYERS = 4               # of 126 (the example's depth; 126 are 810 GB)
+SERVE_BATCH = 2                # prompts a batch
+SERVE_PROMPT = 4096            # tokens a prompt
+SERVE_SHARED = 3072            # the system prompt batches 1 and 2 share
+SERVE_NEW = 32                 # greedy tokens a batch
+SERVE_PAGE = 64                # tokens a page (and a DHT block)
+SERVE_POOL = 512               # pages in the pool
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW   # 4128
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
 # kernels whose own device time the timing phase reports beside the event
@@ -287,7 +320,7 @@ KERNEL_SOURCES = {
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
 ENGINE_PHASES = ("dht", "obs", "poet", "interp", "l1", "pipeline",
-                 "elastic", "faults", "sharded")
+                 "elastic", "faults", "sharded", "serve")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
@@ -3867,6 +3900,340 @@ def phase_lm(errs, tols):
     return launches, calls
 
 
+# ---------------------------------------------------------------------------
+# serve: the DHT prefix-cache engine
+# ---------------------------------------------------------------------------
+
+def serve_batches(vocab: int, seed: int = 0):
+    """Batch 1 and batch 2 of SERVE_BATCH prompts of SERVE_PROMPT tokens:
+    one SERVE_SHARED-token system prompt, then a tail of new tokens each
+    (batch 3 repeats batch 2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, size=SERVE_SHARED)
+
+    def batch():
+        tails = rng.integers(0, vocab, size=(SERVE_BATCH,
+                                             SERVE_PROMPT - SERVE_SHARED))
+        return np.concatenate([np.tile(system, (SERVE_BATCH, 1)), tails],
+                              axis=1).astype(np.int32)
+
+    return batch(), batch()
+
+
+class ServeClock:
+    """Host-clock marks around the prefix cache's lookup and publish
+    rounds and the seeding of the decode cache of ``eng`` (each fenced by
+    ``torch.cuda.synchronize``), and the engine stats of every DHT round.
+    A batch's prefill is the lookup's end to the publish's start (the
+    pages' fetch and the suffix prefill; the fetch alone on a full hit);
+    its decode is the seeded cache to the end of ``generate``."""
+
+    def __init__(self, eng):
+        import torch
+
+        self.sync = torch.cuda.synchronize if eng.device.type == "cuda" else (
+            lambda: None)
+        self.marks: dict = {}
+        self.rounds: list = []
+        pc = eng.prefix_cache
+        pc.lookup = self._wrap(pc, pc.lookup, "lookup")
+        pc.publish = self._wrap(pc, pc.publish, "publish")
+        eng._seed_cache = self._wrap(None, eng._seed_cache, "seed")
+
+    def _wrap(self, pc, fn, name):
+        def timed(*args):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.sync()
+            self.marks[name] = (t0, time.perf_counter())
+            if pc is not None:
+                self.rounds.append((name, pc.round_stats[name]))
+            return out
+        return timed
+
+    def generate(self, eng, prompts):
+        self.marks = {}
+        self.sync()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, SERVE_NEW)
+        self.sync()
+        end = time.perf_counter()
+        m = self.marks
+        steps = SERVE_NEW - 1 + (res.prefill_tokens_computed == 0)
+        prefill_end = m["publish"][0] if "publish" in m else m["seed"][0]
+        times = {"generate_s": end - t0,
+                 "lookup_ms": (m["lookup"][1] - m["lookup"][0]) * 1e3,
+                 "prefill_s": prefill_end - m["lookup"][1],
+                 "seed_ms": (m["seed"][1] - m["seed"][0]) * 1e3,
+                 "decode_s": end - m["seed"][1], "decode_steps": steps,
+                 "ms_per_decode_token": (end - m["seed"][1]) * 1e3 / steps}
+        if "publish" in m:
+            times["publish_ms"] = (m["publish"][1] - m["publish"][0]) * 1e3
+        return res, times
+
+
+def _serve_expected(batch: int) -> dict:
+    """Counts and cumulative stats after batch 1, 2, 3 of serve_batches:
+    1 is cold (every block published, the system prompt's twice), 2 hits
+    the system prompt's blocks and publishes its tails', 3 hits all."""
+    per = SERVE_PROMPT // SERVE_PAGE * SERVE_BATCH        # blocks a batch
+    shared = SERVE_SHARED // SERVE_PAGE * SERVE_BATCH
+    b = SERVE_BATCH
+    rows = [
+        (SERVE_PROMPT * b, 0, {"block_hits": 0, "block_misses": per,
+                               "stale": 0, "published": per}),
+        ((SERVE_PROMPT - SERVE_SHARED) * b, SERVE_SHARED * b,
+         {"block_hits": shared, "block_misses": 2 * per - shared,
+          "stale": 0, "published": 2 * per - shared}),
+        (0, SERVE_PROMPT * b,
+         {"block_hits": shared + per, "block_misses": 2 * per - shared,
+          "stale": 0, "published": 2 * per - shared}),
+    ]
+    computed, cached, stats = rows[batch]
+    return {"computed": computed, "cached": cached, "stats": stats}
+
+
+def _serve_checks(label, results, rounds):
+    """The gates every serve run meets: the counts and stats of
+    ``_serve_expected``, nothing dropped in any DHT round, finite
+    logits."""
+    import torch
+
+    for i, r in enumerate(results):
+        want = _serve_expected(i)
+        got = {"computed": r.prefill_tokens_computed,
+               "cached": r.prefill_tokens_cached, "stats": r.cache_stats}
+        check(got == want, f"{label}: batch {i + 1} counts {got}, "
+                           f"expected {want}")
+        check(bool(torch.isfinite(r.logits_last).all()),
+              f"{label}: batch {i + 1} has non-finite logits")
+    dropped = [int(st["dropped"]) for _name, st in rounds]
+    check(len(rounds) == 5 and not any(dropped),
+          f"{label}: DHT rounds {[n for n, _ in rounds]} dropped {dropped}")
+
+
+def _as_pages(x):
+    """(L, B, S, Hk, D) K or V of a cold batch as ``publish`` lays it out
+    in the pool: page j = prompt j // n, block j % n."""
+    nl, b, s = x.shape[:3]
+    n = s // SERVE_PAGE
+    x = x.reshape(nl, b, n, SERVE_PAGE, *x.shape[3:]).movedim(0, 2)
+    return x.reshape(b * n, nl, SERVE_PAGE, *x.shape[4:])
+
+
+def _serve_full(errs) -> dict:
+    """(a) serve-full: llama3-405b at its published width, 4 layers, bf16,
+    random weights from a seed; three batches through the engine, their
+    launches counted between a reset and a read (the comparisons of batch
+    2's rounds with the plain versions restore the counts)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm, param_count, prefill
+    from repro_torch.serving import Engine
+    from repro_torch.serving.prefill import prefill_collect
+
+    full = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS,
+                              block_pattern=full.block_pattern[:SERVE_LAYERS])
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    lm, init_s = _timed(lambda: init_lm(cfg, generator=gen, device=DEVICE))
+    weights_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    eng = Engine(cfg, lm, max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                 pool_pages=SERVE_POOL, dtype=torch.bfloat16, device=DEVICE)
+    clock = ServeClock(eng)
+    b1, b2 = serve_batches(cfg.vocab_size)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    r1, t1 = clock.generate(eng, b1)
+    published = list(eng.prefix_cache.pool.fifo)
+    with Capture(ops) as cap:
+        r2, t2 = clock.generate(eng, b2)
+    r3, t3 = clock.generate(eng, b2)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    _serve_checks("serve-full", (r1, r2, r3), clock.rounds)
+    parity = compare_calls(cap.calls, errs, "serve: batch 2's lookup and "
+                                            "publish rounds")
+    for name in KERNEL_PHASES:
+        if "serve" in KERNEL_PHASES[name]:
+            check(name in parity, f"serve-full: {name} made no call in "
+                                  "batch 2's rounds")
+    del cap
+
+    # the lookup's host half: chaining the keys of a batch's prompts
+    _k, keys_s = _timed(lambda: eng.prefix_cache._keys(b2))
+    # batch 1's published pages are prefill_collect's K/V, bit for bit
+    tokens1 = torch.from_numpy(b1).to(DEVICE)
+    (_lg, ks, vs), collect_s = _timed(lambda: prefill_collect(
+        lm, cfg, {"tokens": tokens1}))
+    pool = eng.prefix_cache.pool
+    pages_equal = (torch.equal(pool.k[published], _as_pages(ks))
+                   and torch.equal(pool.v[published], _as_pages(vs)))
+    check(pages_equal, "serve-full: batch 1's pages differ from "
+                       "prefill_collect's K/V")
+    del ks, vs, pool
+
+    # logits: batch 2 (prefix + suffix prefill) against a prefix-free
+    # prefill of the same prompts, batch 3 (one decode step on the last
+    # token over pages) against batch 2.  bf16 tolerance: each of the
+    # 2 L + 2 roundings to bf16 of the residual stream (after each
+    # layer's attention and MLP, the final norm, the head) may move the
+    # logits by up to 2^-8 of their scale: (2 L + 2) * 2^-8 * max |logit|.
+    # A wrong prefix, position or mask moves them by their own size.
+    tokens2 = torch.from_numpy(b2).to(DEVICE)
+    ref, prefill_s = _timed(lambda: prefill(lm, {"tokens": tokens2}))
+    ref = ref.float()
+    scale = float(ref.abs().max())
+    tol = (2 * cfg.n_layers + 2) * 2.0 ** -8 * scale
+    err2 = float((r2.logits_last.float() - ref).abs().max())
+    err3 = float((r3.logits_last.float() - r2.logits_last.float()).abs().max())
+    rel2 = float((r2.logits_last.float() - ref).norm() / ref.norm())
+    check(err2 <= tol, f"serve-full: batch 2's logits differ from a "
+                       f"prefix-free prefill by {err2} > {tol}")
+    check(err3 <= tol, f"serve-full: batch 3's logits differ from batch "
+                       f"2's by {err3} > {tol}")
+    same = float((r3.tokens == r2.tokens).mean())
+    peak = torch.cuda.max_memory_allocated()
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_note": "cut from 126 (810 GB of bf16 weights)",
+           "d_model": cfg.d_model, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "params": param_count(lm), "weights_gb": weights_gb,
+           "init_s": init_s, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "shared": SERVE_SHARED, "new_tokens": SERVE_NEW,
+           "page": SERVE_PAGE, "pool_pages": SERVE_POOL,
+           "times": {"cold": t1, "shared_prefix": t2, "full_hit": t3},
+           "chain_keys_ms": keys_s * 1e3,
+           "prefill_collect_cold_again_s": collect_s,
+           "prefill_no_prefix_batch2_s": prefill_s,
+           "counts": [(r.prefill_tokens_computed, r.prefill_tokens_cached)
+                      for r in (r1, r2, r3)],
+           "cache_stats": r3.cache_stats, "pages_equal": pages_equal,
+           "logits_tolerance": tol, "logit_scale": scale,
+           "batch2_vs_prefill_max_abs": err2, "batch2_vs_prefill_rel_rms": rel2,
+           "batch3_vs_batch2_max_abs": err3,
+           "batch3_tokens_equal_share": same,
+           "tokens_batch2": r2.tokens.tolist(),
+           "tokens_batch3": r3.tokens.tolist(),
+           "max_memory_allocated_gb": peak / 1e9, "launches": launches}
+    del lm, eng, clock, r1, r2, r3, ref
+    return out
+
+
+def _serve_run(cfg, device):
+    """(b)'s stream on ``device``: the reduced model from one seed (the CPU
+    copy's weights loaded into the card's), three batches; returns the
+    results, the DHT slab words, the pool and the rounds' stats."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.models import init_lm
+    from repro_torch.serving import Engine
+
+    lm = init_lm(cfg, generator=torch.Generator().manual_seed(7), device="cpu")
+    if device != "cpu":
+        card = init_lm(cfg, generator=torch.Generator(device=device).manual_seed(7),
+                       device=device)
+        card.load_state_dict(lm.state_dict())
+        lm = card
+    eng = Engine(cfg, lm, max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                 pool_pages=SERVE_POOL, dtype=torch.float32, device=device)
+    clock = ServeClock(eng)
+    b1, b2 = serve_batches(cfg.vocab_size, seed=1)
+    results = [clock.generate(eng, b)[0] for b in (b1, b2, b2)]
+    _serve_checks(f"serve-parity ({device})", results, clock.rounds)
+    pool = eng.prefix_cache.pool
+    return {"results": results, "slabs": state_to_numpy(eng.prefix_cache.dht),
+            "k": pool.k.cpu(), "v": pool.v.cpu(), "gen": pool.gen.copy(),
+            "fifo": list(pool.fifo)}
+
+
+def _serve_parity() -> dict:
+    """(b) serve-parity: the example's reduced llama3-405b (4 layers,
+    float32) through serve-full's batch shapes on the card and on the
+    CPU: tokens, counts, stats, slab words, pool generations equal; pool
+    pages and logits at rtol = atol = 1e-4 (float32, sums in another
+    order)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = reduced(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    card, cpu = _serve_run(cfg, DEVICE), _serve_run(cfg, "cpu")
+    eq = {"tokens": all((a.tokens == b.tokens).all()
+                        for a, b in zip(card["results"], cpu["results"])),
+          "counts": all((a.prefill_tokens_computed, a.prefill_tokens_cached,
+                         a.cache_stats) == (b.prefill_tokens_computed,
+                                            b.prefill_tokens_cached,
+                                            b.cache_stats)
+                        for a, b in zip(card["results"], cpu["results"])),
+          "slabs": all((card["slabs"][k] == cpu["slabs"][k]).all()
+                       for k in cpu["slabs"]),
+          "gen": bool((card["gen"] == cpu["gen"]).all())
+          and card["fifo"] == cpu["fifo"]}
+    errs = {"pages": max(float((card[k] - cpu[k]).abs().max())
+                         for k in ("k", "v")),
+            "logits": max(float((a.logits_last.cpu() - b.logits_last).abs().max())
+                          for a, b in zip(card["results"], cpu["results"]))}
+    close = (all(torch.allclose(card[k], cpu[k], rtol=1e-4, atol=1e-4)
+                 for k in ("k", "v"))
+             and all(torch.allclose(a.logits_last.cpu(), b.logits_last,
+                                    rtol=1e-4, atol=1e-4)
+                     for a, b in zip(card["results"], cpu["results"])))
+    check(all(eq.values()) and close,
+          f"serve-parity: card and CPU differ {eq}, max abs {errs}")
+    return {"d_model": cfg.d_model, "layers": cfg.n_layers, "equal": eq,
+            "max_abs_err": errs, "rtol": 1e-4, "atol": 1e-4,
+            "cache_stats": card["results"][-1].cache_stats}
+
+
+def phase_serve(errs):
+    """The prefix-cache serving engine: (a) serve-full at llama3-405b's
+    published width, whose launches are the phase's; (b) serve-parity
+    card against CPU, its launches counted apart."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    full = _serve_full(errs)
+    launches = full.pop("launches")
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    parity = _serve_parity()
+    torch.cuda.synchronize()
+    parity["launches"] = ops.launches()
+    emit("serve_full", **full)
+    emit("serve_parity", **parity)
+    for name, t in full["times"].items():
+        print(f"serve {name}: generate {t['generate_s']} s, prefill "
+              f"{t['prefill_s']} s, decode {t['decode_s']} s "
+              f"({t['ms_per_decode_token']} ms a token over "
+              f"{t['decode_steps']} steps), lookup round {t['lookup_ms']} ms, "
+              f"publish round {t.get('publish_ms', 'none')} ms", flush=True)
+    print(f"serve chain_block_keys of a batch (host): "
+          f"{full['chain_keys_ms']} ms; batch 1's prefill_collect again: "
+          f"{full['prefill_collect_cold_again_s']} s; a prefix-free prefill "
+          f"of batch 2: {full['prefill_no_prefix_batch2_s']} s", flush=True)
+    print(f"serve batch 3 tokens equal to batch 2's: "
+          f"{full['batch3_tokens_equal_share']}", flush=True)
+    print(f"serve peak memory GB: {full['max_memory_allocated_gb']}",
+          flush=True)
+    emit("serve", launches=launches)
+    return launches
+
+
+
 def warm_card(seconds: float = 1.0) -> None:
     """Keep the card busy for ``seconds`` before the first timed launch:
     the lm phase ends with work on the CPU, and a card that idled runs
@@ -4044,6 +4411,7 @@ def main(argv: list[str]) -> int:
     launches["sharded"] = phase_sharded(errs)
     tols: dict[str, float] = {}        # the bit-exact kernels: 0
     launches["lm"], acalls = phase_lm(errs, tols)
+    launches["serve"] = phase_serve(errs)
     timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls)
 
     kernels = []

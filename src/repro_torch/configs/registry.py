@@ -5,13 +5,13 @@ item 15)."""
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import gemma3_12b
+from . import gemma3_12b, llama3_405b, qwen1_5_32b, starcoder2_3b
 
-ARCHS = {gemma3_12b.ARCH_ID: gemma3_12b}
+ARCHS = {m.ARCH_ID: m for m in (llama3_405b, qwen1_5_32b, gemma3_12b,
+                                 starcoder2_3b)}
 # the JAX package's other architectures (repro/configs/registry.py)
-NOT_PORTED = ("llama3-405b", "qwen1.5-32b", "starcoder2-3b", "mamba2-370m",
-              "recurrentgemma-2b", "internvl2-26b", "llama4-scout-17b-a16e",
-              "qwen3-moe-235b-a22b", "hubert-xlarge")
+NOT_PORTED = ("mamba2-370m", "recurrentgemma-2b", "internvl2-26b",
+              "llama4-scout-17b-a16e", "qwen3-moe-235b-a22b", "hubert-xlarge")
 
 
 def get_config(arch_id: str) -> ModelConfig:

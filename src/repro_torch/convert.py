@@ -143,11 +143,12 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
                          device: str | torch.device | None = None) -> LM:
     """The port's model holding the weights of ``repro.models.init_lm``'s
     tree, given as numpy arrays (for example ``jax.tree.map(np.asarray,
-    params)``): ``embed.table``, ``final_norm``, and the stack's ``scan``
-    params stacked ``(n_periods, ...)`` per period position (layer
-    ``i * p + j`` is period i, position j) followed by its ``tail`` list.
-    Matrices are stored in ``cfg.dtype``, norm scales and the embedding
-    table in float32."""
+    params)``): ``embed.table``, ``head.table`` where the head is untied,
+    ``final_norm``, and the stack's ``scan`` params stacked
+    ``(n_periods, ...)`` per period position (layer ``i * p + j`` is
+    period i, position j) followed by its ``tail`` list.  Matrices (an
+    untied head too) are stored in ``cfg.dtype``, norm scales and the
+    embedding table in float32."""
     dev = resolve_device(device)
     lm = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                  device=dev)
@@ -155,6 +156,11 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
     stack = tree["stack"]
     with torch.no_grad():
         _load(lm.embed, tree["embed"]["table"])
+        if ("head" in tree) == cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings}"
+                             f" but the tree has entries {sorted(tree)}")
+        if not cfg.tie_embeddings:
+            _load(lm.head, tree["head"]["table"])
         _load_dict(lm.final_norm, tree["final_norm"])
         for i, layer in enumerate(lm.stack.layers):
             if i < n_full * p:

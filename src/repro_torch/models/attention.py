@@ -7,6 +7,12 @@ the card, its plain version on the CPU).  ``attn`` layers attend directly
 up to ``DIRECT_ATTN_MAX_SEQ`` positions and through ``chunked_attention``
 above, in plain torch, as in the reference.  Decode attends over the ring
 buffer in plain torch; the cache is updated in place.
+
+A prompt prefix whose K/V the prefix cache already holds (``kv_prefix``)
+is attended over by position: keys ``[prefix, self]``.  The local kernel
+masks by row index, so a local layer given a prefix takes the plain
+masked path up to ``DIRECT_ATTN_MAX_SEQ`` queries and raises above it
+(F11 in ROADMAP.md: the reference's banded branch misses keys there).
 """
 from __future__ import annotations
 
@@ -88,18 +94,28 @@ class Attention(nn.Module):
         return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                kv_prefix=None, collect_kv: bool = False) -> torch.Tensor:
+                kv_prefix=None, collect_kv: bool = False):
         """Full-sequence attention (prefill).  x: (B, S, E); positions:
-        (B, S), each row ``0..S-1`` as ``model.forward`` gives them (the
-        local kernel masks by row index)."""
-        if kv_prefix is not None or collect_kv:
-            raise NotImplementedError(
-                "kv_prefix/collect_kv belong to the prefix-cache serving "
-                "slice (ROADMAP queue 1, item 15)")
+        (B, S).  Without a prefix each row is ``0..S-1``, as
+        ``model.forward`` gives them (the local kernel masks by row
+        index).
+
+        kv_prefix: optional ``(pk, pv, p_pos)``, K/V ``(B, P, Hk, D)``
+        already computed for a prompt prefix and their positions ``(B,
+        P)``; queries attend over ``[prefix, self]`` and prefix rows at
+        position -1 are masked.  collect_kv: also return this call's
+        post-RoPE ``(k, v)``, each ``(B, S, Hk, D)``, for publication."""
         cfg = self.cfg
         q, k, v = self._qkv(x, positions)
         b, s, h, d = q.shape
-        if self.kind == C.ATTN_LOCAL:
+        window = cfg.local_window if self.kind == C.ATTN_LOCAL else None
+        k_all, v_all, k_pos = k, v, positions
+        if kv_prefix is not None:
+            pk, pv, p_pos = kv_prefix
+            k_all = torch.cat([pk.to(k.dtype), k], dim=1)
+            v_all = torch.cat([pv.to(v.dtype), v], dim=1)
+            k_pos = torch.cat([p_pos.to(positions.dtype), positions], dim=1)
+        if self.kind == C.ATTN_LOCAL and kv_prefix is None:
             if not cfg.causal or cfg.logit_softcap:
                 raise NotImplementedError(
                     "local attention is ported for causal layers without a "
@@ -107,12 +123,18 @@ class Attention(nn.Module):
             out = ops.local_attention(q, k, v, window=cfg.local_window)
             out = out.reshape(b, s, h * d)
         elif s > DIRECT_ATTN_MAX_SEQ:
-            out = chunked_attention(q, k, v, positions, positions,
+            if window is not None:
+                raise NotImplementedError(
+                    "a local layer with a KV prefix above DIRECT_ATTN_MAX_SEQ "
+                    "queries: the reference's banded branch misses prefix "
+                    "keys there (F11 in ROADMAP.md)")
+            out = chunked_attention(q, k_all, v_all, positions, k_pos,
                                     causal=cfg.causal, softcap=cfg.logit_softcap)
         else:
-            mask = _mask_tile(positions, positions, cfg.causal, None)
-            out = _attend(cfg, q, k, v, mask)
-        return out @ self.wo.to(x.dtype)
+            mask = _mask_tile(positions, k_pos, cfg.causal, window)
+            out = _attend(cfg, q, k_all, v_all, mask)
+        out = out @ self.wo.to(x.dtype)
+        return (out, (k, v)) if collect_kv else out
 
     def decode(self, cache: dict, x: torch.Tensor, t: int) -> torch.Tensor:
         """One-token decode at absolute position ``t``.  x: (B, 1, E).

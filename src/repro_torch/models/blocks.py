@@ -50,8 +50,16 @@ class Block(nn.Module):
         h = mlp(self.mlp, norm(self.ln2, x, cfg.norm_kind), cfg.mlp_kind)
         return x + self._post("pn2", h)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        h = self.attn(norm(self.ln1, x, self.cfg.norm_kind), positions)
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                kv_prefix=None, collect_kv: bool = False):
+        """x: (B, S, E) -> (B, S, E); with ``collect_kv`` also the
+        attention's ``(k, v)`` (``Attention.forward`` for both
+        arguments)."""
+        h = self.attn(norm(self.ln1, x, self.cfg.norm_kind), positions,
+                      kv_prefix=kv_prefix, collect_kv=collect_kv)
+        if collect_kv:
+            h, kv = h
+            return self._mlp(x + self._post("pn1", h)), kv
         return self._mlp(x + self._post("pn1", h))
 
     def decode(self, cache: dict, x: torch.Tensor, t: int) -> torch.Tensor:

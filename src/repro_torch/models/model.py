@@ -5,9 +5,11 @@ the decode step.  The port of ``repro/models/model.py`` for stacks of
 Weights: every matrix is stored once in the working type ``cfg.dtype``
 (the reference keeps float32 and casts at every use: the same numbers);
 norm scales stay float32; the embedding table stays float32 because the
-reference scales the looked-up rows before the cast, and the tied head
-is a working-type copy of it made once (a buffer, not a parameter).
-Parameters are random, drawn from the caller's ``torch.Generator``.
+reference scales the looked-up rows before the cast.  A tied head is a
+working-type copy of the table made once (a buffer, not a parameter); an
+untied head (``tie_embeddings=False``) is a parameter of its own in the
+working type, the reference's ``params["head"]["table"]``.  Parameters
+are random, drawn from the caller's ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -22,21 +24,30 @@ from .layers import embed, init_norm, norm, unembed
 from .stack import Stack, init_stack_cache
 
 
+def _table(cfg: ModelConfig, gen: torch.Generator, device) -> torch.Tensor:
+    """A float32 ``(V_pad, E)`` table of normals times 0.02 (the
+    reference's ``init_embedding``)."""
+    return torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                       dtype=torch.float32, device=device).mul_(0.02)
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        if not cfg.tie_embeddings or cfg.frontend:
+        if cfg.frontend:
             raise NotImplementedError(
-                "untied heads and modality frontends are not ported yet "
-                "(ROADMAP queue 1, item 15)")
+                "modality frontends are not ported yet (ROADMAP queue 1, "
+                "item 15)")
         self.cfg = cfg
-        table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
-                            dtype=torch.float32, device=device).mul_(0.02)
-        self.embed = nn.Parameter(table, requires_grad=False)
+        self.embed = nn.Parameter(_table(cfg, gen, device), requires_grad=False)
         self.stack = Stack(cfg, gen, device)
         self.final_norm = init_norm(cfg.d_model, device, cfg.norm_kind)
-        self.register_buffer("head", None, persistent=False)
-        self.refresh_head()
+        if cfg.tie_embeddings:
+            self.register_buffer("head", None, persistent=False)
+            self.refresh_head()
+        else:
+            self.head = nn.Parameter(_table(cfg, gen, device).to(self.dtype),
+                                     requires_grad=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -44,8 +55,10 @@ class LM(nn.Module):
 
     def refresh_head(self) -> None:
         """The tied head: the embedding table in the working type (call
-        again after the table changes)."""
-        self.head = self.embed.detach().to(self.dtype)
+        again after the table changes).  An untied head is left as it
+        is."""
+        if self.cfg.tie_embeddings:
+            self.head = self.embed.detach().to(self.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return unembed(self.head, norm(self.final_norm, x, self.cfg.norm_kind))
@@ -114,5 +127,6 @@ def greedy_sample(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def param_count(lm: LM) -> int:
-    """Parameters held (the tied head's copy is not one)."""
+    """Parameters held: the reference's count (a tied head's copy is not
+    one, an untied head is)."""
     return sum(p.numel() for p in lm.parameters())

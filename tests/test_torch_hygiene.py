@@ -1,8 +1,7 @@
 """Import hygiene and device defaults of the port.
 
 The port must stand alone: no file of ``src/repro_torch/``, no
-``chip_smoke.py`` and no ``examples/torch_poet_reactive_transport.py``
-imports ``jax`` or the JAX package ``repro`` (``repro_torch`` is the
+``chip_smoke.py`` and no ``examples/torch_*.py`` twin imports ``jax`` or the JAX package ``repro`` (``repro_torch`` is the
 port itself).  Its entry points run on the card unless the caller asks
 for another device, and raise where there is no card."""
 import ast
@@ -15,6 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "examples" / "torch_poet_reactive_transport.py",
+    ROOT / "examples" / "torch_serve_prefix_cache.py",
 ]
 
 

@@ -282,15 +282,21 @@ def test_unported_block_kinds_raise(kind):
 
 
 def test_unported_architectures_and_prefix_kv_raise(setup):
+    """An architecture whose blocks are not ported raises, and so does a
+    local layer given a KV prefix above DIRECT_ATTN_MAX_SEQ queries (F11:
+    the reference's banded branch misses prefix keys there)."""
     with pytest.raises(NotImplementedError, match="item 15"):
-        get_config("llama3-405b")
+        get_config("mamba2-370m")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg, _jcfg, _tree, _jp, lm = setup
-    x = torch.zeros(1, 4, cfg.d_model)
-    pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        lm.stack.layers[0].attn(x, pos, collect_kv=True)
+    s = tattn.DIRECT_ATTN_MAX_SEQ + 1
+    x = torch.zeros(1, s, cfg.d_model)
+    pos = torch.arange(s, dtype=torch.int32)[None] + 4
+    pk = torch.zeros(1, 4, cfg.n_kv_heads, cfg.head_dim)
+    prefix = (pk, pk, torch.arange(4, dtype=torch.int32)[None])
+    with pytest.raises(NotImplementedError, match="F11"):
+        lm.stack.layers[0].attn(x, pos, kv_prefix=prefix, collect_kv=True)
 
 
 def test_emb_scale_and_rope_theta_follow_config(setup):
