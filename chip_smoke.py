@@ -10,8 +10,9 @@ plain PyTorch version on the card, drives the main paths (the lock-free
 DHT at full size, key rounding, the POET surrogate twin, the
 neighbourhood-interpolation query, the L1 tier, the pipeline, elastic
 membership and online resharding, replication with crash failover and
-repair, the multi-rank backend, the telemetry, gemma3-12b prefill
-and decode, and the prefix-cache serving engine on llama3-405b),
+repair, the multi-rank backend, the telemetry, memoized preprocessing,
+checkpoints and the rehash of the table, gemma3-12b prefill and decode,
+and the prefix-cache serving engine on llama3-405b and on MoE stacks),
 checks the results, and times every kernel.  One
 JSON line per phase:
 
@@ -155,6 +156,20 @@ JSON line per phase:
              telemetry_snapshot() after a write and two reads against
              the lanes the wrappers returned, and the all-to-all words
              torch.profiler saw in one read beside its wire words;
+12b. substrate - the DHT's clients beside the surrogate: (a) memo:
+             ``data.memo.lookup_or_process`` on 2^16 doc ids twice, the
+             memo table at 8 x 2^17 buckets (92 MB): hits 0 then 2^16,
+             both calls' digests equal the plain transform's words on the
+             card and on the CPU, the first call's kernel calls against
+             their plain versions; (b) checkpoint: phase 4's table shape
+             filled with 2^22 entries, its four word arrays saved to a
+             temporary directory and restored onto the card bit for bit
+             (s and GB/s each way; the directory is deleted); (c) rehash:
+             ``rehash_dht`` of its live entries into 16 x 2^21; every
+             entry reads back with its value but those the re-insert
+             rounds evicted, the live count falling by exactly that many
+             (ms a round, entries/s), a read of the new table against the
+             plain versions.  The phase's launches are all three's;
 13. lm     - gemma3-12b: (a) the local-attention kernel against its
              plain version at the prefill shape (B=2, S=4096, H=16, Hk=8,
              D=256, window 1024) in bf16 and float32 and at edge shapes,
@@ -194,6 +209,25 @@ JSON line per phase:
              batch shapes on the card and the CPU: tokens, counts, stats,
              slab words and pool generations equal, pool pages and
              logits at rtol/atol 1e-4; its launches printed apart;
+14b. moe   - MoE stacks through the prefix-cache engine: (a) moe-full:
+             qwen3-moe-235b-a22b at its published widths (d_model 4,096,
+             128 experts top-8 of d_ff 1,536, 64/4 heads of 128, QK-norm,
+             vocab 151,936, untied head), 4 of 94 layers, bf16, random
+             weights from a seed, through serve-full's three batches;
+             gates: serve-full's counts and stats (stale 0), nothing
+             dropped in any DHT round, batch 1's pages equal
+             prefill_collect's K/V bit for bit, batch 2's DHT kernel
+             calls against their plain versions; reported: the token
+             choices dropped past capacity in each prefill and batch 2's
+             and 3's logits beside a prefix-free prefill's (the capacity
+             groups differ when only the suffix is prefilled, so these
+             are not gated); (b) moe-scout: llama4-scout-17b-a16e (16
+             experts top-1 and a shared expert, d_model 5,120), 2 of 48
+             layers, one cold batch of 2 x 4096 tokens and 32 greedy
+             tokens; (c) moe-parity: both reduced (float32) on the card
+             and the CPU: forward logits at rtol/atol 1e-4, drops,
+             engine tokens, counts and slab words equal.  The phase's
+             launches are (a)'s; (b)'s and (c)'s are printed apart;
 15. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
@@ -289,6 +323,14 @@ SERVE_NEW = 32                 # greedy tokens a batch
 SERVE_PAGE = 64                # tokens a page (and a DHT block)
 SERVE_POOL = 512               # pages in the pool
 SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW   # 4128
+MEMO_DOCS = 1 << 16            # doc ids of each memo call
+MEMO_BUCKETS = 1 << 17         # x 8 shards: the memo table (92 MB)
+SUBSTRATE_KEYS = 1 << 22       # entries of the checkpointed, rehashed table
+REHASH_SHARDS = 16             # the rehashed table: 16 x 2^21 (6.4 GB)
+MOE_ARCH = "qwen3-moe-235b-a22b"   # moe-full: the published widths, bf16
+MOE_LAYERS = 4                 # of 94 (94 are 470 GB of bf16 weights)
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+SCOUT_LAYERS = 2               # of 48
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
 # kernels whose own device time the timing phase reports beside the event
@@ -320,7 +362,7 @@ KERNEL_SOURCES = {
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
 ENGINE_PHASES = ("dht", "obs", "poet", "interp", "l1", "pipeline",
-                 "elastic", "faults", "sharded", "serve")
+                 "elastic", "faults", "sharded", "substrate", "serve", "moe")
 KERNEL_PHASES = {
     "route_pack": ENGINE_PHASES, "route_unpack": ENGINE_PHASES,
     "hash64": ENGINE_PHASES, "shard_apply": ENGINE_PHASES,
@@ -4233,6 +4275,414 @@ def phase_serve(errs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# substrate: the DHT's clients in the data and checkpoint layers
+# ---------------------------------------------------------------------------
+
+def _memo(errs) -> dict:
+    """(a) memo: MEMO_DOCS doc ids through ``data.memo.lookup_or_process``
+    twice on an 8-shard memo table: no hit, then all; both calls' digests
+    equal the plain transform's words on the card and on the CPU; the
+    first call's kernel calls against their plain versions."""
+    import torch
+
+    from repro_torch.data import memo
+    from repro_torch.kernels import ops
+
+    cfg = memo.memo_config(n_shards=8, buckets_per_shard=MEMO_BUCKETS)
+    st = memo.create(cfg, device=DEVICE)
+    ids = torch.arange(MEMO_DOCS, dtype=torch.int32, device=DEVICE)
+    with Capture(ops) as cap:
+        (st, d1, h1), s1 = _timed(lambda: memo.lookup_or_process(st, ids))
+    (st, d2, h2), s2 = _timed(lambda: memo.lookup_or_process(st, ids))
+    plain, ts = _timed(lambda: memo._expensive_transform(ids))
+    parity = compare_calls(cap.calls, errs, "substrate: the first memo call")
+    del cap
+    for name in KERNEL_PHASES:
+        if "substrate" in KERNEL_PHASES[name]:
+            check(name in parity, f"memo: {name} made no call")
+    cpu = memo._expensive_transform(ids.cpu())
+    hits = (int(h1), int(h2))
+    check(hits == (0, MEMO_DOCS), f"memo: hits {hits}")
+    check(torch.equal(d1, plain) and torch.equal(d2, plain)
+          and torch.equal(plain.cpu(), cpu),
+          "memo: digests differ from the plain transform's")
+    table_mb = (cfg.n_shards * cfg.buckets_per_shard * 4
+                * (cfg.key_words + cfg.val_words + 2) / 1e6)
+    return {"docs": MEMO_DOCS, "S": cfg.n_shards, "B": cfg.buckets_per_shard,
+            "table_mb": table_mb, "hits": hits, "cold_ms": s1 * 1e3,
+            "warm_ms": s2 * 1e3, "transform_ms": ts * 1e3,
+            "digests_equal_plain_and_cpu": True}
+
+
+def _checkpoint_rehash(cfg_big, errs) -> dict:
+    """(b) checkpoint: dht-full filled with SUBSTRATE_KEYS entries, its
+    four word arrays saved to a temporary directory and restored onto the
+    card bit for bit; (c) rehash: its live entries re-inserted into
+    REHASH_SHARDS x B, every entry read back but those the re-insert
+    rounds evicted (the live count falls by exactly that many)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch.core import dht_create, dht_read, dht_write
+    from repro_torch.kernels import ops
+
+    st = dht_create(cfg_big, device=DEVICE)
+    gen = torch.Generator().manual_seed(90)
+    keys = words(gen, SUBSTRATE_KEYS, cfg_big.key_words, DEVICE)
+    vals = words(gen, SUBSTRATE_KEYS, cfg_big.val_words, DEVICE)
+    for lo in range(0, SUBSTRATE_KEYS, N_KEYS):
+        dht_write(st, keys[lo:lo + N_KEYS], vals[lo:lo + N_KEYS])
+    ok = _elastic_readable(st, keys, vals)
+    live0 = _n_live(st)
+    check(int(ok.sum()) == live0, f"substrate: {int(ok.sum())} keys read "
+                                  f"back of {live0} live entries")
+
+    tree = {"keys": st.keys, "vals": st.vals, "meta": st.meta,
+            "csum": st.csum}
+    gb = sum(t.numel() * t.element_size() for t in tree.values()) / 1e9
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _, save_s = _timed(lambda: checkpoint.save(d, 1, tree))
+        parts = sorted(f for f in os.listdir(os.path.join(d, "step_1"))
+                       if f.startswith("part_"))
+        (step, back), restore_s = _timed(
+            lambda: checkpoint.restore(d, tree, device=DEVICE))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    equal = step == 1 and all(torch.equal(back[k], tree[k]) for k in tree)
+    check(equal, "checkpoint: the restored words differ")
+    del back, tree
+    ckpt = {"gb": gb, "parts": len(parts), "save_s": save_s,
+            "save_gb_per_s": gb / save_s, "restore_s": restore_s,
+            "restore_gb_per_s": gb / restore_s, "bit_equal": equal}
+
+    wide = dataclasses.replace(cfg_big, n_shards=REHASH_SHARDS)
+    new, rehash_s = _timed(lambda: checkpoint.rehash_dht(st, wide))
+    del st
+    live1 = _n_live(new)
+    with Capture(ops) as cap:
+        dht_read(new, keys[:N_KEYS])
+    compare_calls(cap.calls, errs, "substrate: a read of the rehashed table")
+    del cap
+    now = _elastic_readable(new, keys, vals)
+    back_n, stray = int(now.sum()), int((now & ~ok).sum())
+    check(stray == 0 and back_n == live1,
+          f"rehash: {back_n} keys read back, {live1} live, {stray} that "
+          "were not readable before")
+    rounds = -(-live0 // checkpoint.checkpoint.REHASH_BATCH)
+    del new
+    return ckpt, {
+        "from": [cfg_big.n_shards, cfg_big.buckets_per_shard],
+        "to": [wide.n_shards, wide.buckets_per_shard],
+        "entries_written": SUBSTRATE_KEYS, "live_before": live0,
+        "live_after": live1, "evicted_by_reinsert": live0 - live1,
+        "read_back": back_n, "rounds": rounds,
+        "batch": checkpoint.checkpoint.REHASH_BATCH, "rehash_s": rehash_s,
+        "ms_per_round": rehash_s * 1e3 / rounds,
+        "entries_per_s": live0 / rehash_s}
+
+
+def phase_substrate(cfg_big, errs):
+    """The DHT's clients beside the surrogate: memoized preprocessing,
+    the checkpoint of the full table and its rehash into a new shape.
+    The phase's launches are those of all three."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    memo = _memo(errs)
+    ckpt, rehash = _checkpoint_rehash(cfg_big, errs)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    emit("substrate", memo=memo, checkpoint=ckpt, rehash=rehash,
+         max_memory_allocated_gb=peak / 1e9, launches=launches)
+    print(f"substrate memo ms ({memo['docs']} docs): cold {memo['cold_ms']}, warm "
+          f"{memo['warm_ms']}, the transform alone {memo['transform_ms']}",
+          flush=True)
+    print(f"substrate checkpoint of {ckpt['gb']} GB in {ckpt['parts']} "
+          f"parts: save {ckpt['save_s']} s ({ckpt['save_gb_per_s']} GB/s), "
+          f"restore onto the card {ckpt['restore_s']} s "
+          f"({ckpt['restore_gb_per_s']} GB/s)", flush=True)
+    print(f"substrate rehash of {rehash['live_before']} live entries into "
+          f"{rehash['to']}: {rehash['rehash_s']} s, {rehash['rounds']} rounds "
+          f"of {rehash['batch']} ({rehash['ms_per_round']} ms a round), "
+          f"{rehash['entries_per_s']} entries/s; evicted by the re-insert: "
+          f"{rehash['evicted_by_reinsert']}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# moe: MoE stacks served by the prefix-cache engine
+# ---------------------------------------------------------------------------
+
+def _moe_config(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    return dataclasses.replace(full, n_layers=layers,
+                               block_pattern=full.block_pattern[:layers])
+
+
+def _moe_engine(cfg, seed: int):
+    """A bf16 model at ``cfg``'s widths from a seed, its weight GB and init
+    seconds, and an engine of serve-full's shape around it whose publish
+    first records the prefill's drops (the sum over layers of each
+    block's last ``dropped``)."""
+    import torch
+
+    from repro_torch.models import init_lm
+    from repro_torch.serving import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    lm, init_s = _timed(lambda: init_lm(cfg, generator=gen, device=DEVICE))
+    weights_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    eng = Engine(cfg, lm, max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                 pool_pages=SERVE_POOL, dtype=torch.bfloat16, device=DEVICE)
+    clock = ServeClock(eng)
+    dropped: list = []
+    pc = eng.prefix_cache
+    publish = pc.publish
+
+    def recorded(*args):
+        dropped.append(int(sum(int(b.moe_stats["dropped"])
+                               for b in lm.stack.layers)))
+        return publish(*args)
+
+    pc.publish = recorded
+    return lm, eng, clock, dropped, weights_gb, init_s
+
+
+def _moe_full(errs) -> dict:
+    """(a) moe-full: qwen3-moe-235b-a22b at its published widths, MOE_LAYERS
+    layers, bf16, random weights from a seed, through serve-full's three
+    batches; their launches counted between a reset and a read."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import param_count, prefill
+    from repro_torch.serving.prefill import prefill_collect
+
+    cfg = _moe_config(MOE_ARCH, MOE_LAYERS)
+    lm, eng, clock, dropped, weights_gb, init_s = _moe_engine(cfg, 1)
+    b1, b2 = serve_batches(cfg.vocab_size)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    r1, t1 = clock.generate(eng, b1)
+    published = list(eng.prefix_cache.pool.fifo)
+    with Capture(ops) as cap:
+        r2, t2 = clock.generate(eng, b2)
+    r3, t3 = clock.generate(eng, b2)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    _serve_checks("moe-full", (r1, r2, r3), clock.rounds)
+    parity = compare_calls(cap.calls, errs, "moe: batch 2's lookup and "
+                                            "publish rounds")
+    del cap
+    for name in KERNEL_PHASES:
+        if "moe" in KERNEL_PHASES[name]:
+            check(name in parity, f"moe-full: {name} made no call in "
+                                  "batch 2's rounds")
+
+    tokens1 = torch.from_numpy(b1).to(DEVICE)
+    (_lg, ks, vs), collect_s = _timed(lambda: prefill_collect(
+        lm, cfg, {"tokens": tokens1}))
+    pool = eng.prefix_cache.pool
+    pages_equal = (torch.equal(pool.k[published], _as_pages(ks))
+                   and torch.equal(pool.v[published], _as_pages(vs)))
+    check(pages_equal, "moe-full: batch 1's pages differ from "
+                       "prefill_collect's K/V")
+    del ks, vs, pool
+
+    # reported, not gated: the suffix-only prefill of batch 2 routes its
+    # tokens in other capacity groups than a prefill of the whole prompt
+    tokens2 = torch.from_numpy(b2).to(DEVICE)
+    ref, prefill_s = _timed(lambda: prefill(lm, {"tokens": tokens2}))
+    ref = ref.float()
+    diff2 = (r2.logits_last.float() - ref)
+    diff3 = (r3.logits_last.float() - r2.logits_last.float())
+    peak = torch.cuda.max_memory_allocated()
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_note": "cut from 94 (each layer 4.83 GB of bf16 experts)",
+           "d_model": cfg.d_model, "experts": cfg.n_experts,
+           "top_k": cfg.experts_per_token, "d_ff_expert": cfg.d_ff_expert,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "params": param_count(lm), "weights_gb": weights_gb,
+           "init_s": init_s, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "shared": SERVE_SHARED, "new_tokens": SERVE_NEW,
+           "times": {"cold": t1, "shared_prefix": t2, "full_hit": t3},
+           "dropped_per_prefill": {"cold": dropped[0],
+                                   "shared_prefix": dropped[1]},
+           "prefill_collect_cold_again_s": collect_s,
+           "prefill_no_prefix_batch2_s": prefill_s,
+           "counts": [(r.prefill_tokens_computed, r.prefill_tokens_cached)
+                      for r in (r1, r2, r3)],
+           "cache_stats": r3.cache_stats, "pages_equal": pages_equal,
+           "logit_scale": float(ref.abs().max()),
+           "batch2_vs_prefill_max_abs": float(diff2.abs().max()),
+           "batch2_vs_prefill_rel_rms": float(diff2.norm() / ref.norm()),
+           "batch3_vs_batch2_max_abs": float(diff3.abs().max()),
+           "batch3_tokens_equal_share": float((r3.tokens == r2.tokens).mean()),
+           "max_memory_allocated_gb": peak / 1e9, "launches": launches}
+    del lm, eng, clock, r1, r2, r3, ref
+    return out
+
+
+def _moe_scout() -> dict:
+    """(b) moe-scout: llama4-scout-17b-a16e at its published widths (top-1
+    of 16 experts and a shared expert), SCOUT_LAYERS layers, bf16: one
+    cold batch of 2 x 4096 tokens and SERVE_NEW greedy tokens."""
+    import torch
+
+    from repro_torch.models import param_count
+
+    cfg = _moe_config(SCOUT_ARCH, SCOUT_LAYERS)
+    lm, eng, clock, dropped, weights_gb, init_s = _moe_engine(cfg, 3)
+    b1, _b2 = serve_batches(cfg.vocab_size, seed=4)
+    r, t = clock.generate(eng, b1)
+    torch.cuda.synchronize()
+    got = {"computed": r.prefill_tokens_computed,
+           "cached": r.prefill_tokens_cached, "stats": r.cache_stats}
+    check(got == _serve_expected(0), f"moe-scout: counts {got}")
+    check(bool(torch.isfinite(r.logits_last).all()),
+          "moe-scout: non-finite logits")
+    dht_dropped = [int(st["dropped"]) for _n, st in clock.rounds]
+    check(len(dht_dropped) == 2 and not any(dht_dropped),
+          f"moe-scout: DHT rounds dropped {dht_dropped}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_note": "cut from 48", "d_model": cfg.d_model,
+           "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+           "shared_experts": cfg.n_shared_experts,
+           "d_ff_expert": cfg.d_ff_expert, "vocab": cfg.vocab_size,
+           "params": param_count(lm), "weights_gb": weights_gb,
+           "init_s": init_s, "times": t, "dropped_prefill": dropped[0],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del lm, eng, clock, r
+    return out
+
+
+def _moe_parity_run(cfg, device):
+    """The reduced model from one seed (the CPU copy's weights loaded into
+    the card's): forward logits and each block's drops over 2 x 64
+    tokens, and an engine's cold and warm batch of 8 greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.models import forward, init_lm
+    from repro_torch.serving import Engine
+
+    lm = init_lm(cfg, generator=torch.Generator().manual_seed(11), device="cpu")
+    if device != "cpu":
+        card = init_lm(cfg, generator=torch.Generator(device=device).manual_seed(11),
+                       device=device)
+        card.load_state_dict(lm.state_dict())
+        lm = card
+    prompts = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, size=(2, 64)).astype(np.int32)
+    logits = forward(lm, {"tokens": torch.from_numpy(prompts).to(device)})
+    drops = [int(b.moe_stats["dropped"]) for b in lm.stack.layers]
+    eng = Engine(cfg, lm, max_len=128, page_size=32, pool_pages=32,
+                 dtype=torch.float32, device=device)
+    runs = [eng.generate(prompts, 8) for _ in range(2)]
+    return {"logits": logits.cpu(), "drops": drops,
+            "tokens": [r.tokens for r in runs],
+            "counts": [(r.prefill_tokens_computed, r.prefill_tokens_cached,
+                        r.cache_stats) for r in runs],
+            "slabs": state_to_numpy(eng.prefix_cache.dht)}
+
+
+def _moe_parity() -> dict:
+    """(c) moe-parity: reduced qwen3-moe and llama4-scout (float32) on the
+    card and on the CPU: drops, tokens, counts and slab words equal,
+    logits at rtol = atol = 1e-4 (sums in another order)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+
+    out = {}
+    for arch in (MOE_ARCH, SCOUT_ARCH):
+        cfg = reduced(get_config(arch))
+        card, cpu = _moe_parity_run(cfg, DEVICE), _moe_parity_run(cfg, "cpu")
+        eq = {"drops": card["drops"] == cpu["drops"],
+              "tokens": all((a == b).all() for a, b in zip(card["tokens"],
+                                                           cpu["tokens"])),
+              "counts": card["counts"] == cpu["counts"],
+              "slabs": all((card["slabs"][k] == cpu["slabs"][k]).all()
+                           for k in cpu["slabs"])}
+        err = float((card["logits"] - cpu["logits"]).abs().max())
+        close = torch.allclose(card["logits"], cpu["logits"], rtol=1e-4,
+                               atol=1e-4)
+        check(all(eq.values()) and close,
+              f"moe-parity {arch}: card and CPU differ {eq}, logits {err}")
+        check(card["counts"][1][1] == 128, f"moe-parity {arch}: the warm "
+                                           "batch was not a full hit")
+        out[arch] = {"equal": eq, "logits_max_abs_err": err,
+                     "drops": card["drops"]}
+    return {"rtol": 1e-4, "atol": 1e-4, "archs": out}
+
+
+def phase_moe(errs):
+    """MoE stacks through the prefix-cache engine: (a) moe-full, whose
+    launches are the phase's; (b) moe-scout and (c) moe-parity, their
+    launches counted apart."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    def release():
+        # the engines' timing wrappers close reference cycles through the
+        # models: collect them before the next model is built
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    release()
+    full = _moe_full(errs)
+    launches = full.pop("launches")
+    release()
+    ops.reset_launches()
+    scout = _moe_scout()
+    release()
+    parity = _moe_parity()
+    torch.cuda.synchronize()
+    apart = ops.launches()
+    emit("moe_full", **full)
+    emit("moe_scout", **scout)
+    emit("moe_parity", **parity, launches_scout_and_parity=apart)
+    for name, t in full["times"].items():
+        print(f"moe {name}: generate {t['generate_s']} s, prefill "
+              f"{t['prefill_s']} s, decode {t['decode_s']} s "
+              f"({t['ms_per_decode_token']} ms a token over "
+              f"{t['decode_steps']} steps), lookup round {t['lookup_ms']} ms, "
+              f"publish round {t.get('publish_ms', 'none')} ms", flush=True)
+    t = scout["times"]
+    print(f"moe-scout cold: prefill {t['prefill_s']} s, "
+          f"{t['ms_per_decode_token']} ms a token, peak "
+          f"{scout['max_memory_allocated_gb']} GB", flush=True)
+    print(f"moe dropped per prefill: full {full['dropped_per_prefill']}, "
+          f"scout {scout['dropped_prefill']}; batch 2 against a prefix-free "
+          f"prefill: max abs {full['batch2_vs_prefill_max_abs']} at a scale "
+          f"of {full['logit_scale']}", flush=True)
+    print(f"moe peak memory GB: {full['max_memory_allocated_gb']}",
+          flush=True)
+    emit("moe", launches=launches)
+    return launches
+
+
 
 def warm_card(seconds: float = 1.0) -> None:
     """Keep the card busy for ``seconds`` before the first timed launch:
@@ -4409,9 +4859,11 @@ def main(argv: list[str]) -> int:
     launches["elastic"] = phase_elastic(cfg_big, errs)
     launches["faults"] = phase_faults(cfg_big, errs)
     launches["sharded"] = phase_sharded(errs)
+    launches["substrate"] = phase_substrate(cfg_big, errs)
     tols: dict[str, float] = {}        # the bit-exact kernels: 0
     launches["lm"], acalls = phase_lm(errs, tols)
     launches["serve"] = phase_serve(errs)
+    launches["moe"] = phase_moe(errs)
     timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls)
 
     kernels = []

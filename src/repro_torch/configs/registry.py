@@ -5,13 +5,21 @@ item 15)."""
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import gemma3_12b, llama3_405b, qwen1_5_32b, starcoder2_3b
+from . import (
+    gemma3_12b,
+    llama3_405b,
+    llama4_scout_17b_a16e,
+    qwen1_5_32b,
+    qwen3_moe_235b_a22b,
+    starcoder2_3b,
+)
 
 ARCHS = {m.ARCH_ID: m for m in (llama3_405b, qwen1_5_32b, gemma3_12b,
-                                 starcoder2_3b)}
+                                 starcoder2_3b, llama4_scout_17b_a16e,
+                                 qwen3_moe_235b_a22b)}
 # the JAX package's other architectures (repro/configs/registry.py)
 NOT_PORTED = ("mamba2-370m", "recurrentgemma-2b", "internvl2-26b",
-              "llama4-scout-17b-a16e", "qwen3-moe-235b-a22b", "hubert-xlarge")
+              "hubert-xlarge")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -115,11 +115,14 @@ def l1_to_numpy(l1: L1State) -> dict[str, np.ndarray]:
 
 
 def _load(dst: torch.Tensor, arr) -> None:
-    a = np.asarray(arr, dtype=np.float32)
-    if tuple(a.shape) != tuple(dst.shape):
-        raise ValueError(f"weight of shape {a.shape} does not fit "
+    """``arr`` (a numpy array, or a tensor of any float type on any
+    device, as ``checkpoint.restore`` gives them) into ``dst``."""
+    src = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+        np.asarray(arr, dtype=np.float32))
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"weight of shape {tuple(src.shape)} does not fit "
                          f"{tuple(dst.shape)}")
-    dst.copy_(torch.from_numpy(a))
+    dst.copy_(src)
 
 
 def _load_dict(dst, tree: dict) -> None:
@@ -136,19 +139,45 @@ def _take(tree, i: int):
     """Period ``i`` of a tree of stacked ``(n_periods, ...)`` arrays."""
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
+    return tree[i] if isinstance(tree, torch.Tensor) else np.asarray(tree)[i]
+
+
+def _load_mlp(dst, tree: dict, what: str) -> None:
+    """An MLP's ``{name: {"w": W}}`` into its ``ParameterDict``."""
+    if set(tree) != set(dst.keys()):
+        raise ValueError(f"{what} weights {sorted(tree)}")
+    for name, w in tree.items():
+        _load(dst[name], w["w"])
+
+
+def _load_moe(layer, tree: dict, i: int) -> None:
+    """The reference's ``moe`` tree: ``router.w`` (E, X), experts
+    ``wi``/``wg`` (X, E, F) and ``wo`` (X, F, E), an optional ``shared``
+    MLP."""
+    if getattr(layer, "moe", None) is None:
+        raise ValueError(f"layer {i}: an moe tree for a {layer.kind} block")
+    dst = layer.moe
+    if set(tree) != set(dst.keys()):
+        raise ValueError(f"layer {i}: moe weights {sorted(tree)} differ from "
+                         f"{sorted(dst.keys())}")
+    for name in ("router", "wi", "wg", "wo"):
+        _load(dst[name]["w"], tree[name]["w"])
+    if "shared" in tree:
+        _load_mlp(dst["shared"], tree["shared"], f"layer {i}: shared expert")
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
                          device: str | torch.device | None = None) -> LM:
     """The port's model holding the weights of ``repro.models.init_lm``'s
     tree, given as numpy arrays (for example ``jax.tree.map(np.asarray,
-    params)``): ``embed.table``, ``head.table`` where the head is untied,
+    params)``) or as tensors (``checkpoint.restore`` of the reference's
+    checkpoint): ``embed.table``, ``head.table`` where the head is untied,
     ``final_norm``, and the stack's ``scan`` params stacked
     ``(n_periods, ...)`` per period position (layer ``i * p + j`` is
-    period i, position j) followed by its ``tail`` list.  Matrices (an
-    untied head too) are stored in ``cfg.dtype``, norm scales and the
-    embedding table in float32."""
+    period i, position j) followed by its ``tail`` list; a ``moe``
+    block's ``moe`` tree in place of ``mlp``.  Matrices (an untied head
+    and the experts too) are stored in ``cfg.dtype``, norm scales, the
+    MoE router and the embedding table in float32."""
     dev = resolve_device(device)
     lm = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                  device=dev)
@@ -179,9 +208,9 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
             for name in ("q_norm", "k_norm"):
                 if name in at:
                     _load_dict(getattr(attn, name), at[name])
-            if set(bt["mlp"]) != set(layer.mlp.keys()):
-                raise ValueError(f"layer {i}: mlp weights {sorted(bt['mlp'])}")
-            for name, w in bt["mlp"].items():
-                _load(layer.mlp[name], w["w"])
+            if "moe" in bt:
+                _load_moe(layer, bt["moe"], i)
+            else:
+                _load_mlp(layer.mlp, bt["mlp"], f"layer {i}: mlp")
     lm.refresh_head()
     return lm

@@ -1,7 +1,8 @@
 """Per-layer residual blocks: the port of ``repro/models/blocks.py`` for the
-``attn`` and ``attn_local`` kinds (pre-norms ``ln1``/``ln2`` and, where the
-config asks, the post-norms ``pn1``/``pn2``).  The other kinds raise until
-they are ported."""
+``attn``, ``attn_local`` and ``moe`` kinds (pre-norms ``ln1``/``ln2`` and,
+where the config asks, the post-norms ``pn1``/``pn2``).  A ``moe`` block
+is global attention followed by the MoE layer in place of the MLP.  The
+other kinds raise until they are ported."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +10,8 @@ from torch import nn
 
 from . import config as C
 from .attention import Attention, init_kv_cache
-from .layers import init_dense, init_norm, mlp, mlp_names, norm
+from .layers import init_mlp, init_norm, mlp, norm
+from .moe import init_moe, moe_forward
 
 
 def not_ported(kind: str) -> NotImplementedError:
@@ -18,24 +20,26 @@ def not_ported(kind: str) -> NotImplementedError:
 
 
 class Block(nn.Module):
-    """``x + pn1(attn(ln1 x))``, then ``x + pn2(mlp(ln2 x))``."""
+    """``x + pn1(attn(ln1 x))``, then ``x + pn2(mlp(ln2 x))`` (the MoE
+    layer in a ``moe`` block, whose last call's stats stay in
+    ``moe_stats``: ``aux_loss`` and ``dropped``, on the device)."""
 
     def __init__(self, cfg, kind: str, gen: torch.Generator, device):
         super().__init__()
-        if kind not in (C.ATTN, C.ATTN_LOCAL):
+        if kind not in (C.ATTN, C.ATTN_LOCAL, C.MOE):
             raise not_ported(kind)
         self.cfg, self.kind = cfg, kind
-        e, ff, nk = cfg.d_model, cfg.d_ff, cfg.norm_kind
-        dt = getattr(torch, cfg.dtype)
+        e, nk = cfg.d_model, cfg.norm_kind
         self.ln1 = init_norm(e, device, nk)
-        self.attn = Attention(cfg, kind, gen, device)
+        self.attn = Attention(cfg, C.ATTN if kind == C.MOE else kind, gen,
+                              device)
         self.ln2 = init_norm(e, device, nk)
-        shapes = {"wi": (e, ff), "wg": (e, ff), "wo": (ff, e)}
-        self.mlp = nn.ParameterDict({
-            n: nn.Parameter(init_dense(gen, shapes[n][0], shapes[n][1:],
-                                       device=device).to(dt),
-                            requires_grad=False)
-            for n in mlp_names(cfg.mlp_kind)})
+        if kind == C.MOE:
+            self.moe = init_moe(cfg, gen, device)
+            self.moe_stats: dict = {}
+        else:
+            self.mlp = init_mlp(gen, e, cfg.d_ff, cfg.mlp_kind,
+                                getattr(torch, cfg.dtype), device)
         if cfg.use_post_norm:
             self.pn1 = init_norm(e, device, nk)
             self.pn2 = init_norm(e, device, nk)
@@ -47,7 +51,11 @@ class Block(nn.Module):
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = mlp(self.mlp, norm(self.ln2, x, cfg.norm_kind), cfg.mlp_kind)
+        h = norm(self.ln2, x, cfg.norm_kind)
+        if self.kind == C.MOE:
+            h, self.moe_stats = moe_forward(self.moe, cfg, h)
+        else:
+            h = mlp(self.mlp, h, cfg.mlp_kind)
         return x + self._post("pn2", h)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
@@ -71,6 +79,6 @@ class Block(nn.Module):
 
 def init_block_cache(cfg, kind, batch, max_len, dtype=torch.bfloat16, *,
                      device=None) -> dict:
-    if kind in (C.ATTN, C.ATTN_LOCAL):
+    if kind in (C.ATTN, C.ATTN_LOCAL, C.MOE):
         return init_kv_cache(cfg, kind, batch, max_len, dtype, device=device)
     raise not_ported(kind)

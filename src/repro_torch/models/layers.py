@@ -102,6 +102,18 @@ def mlp_names(kind: str) -> tuple[str, ...]:
     return ("wi", "wg", "wo") if kind in ("swiglu", "geglu") else ("wi", "wo")
 
 
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
+             dtype: torch.dtype, device=None) -> nn.ParameterDict:
+    """The MLP's matrices ``wi``/``wg`` (E, F) and ``wo`` (F, E), drawn as
+    ``init_dense`` draws them, stored in ``dtype``."""
+    shapes = {"wi": (d_model, d_ff), "wg": (d_model, d_ff), "wo": (d_ff, d_model)}
+    return nn.ParameterDict({
+        n: nn.Parameter(init_dense(gen, shapes[n][0], shapes[n][1:],
+                                   device=device).to(dtype),
+                        requires_grad=False)
+        for n in mlp_names(kind)})
+
+
 def embed(table: torch.Tensor, ids: torch.Tensor, scale: bool = False) -> torch.Tensor:
     """Rows of the float32 table, times sqrt(d_model) when ``scale``
     (before any cast to the working type, as the reference does)."""

@@ -1,0 +1,125 @@
+"""Mixture-of-Experts layer with capacity-factor token dispatch: the port
+of ``repro/models/moe.py``.
+
+The dispatch is the sort-based capacity binning the DHT router uses
+(``core.routing.stable_rank_by_group``: one substrate, two clients, as
+DESIGN.md §3 says): tokens are ranked within their expert bin and
+dropped past capacity (switch-style; a dropped token passes through the
+residual).  The reference ranks each token group apart; the port ranks
+every group in one sort over the key ``group * n_experts + expert``,
+which gives the same ranks.
+
+The expert products are three batched matmuls over every expert's
+weights, as the reference computes them outside any Pallas kernel: a
+decode step reads all of them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.routing import stable_rank_by_group
+from .layers import init_dense, init_mlp, mlp
+
+
+def init_moe(cfg, gen: torch.Generator, device=None) -> nn.ModuleDict:
+    """Router ``router.w`` (E, X) float32 (std 0.02), experts ``wi.w``/
+    ``wg.w`` (X, E, F) and ``wo.w`` (X, F, E) in ``cfg.dtype`` (std
+    1/sqrt(fan-in); ``wg`` whatever the MLP kind, as in the reference),
+    and with ``n_shared_experts`` a ``shared`` MLP of
+    width ``F * n_shared_experts``: the reference's tree, as modules."""
+    e, x = cfg.d_model, cfg.n_experts
+    f = cfg.d_ff_expert or cfg.d_ff
+    dt = getattr(torch, cfg.dtype)
+
+    def param(t):
+        return nn.ParameterDict({"w": nn.Parameter(t, requires_grad=False)})
+
+    def experts(fan_in, fan_out):
+        w = torch.randn((x, fan_in, fan_out), generator=gen,
+                        dtype=torch.float32, device=device)
+        return param(w.mul_(1.0 / math.sqrt(fan_in)).to(dt))
+
+    mods = {"router": param(init_dense(gen, e, (x,), scale=0.02,
+                                       device=device)),
+            "wi": experts(e, f), "wg": experts(e, f), "wo": experts(f, e)}
+    if cfg.n_shared_experts:
+        mods["shared"] = init_mlp(gen, e, f * cfg.n_shared_experts,
+                                  cfg.mlp_kind, dt, device)
+    return nn.ModuleDict(mods)
+
+
+def _pick_groups(t: int, want: int) -> int:
+    g = min(want, t)
+    while t % g:
+        g -= 1
+    return max(g, 1)
+
+
+def moe_forward(params, cfg, x: torch.Tensor, *, n_groups: int = 32):
+    """x: (B, S, E) -> ``(y (B, S, E), {"aux_loss", "dropped"})``.
+    ``params`` is the module ``init_moe`` builds or a dict of the same
+    layout.  Tokens dropped past capacity contribute 0 (the residual
+    passes them through); the stats stay on the device."""
+    b, s, e = x.shape
+    t = b * s
+    k = cfg.experts_per_token
+    nx = cfg.n_experts
+    g = _pick_groups(t, n_groups)
+    sg = t // g
+    cap = max(8, int(math.ceil(sg * k / nx * cfg.expert_capacity_factor)))
+    dev = x.device
+
+    xt = x.reshape(g, sg, e)
+    logits = torch.einsum("gse,ex->gsx", xt.to(torch.float32),
+                          params["router"]["w"])
+    gate_all = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: the largest first, on ties the lower expert
+    gate_s, idx_s = torch.sort(gate_all, dim=-1, descending=True, stable=True)
+    gate_k, idx_k = gate_s[..., :k], idx_s[..., :k]               # (g, sg, k)
+    gate_k = gate_k / torch.clamp(gate_k.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (switch-style)
+    density = F.one_hot(idx_k[..., 0], nx).to(torch.float32).mean(dim=(0, 1))
+    aux = nx * torch.sum(density * gate_all.mean(dim=(0, 1)))
+
+    # positions within each (group, expert) bin from one sort
+    dest = idx_k.reshape(g, sg * k)
+    group = torch.arange(g, device=dev)[:, None]
+    pos = stable_rank_by_group((group * nx + dest).reshape(-1),
+                               n_groups=g * nx).reshape(g, sg * k)
+    kept = pos < cap
+    slot = dest * cap + torch.clamp(pos, max=cap - 1)             # (g, sg*k)
+    slot = torch.where(kept, slot, nx * cap)                      # the dump row
+
+    # dispatch: one scatter of the repeated tokens; kept slots are unique
+    xk = torch.repeat_interleave(xt, k, dim=1)                    # (g, sg*k, e)
+    buf = torch.zeros((g, nx * cap + 1, e), dtype=x.dtype, device=dev)
+    buf[group, slot] = xk
+    buf = buf[:, :nx * cap].reshape(g, nx, cap, e)
+
+    wi = params["wi"]["w"].to(x.dtype)
+    wo = params["wo"]["w"].to(x.dtype)
+    hi = torch.einsum("gxce,xef->gxcf", buf, wi)
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        hg = torch.einsum("gxce,xef->gxcf", buf, params["wg"]["w"].to(x.dtype))
+        hg = (F.silu(hg) if cfg.mlp_kind == "swiglu"
+              else F.gelu(hg, approximate="tanh"))
+        hi = hg * hi
+    else:
+        hi = F.gelu(hi, approximate="tanh")
+    out_buf = torch.einsum("gxcf,xfe->gxce", hi, wo).reshape(g, nx * cap, e)
+
+    # combine: each token's k expert outputs, weighted in the compute dtype
+    gathered = out_buf[group, torch.clamp(slot, max=nx * cap - 1)]
+    gathered = torch.where(kept[..., None], gathered, 0).reshape(g, sg, k, e)
+    y = torch.einsum("gske,gsk->gse", gathered, gate_k.to(x.dtype))
+
+    if "shared" in params:
+        y = y + mlp(params["shared"], xt, cfg.mlp_kind)
+
+    stats = {"aux_loss": aux, "dropped": (~kept).sum().to(torch.int32)}
+    return y.reshape(b, s, e), stats

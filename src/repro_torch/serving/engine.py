@@ -24,7 +24,7 @@ from ..core.layout import resolve_device
 from ..models import decode_step, greedy_sample, init_cache
 from ..models.model import LM
 from .prefill import prefill_collect
-from .prefix_cache import PrefixCache
+from .prefix_cache import PrefixCache, check_fits
 
 
 @dataclasses.dataclass
@@ -88,6 +88,9 @@ class Engine:
 
         n_pref, page_ids = self.prefix_cache.lookup(prompts)
         p_tok = n_pref * self.page_size
+        # before any prefill: the suffix's blocks must fit the pool (F12)
+        check_fits(len(self.prefix_cache.pool.gen), b,
+                   s // self.page_size - n_pref)
         prefix = self.prefix_cache.fetch_prefix(page_ids) if n_pref else None
 
         suffix = prompts[:, p_tok:]

@@ -1,5 +1,6 @@
 """KV-collecting prefill for homogeneous-attention stacks (period 1:
-llama3 / qwen1.5 / starcoder2): the port of ``repro/serving/prefill.py``.
+llama3 / qwen1.5 / starcoder2 / llama4 / qwen3-moe): the port of
+``repro/serving/prefill.py``.
 
 Used by the prefix cache: prefill returns every layer's (K, V) so new
 blocks can be published to the page pool, and accepts an already-cached
@@ -10,7 +11,6 @@ from __future__ import annotations
 import torch
 
 from ..models import config as C
-from ..models.blocks import not_ported
 from ..models.model import LM, _embed_inputs
 from ..models.stack import find_period
 
@@ -22,8 +22,6 @@ def _check(cfg) -> str:
         raise ValueError(
             f"prefix cache supports homogeneous global-attention stacks; "
             f"{cfg.name} has period {p} (see DESIGN.md §6)")
-    if kind == C.MOE:
-        raise not_ported(kind)
     return kind
 
 
@@ -35,7 +33,9 @@ def prefill_collect(lm: LM, cfg, batch, kv_prefix=None):
 
     kv_prefix: optional ``(pk (L, B, P, Hk, D), pv, p_pos (B, P))``,
     cached pages; prefix rows at position -1 are masked out.  Only the
-    last position goes through the final norm and the head."""
+    last position goes through the final norm and the head.  A ``moe``
+    layer routes the suffix's tokens alone, in the reference's capacity
+    groups over them."""
     _check(cfg)
     x = _embed_inputs(lm, batch)
     b, s, _ = x.shape

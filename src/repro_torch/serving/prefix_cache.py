@@ -9,7 +9,10 @@ its solver for a chemistry input it has seen.
 
 Pointers are validated optimistically: a page may have been recycled
 after its pointer was written, so every hit re-checks the pool's
-generation counter (a stale pointer is a miss, never a wrong page).
+generation counter (a stale pointer is a miss, never a wrong page).  A
+publish of more pages than the pool holds raises before it allocates
+(F12 in ROADMAP.md: the reference recycles pages handed out earlier in
+the same call, so two blocks would point at one page).
 
 The DHT is the port's ``core`` table on the pool's device; its keys and
 values go in as the int32 bit-views of the uint32 words.  The pool's
@@ -113,6 +116,17 @@ class PagePool:
         return self.k[idx], self.v[idx]
 
 
+def check_fits(n_pages: int, batch: int, n_new: int) -> None:
+    """Raise ``ValueError`` where publishing ``n_new`` blocks of each of
+    ``batch`` prompts needs more pages than the pool's ``n_pages``: one
+    allocation would recycle its own pages (F12 in ROADMAP.md)."""
+    if batch * n_new > n_pages:
+        raise ValueError(
+            f"publishing {batch} x {n_new} blocks needs more pages than the "
+            f"pool's {n_pages}: one allocation would recycle its own pages "
+            f"and serve a wrong page (F12 in ROADMAP.md)")
+
+
 class PrefixCache:
     """Host-side coordinator tying the DHT to the page pool, both on
     ``device`` (the card unless the caller names another).
@@ -194,6 +208,7 @@ class PrefixCache:
         n_new = s_suf // ps
         if n_new == 0:
             return
+        check_fits(len(self.pool.gen), b, n_new)
         keys = self._keys(prompts)                    # (B, n_blocks, KW)
         new_keys = keys[:, start_block:start_block + n_new].reshape(-1, KEY_WORDS)
         ids = self.pool.alloc(b * n_new)              # (B*n_new,)

@@ -272,7 +272,7 @@ def test_greedy_sample_masks_padded_vocab():
 # what is not ported raises
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["moe", "ssd", "rglru"])
+@pytest.mark.parametrize("kind", ["ssd", "rglru"])
 def test_unported_block_kinds_raise(kind):
     cfg = reduced(get_config("gemma3-12b"))
     with pytest.raises(NotImplementedError, match="item 15"):
