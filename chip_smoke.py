@@ -228,12 +228,34 @@ JSON line per phase:
              and the CPU: forward logits at rtol/atol 1e-4, drops,
              engine tokens, counts and slab words equal.  The phase's
              launches are (a)'s; (b)'s and (c)'s are printed apart;
+14c. families - the other model families, random weights from a seed,
+             each model freed before the next: (a) mamba2-370m, all 48
+             SSD layers at its published widths, bf16: prefill of 2 x
+             4096 tokens (16 chunks of 256), then 64 greedy serve_step
+             tokens from a fresh cache; (b) recurrentgemma-2b, all 26
+             layers (8 x (R, R, A) + R, R), bf16: the same, with the
+             local_attention kernel launched once per local layer (8 a
+             prefill, H 10, Hk 1, D 256, W 2048) and held against its
+             plain version on that prefill's own layer inputs; each
+             reports prefill s, ms a token, peak GB and the share of a
+             prefill's time in the SSD chunk loop / RG-LRU scan (CUDA
+             events around each call); (c) internvl2-26b, 4 of 48 layers
+             at its published widths, bf16: prefill of 2 x (1,024
+             seeded frontend positions + 3,072 tokens), 16 decode tokens
+             from a fresh cache, and Engine must refuse it naming F13;
+             (d) hubert-xlarge, all 48 layers, bf16: forward over 2 x
+             2,048 frames; init_cache must raise; (e) families-parity:
+             the four reduced configs (float32) on the card against the
+             CPU, logits at rtol/atol 1e-4, and mamba2's and
+             recurrentgemma's 24 decode steps against their own forward
+             within 2e-2.  The phase's launches are all of these;
 15. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
              local-attention kernel beside its operation bound); hash64
              and stencil_keys also traced (trace_cold): their own device
-             time beside the event interval.
+             time beside the event interval; local_attention also at
+             recurrentgemma-2b's shape (the families phase's layer 2).
 
 Then the ``kernels`` line (launch counts per phase, the launches made to
 hold a kernel against its plain version left out; every kernel must
@@ -331,6 +353,15 @@ MOE_ARCH = "qwen3-moe-235b-a22b"   # moe-full: the published widths, bf16
 MOE_LAYERS = 4                 # of 94 (94 are 470 GB of bf16 weights)
 SCOUT_ARCH = "llama4-scout-17b-a16e"
 SCOUT_LAYERS = 2               # of 48
+FAM_BATCH = 2                  # prompts of the families phase
+FAM_PREFILL = 4096             # prefill tokens a prompt (mamba2, recurrentgemma)
+FAM_DECODE = 64                # greedy tokens after it
+VL_LAYERS = 4                  # internvl2-26b: of 48 (48 are 41 GB of bf16)
+VL_FRONT = 1024                # its frontend positions (the config's)
+VL_TEXT = 3072                 # its text tokens
+VL_DECODE = 16
+AUDIO_FRAMES = 2048            # hubert-xlarge: ~41 s of audio at 50 frames/s
+FAM_PARITY_STEPS = 24          # decode steps of families-parity (window 16)
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
 # kernels whose own device time the timing phase reports beside the event
@@ -371,7 +402,7 @@ KERNEL_PHASES = {
                   "sharded"),
     "stencil_keys": ("interp", "elastic", "sharded"),
     "l1_probe": ("l1", "elastic", "faults", "sharded"),
-    "local_attention": ("lm",),
+    "local_attention": ("lm", "families"),
 }
 
 
@@ -4634,29 +4665,34 @@ def _moe_parity() -> dict:
     return {"rtol": 1e-4, "atol": 1e-4, "archs": out}
 
 
-def phase_moe(errs):
-    """MoE stacks through the prefix-cache engine: (a) moe-full, whose
-    launches are the phase's; (b) moe-scout and (c) moe-parity, their
-    launches counted apart."""
+def _release():
+    """Collect reference cycles and return the cache's blocks, so that a
+    freed model's memory goes before the next is built."""
     import gc
 
     import torch
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(errs):
+    """MoE stacks through the prefix-cache engine: (a) moe-full, whose
+    launches are the phase's; (b) moe-scout and (c) moe-parity, their
+    launches counted apart."""
+    import torch
+
     from repro_torch.kernels import ops
 
-    def release():
-        # the engines' timing wrappers close reference cycles through the
-        # models: collect them before the next model is built
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    release()
+    # the engines' timing wrappers close reference cycles through the
+    # models: collect them before the next model is built
+    _release()
     full = _moe_full(errs)
     launches = full.pop("launches")
-    release()
+    _release()
     ops.reset_launches()
     scout = _moe_scout()
-    release()
+    _release()
     parity = _moe_parity()
     torch.cuda.synchronize()
     apart = ops.launches()
@@ -4683,6 +4719,388 @@ def phase_moe(errs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# families: SSD, RG-LRU and the frontend stubs
+# ---------------------------------------------------------------------------
+
+class EventClock:
+    """Card time between CUDA events around each outermost call of
+    ``module.name`` while active (a recursive call inside one is not
+    timed again): the function's share of a run."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.pairs: list = []
+        self.depth = 0
+
+    def __enter__(self):
+        import torch
+
+        self.orig = fn = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            if self.depth:
+                return fn(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            self.depth += 1
+            start.record()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                end.record()
+                self.depth -= 1
+                self.pairs.append((start, end))
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def _family_model(cfg, seed: int):
+    """A bf16 model at ``cfg``'s widths from a seed: (lm, weight GB, init
+    s, GB the earlier phases still hold), the peak counter reset before
+    it."""
+    import torch
+
+    from repro_torch.models import init_lm
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    lm, init_s = _timed(lambda: init_lm(cfg, generator=gen, device=DEVICE))
+    return (lm, (torch.cuda.memory_allocated() - before) / 1e9, init_s,
+            before / 1e9)
+
+
+def _decode_greedy(lm, cfg, first, n: int, max_len: int, cache=None,
+                   start: int = 0):
+    """``n`` greedy serve_step tokens fed ``first`` (B,) at position
+    ``start``, into ``cache`` (a fresh one of ``max_len`` positions when
+    None): (tokens (B, n), s)."""
+    import torch
+
+    from repro_torch.models import init_cache
+    from repro_torch.serving import make_serve_step
+
+    step = make_serve_step(cfg)
+    if cache is None:
+        cache = init_cache(cfg, first.shape[0], max_len, torch.bfloat16,
+                           device=DEVICE)
+
+    def run():
+        tok, c, out = first, cache, []
+        for t in range(start, start + n):
+            tok, c = step(lm, c, tok[:, None], t)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    new, secs = _timed(run)
+    check(bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+          f"{cfg.name}: decode token outside the vocabulary")
+    return new, secs
+
+
+def _family_recurrent(arch: str, seed: int, module, fname: str, calls):
+    """(a) mamba2-370m / (b) recurrentgemma-2b at full depth and width,
+    bf16: prefill of FAM_BATCH x FAM_PREFILL tokens (the local kernel
+    launched once per local layer; the first and last local layers'
+    inputs kept in ``calls``), a second prefill (equal logits, the peak),
+    one with ``module.fname`` timed by events, one profiled, then
+    FAM_DECODE greedy tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import greedy_sample, param_count, prefill
+
+    cfg = get_config(arch)
+    lm, weights_gb, init_s, held_gb = _family_model(cfg, seed)
+    tokens = torch.randint(0, cfg.vocab_size, (FAM_BATCH, FAM_PREFILL),
+                           generator=torch.Generator().manual_seed(seed + 1)
+                           ).to(DEVICE)
+    batch = {"tokens": tokens}
+    n_local = sum(k == "attn_local" for k in cfg.block_pattern)
+    before = ops.launches()["local_attention"]
+    with Capture(ops) as cap:
+        logits, first_s = _timed(lambda: prefill(lm, batch))
+    launched = ops.launches()["local_attention"] - before
+    check(launched == n_local, f"{arch}: local_attention launched "
+                               f"{launched} times, {n_local} local layers")
+    if n_local:
+        calls.extend([cap.calls["local_attention"][0],
+                      cap.calls["local_attention"][-1]])
+    del cap
+    check(logits.shape == (FAM_BATCH, cfg.padded_vocab), f"{arch}: shape")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    torch.cuda.reset_peak_memory_stats()
+    again, warm_s = _timed(lambda: prefill(lm, batch))
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(logits, again), f"{arch}: two prefills differ")
+    with EventClock(module, fname) as clock:
+        _, clocked_s = _timed(lambda: prefill(lm, batch))
+    part_ms = clock.ms()
+    prof = _profile(lambda: prefill(lm, batch), top=8)
+    new, dec_s = _decode_greedy(lm, cfg, greedy_sample(logits, cfg),
+                                FAM_DECODE, FAM_PREFILL + FAM_DECODE)
+    out = {"arch": arch, "layers": cfg.n_layers, "pattern_period":
+           list(cfg.block_pattern[:3]), "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "params": param_count(lm),
+           "weights_gb": weights_gb, "init_s": init_s, "batch": FAM_BATCH,
+           "seq": FAM_PREFILL, "prefill_s_first": first_s,
+           "prefill_s": warm_s,
+           "tokens_per_s": FAM_BATCH * FAM_PREFILL / warm_s,
+           "local_attention_launches": launched,
+           f"{fname}_ms": part_ms, f"{fname}_calls": len(clock.pairs),
+           "clocked_prefill_s": clocked_s,
+           f"{fname}_share": part_ms / (clocked_s * 1e3),
+           "decode_tokens": FAM_DECODE,
+           "ms_per_token": dec_s * 1e3 / FAM_DECODE,
+           "max_memory_allocated_gb": peak / 1e9, "held_before_gb": held_gb,
+           "profile": prof,
+           "tokens": new[:, :8].tolist()}
+    del lm, logits, again
+    return out
+
+
+def _family_vl():
+    """(c) internvl2-26b, VL_LAYERS layers at its published widths, bf16:
+    prefill of FAM_BATCH x (VL_FRONT frontend rows + VL_TEXT tokens), then
+    VL_DECODE tokens continuing the prompt (its K/V from
+    ``prefill_collect`` in a cache of VL_FRONT + VL_TEXT + VL_DECODE
+    positions); the engine refuses it (F13)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (greedy_sample, init_cache, param_count,
+                                    prefill)
+    from repro_torch.serving import Engine
+    from repro_torch.serving.prefill import prefill_collect
+
+    full = get_config("internvl2-26b")
+    check(full.frontend_len == VL_FRONT, "internvl2-26b: frontend_len")
+    cfg = dataclasses.replace(full, n_layers=VL_LAYERS,
+                              block_pattern=full.block_pattern[:VL_LAYERS])
+    lm, weights_gb, init_s, held_gb = _family_model(cfg, 21)
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (FAM_BATCH, VL_TEXT),
+                                     generator=gen, device=DEVICE),
+             "frontend_embeds": torch.randn(
+                 (FAM_BATCH, VL_FRONT, cfg.d_model), generator=gen,
+                 device=DEVICE).to(torch.bfloat16)}
+    logits, first_s = _timed(lambda: prefill(lm, batch))
+    check(logits.shape == (FAM_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "internvl2-26b: logits")
+    torch.cuda.reset_peak_memory_stats()
+    again, warm_s = _timed(lambda: prefill(lm, batch))
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(logits, again), "internvl2-26b: two prefills differ")
+    del again
+    prompt = VL_FRONT + VL_TEXT
+    last, ks, vs = prefill_collect(lm, cfg, batch)
+    collect_err = float((last.float() - logits.float()).abs().max())
+    check(bool(torch.isfinite(last).all()), "internvl2-26b: prefill_collect")
+    cache = init_cache(cfg, FAM_BATCH, prompt + VL_DECODE, torch.bfloat16,
+                       device=DEVICE)
+    for layer, k, v in zip(cache, ks, vs):
+        layer["k"][:, :prompt] = k
+        layer["v"][:, :prompt] = v
+        layer["slot_pos"][:prompt] = torch.arange(prompt, dtype=torch.int32,
+                                                  device=DEVICE)
+    del ks, vs
+    _new, dec_s = _decode_greedy(lm, cfg, greedy_sample(last, cfg),
+                                 VL_DECODE, prompt + VL_DECODE, cache, prompt)
+    try:
+        Engine(cfg, lm, max_len=VL_FRONT + VL_TEXT + VL_DECODE,
+               dtype=torch.bfloat16, device=DEVICE)
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check("F13" in refused, f"internvl2-26b: the engine did not refuse it "
+                            f"naming F13 ({refused!r})")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "layers_note": "cut from 48", "d_model": cfg.d_model,
+           "params": param_count(lm), "weights_gb": weights_gb,
+           "init_s": init_s, "batch": FAM_BATCH, "frontend": VL_FRONT,
+           "text": VL_TEXT, "prefill_s_first": first_s, "prefill_s": warm_s,
+           "decode_tokens": VL_DECODE, "decode_cache": prompt + VL_DECODE,
+           "decode_from": prompt,
+           "collect_vs_prefill_max_abs": collect_err,
+           "ms_per_token": dec_s * 1e3 / VL_DECODE,
+           "max_memory_allocated_gb": peak / 1e9, "held_before_gb": held_gb,
+           "engine_refused": refused}
+    del lm, logits, last, cache
+    return out
+
+
+def _family_audio():
+    """(d) hubert-xlarge, all 48 layers, bf16: forward over FAM_BATCH x
+    AUDIO_FRAMES frames (no tokens); init_cache raises."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_cache, param_count
+
+    cfg = get_config("hubert-xlarge")
+    lm, weights_gb, init_s, held_gb = _family_model(cfg, 31)
+    gen = torch.Generator(device=DEVICE).manual_seed(32)
+    batch = {"tokens": torch.zeros((FAM_BATCH, 0), dtype=torch.int64,
+                                   device=DEVICE),
+             "frontend_embeds": torch.randn(
+                 (FAM_BATCH, AUDIO_FRAMES, cfg.d_model), generator=gen,
+                 device=DEVICE).to(torch.bfloat16)}
+    logits, first_s = _timed(lambda: forward(lm, batch))
+    check(logits.shape == (FAM_BATCH, AUDIO_FRAMES, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "hubert-xlarge: logits")
+    del logits
+    torch.cuda.reset_peak_memory_stats()
+    _, warm_s = _timed(lambda: forward(lm, batch))
+    peak = torch.cuda.max_memory_allocated()
+    try:
+        init_cache(cfg, 1, 8, device=DEVICE)
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check("encoder-only" in refused, "hubert-xlarge: init_cache did not "
+                                     "raise")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "head_dim": cfg.head_dim, "causal": cfg.causal,
+           "params": param_count(lm), "weights_gb": weights_gb,
+           "init_s": init_s, "batch": FAM_BATCH, "frames": AUDIO_FRAMES,
+           "forward_s_first": first_s, "forward_s": warm_s,
+           "frames_per_s": FAM_BATCH * AUDIO_FRAMES / warm_s,
+           "max_memory_allocated_gb": peak / 1e9, "held_before_gb": held_gb,
+           "init_cache_refused": refused}
+    del lm
+    return out
+
+
+def _family_parity():
+    """(e) families-parity: the four reduced configs (float32) from one
+    seed, the CPU copy's weights loaded into the card's: forward logits
+    card against CPU at rtol/atol 1e-4 (sums in another order); for the
+    recurrent ones FAM_PARITY_STEPS decode steps, card against CPU at
+    1e-4 and against the card's forward within 2e-2 (the reference's
+    bound, tests/test_models.py)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import decode_step, forward, init_cache, init_lm
+
+    out = {}
+    for i, arch in enumerate(("mamba2-370m", "recurrentgemma-2b",
+                              "internvl2-26b", "hubert-xlarge")):
+        cfg = reduced(get_config(arch))
+        cpu = init_lm(cfg, generator=torch.Generator().manual_seed(40 + i),
+                      device="cpu")
+        card = init_lm(cfg, generator=torch.Generator(device=DEVICE).manual_seed(0),
+                       device=DEVICE)
+        card.load_state_dict(cpu.state_dict())
+        card.refresh_head()
+        gen = torch.Generator().manual_seed(50 + i)
+        n_text = 0 if cfg.frontend_len < 0 else 32
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, n_text),
+                                         generator=gen)}
+        if cfg.frontend:
+            n_front = 32 if cfg.frontend_len < 0 else cfg.frontend_len
+            batch["frontend_embeds"] = torch.randn((2, n_front, cfg.d_model),
+                                                   generator=gen)
+        a = forward(card, {k: v.to(DEVICE) for k, v in batch.items()})
+        b = forward(cpu, batch)
+        err = float((a.cpu() - b).abs().max())
+        check(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4),
+              f"families-parity {arch}: forward differs card/CPU by {err}")
+        row = {"layers": list(cfg.block_pattern), "forward_max_abs_err": err}
+        if arch in ("mamba2-370m", "recurrentgemma-2b"):
+            toks = batch["tokens"]
+            cc = init_cache(cfg, 2, 64, torch.float32, device=DEVICE)
+            cp = init_cache(cfg, 2, 64, torch.float32, device="cpu")
+            dec_err, self_err = 0.0, 0.0
+            for t in range(FAM_PARITY_STEPS):
+                x, cc = decode_step(card, cc, toks[:, t:t + 1].to(DEVICE), t)
+                y, cp = decode_step(cpu, cp, toks[:, t:t + 1], t)
+                dec_err = max(dec_err, float((x.cpu() - y).abs().max()))
+                self_err = max(self_err, float((x - a[:, t]).abs().max()))
+                check(torch.allclose(x.cpu(), y, rtol=1e-4, atol=1e-4),
+                      f"families-parity {arch}: decode step {t} differs "
+                      "card/CPU")
+            check(self_err <= 2e-2, f"families-parity {arch}: decode "
+                                    f"differs from forward by {self_err}")
+            row.update(decode_steps=FAM_PARITY_STEPS,
+                       decode_max_abs_err=dec_err,
+                       decode_vs_forward_max_abs=self_err)
+        out[arch] = row
+    return {"rtol": 1e-4, "atol": 1e-4, "decode_vs_forward_tol": 2e-2,
+            "archs": out}
+
+
+def phase_families(errs, tols):
+    """mamba2-370m, recurrentgemma-2b, internvl2-26b and hubert-xlarge:
+    (a)-(d) between a reset and a read of the launch counts, which are
+    the phase's; (e) families-parity with its launches counted apart
+    (its float32 forward runs the local kernel's float32 form); then the
+    local kernel against its plain version on recurrentgemma's prefill
+    inputs.  Returns the launches and those inputs (layer 2's first)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import rglru, ssm
+
+    calls: list = []
+    _release()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    mamba = _family_recurrent("mamba2-370m", 1, ssm, "_inter_chunk", [])
+    _release()
+    griffin = _family_recurrent("recurrentgemma-2b", 11, rglru, "_scan", calls)
+    _release()
+    vl = _family_vl()
+    _release()
+    audio = _family_audio()
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    _release()
+    ops.reset_launches()
+    parity = _family_parity()
+    torch.cuda.synchronize()
+    parity_launches = ops.launches()
+    cases: list = []
+    for label, args in zip(("recurrentgemma_layer_2", "recurrentgemma_layer_23"),
+                           calls):
+        _attn_vs_plain(label, args, cases, errs, tols)
+    emit("families_mamba2", **mamba)
+    emit("families_recurrentgemma", **griffin)
+    emit("families_internvl2", **vl)
+    emit("families_hubert", **audio)
+    emit("families_parity", **parity, launches_parity=parity_launches)
+    emit("families_kernel_parity", cases=cases)
+    for row in (mamba, griffin):
+        part = next(k for k in row if k.endswith("_share"))
+        print(f"families {row['arch']}: prefill {row['prefill_s']} s "
+              f"(first {row['prefill_s_first']} s), {row['ms_per_token']} ms "
+              f"a token, peak {row['max_memory_allocated_gb']} GB (of it "
+              f"{row['held_before_gb']} GB held before), weights "
+              f"{row['weights_gb']} GB, {part} {row[part]}", flush=True)
+    print(f"families internvl2-26b ({VL_LAYERS} layers): prefill "
+          f"{vl['prefill_s']} s, {vl['ms_per_token']} ms a token from "
+          f"position {vl['decode_from']} over its prompt's K/V, peak "
+          f"{vl['max_memory_allocated_gb']} GB; hubert-xlarge: forward "
+          f"{audio['forward_s']} s, peak {audio['max_memory_allocated_gb']} "
+          f"GB", flush=True)
+    emit("families", launches=launches)
+    _release()
+    return launches, calls[:1]
+
 
 def warm_card(seconds: float = 1.0) -> None:
     """Keep the card busy for ``seconds`` before the first timed launch:
@@ -4698,7 +5116,7 @@ def warm_card(seconds: float = 1.0) -> None:
         torch.cuda.synchronize()
 
 
-def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls):
+def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls):
     import torch
 
     import torch.nn.functional as F
@@ -4799,8 +5217,18 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls):
         "plain_ms": time_cold(ref.local_attention, f32, reps=5, warmup=1),
         "library_ms": time_cold(sdpa_call(f32), f32),
         "bound_ms": bound_ms(nbytes, nops)[0]}
+    # recurrentgemma-2b's local layers (H 10, Hk 1, D 256, W 2048; bf16)
+    fargs = fcalls[0]
+    nbytes, nops = bound_local_attention(*fargs)
+    out["local_attention"]["recurrentgemma"] = {
+        "shapes": [list(a.shape) for a in fargs[:3]], "window": fargs[3],
+        "ms": time_cold(local_attn_kernel.local_attention, fargs),
+        "plain_ms": time_cold(ref.local_attention, fargs, reps=5, warmup=1),
+        "library_ms": time_cold(sdpa_call(fargs), fargs),
+        "bound_ms": bound_ms(nbytes, nops, BF16_TFLOPS)[0]}
     for t in out.values():
-        for row in (t, t.get("write_leg"), t.get("float32")):
+        for row in (t, t.get("write_leg"), t.get("float32"),
+                    t.get("recurrentgemma")):
             if row and row["library_ms"] is not None:
                 row["vs_library"] = row["ms"] / row["library_ms"]
             if row:
@@ -4864,7 +5292,9 @@ def main(argv: list[str]) -> int:
     launches["lm"], acalls = phase_lm(errs, tols)
     launches["serve"] = phase_serve(errs)
     launches["moe"] = phase_moe(errs)
-    timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls)
+    launches["families"], fcalls = phase_families(errs, tols)
+    timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls,
+                          fcalls)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,31 +1,44 @@
-"""Architecture registry of the port.  Only the architectures whose
-blocks are ported resolve; the JAX package's other ids raise
-``NotImplementedError`` until their blocks land (ROADMAP queue 1,
-item 15)."""
+"""Architecture registry of the port: ``--arch <id>`` resolution for every
+launcher.  All ten architectures of the JAX package resolve, in its order
+(``repro/configs/registry.py``): dense, hybrid local/global, SSM, RG-LRU,
+frontend (vision, audio) and MoE families."""
 from __future__ import annotations
 
 from ..models.config import ModelConfig
 from . import (
     gemma3_12b,
+    hubert_xlarge,
+    internvl2_26b,
     llama3_405b,
     llama4_scout_17b_a16e,
+    mamba2_370m,
     qwen1_5_32b,
     qwen3_moe_235b_a22b,
+    recurrentgemma_2b,
     starcoder2_3b,
 )
 
-ARCHS = {m.ARCH_ID: m for m in (llama3_405b, qwen1_5_32b, gemma3_12b,
-                                 starcoder2_3b, llama4_scout_17b_a16e,
-                                 qwen3_moe_235b_a22b)}
-# the JAX package's other architectures (repro/configs/registry.py)
-NOT_PORTED = ("mamba2-370m", "recurrentgemma-2b", "internvl2-26b",
-              "hubert-xlarge")
+_MODULES = (
+    llama3_405b,
+    qwen1_5_32b,
+    gemma3_12b,
+    starcoder2_3b,
+    mamba2_370m,
+    recurrentgemma_2b,
+    internvl2_26b,
+    llama4_scout_17b_a16e,
+    qwen3_moe_235b_a22b,
+    hubert_xlarge,
+)
+
+ARCHS: dict[str, object] = {m.ARCH_ID: m for m in _MODULES}
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id}: not ported yet (ROADMAP queue 1, item 15)")
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id].config()
+
+
+def all_arch_ids() -> list[str]:
+    return [m.ARCH_ID for m in _MODULES]

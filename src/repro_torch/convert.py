@@ -125,16 +125,6 @@ def _load(dst: torch.Tensor, arr) -> None:
     dst.copy_(src)
 
 
-def _load_dict(dst, tree: dict) -> None:
-    """Each entry of ``tree`` into the same name of ``dst`` (a norm's
-    ``scale``/``bias``)."""
-    if set(tree) != set(dst.keys()):
-        raise ValueError(f"entries {sorted(tree)} differ from "
-                         f"{sorted(dst.keys())}")
-    for name, arr in tree.items():
-        _load(dst[name], arr)
-
-
 def _take(tree, i: int):
     """Period ``i`` of a tree of stacked ``(n_periods, ...)`` arrays."""
     if isinstance(tree, dict):
@@ -142,28 +132,38 @@ def _take(tree, i: int):
     return tree[i] if isinstance(tree, torch.Tensor) else np.asarray(tree)[i]
 
 
-def _load_mlp(dst, tree: dict, what: str) -> None:
-    """An MLP's ``{name: {"w": W}}`` into its ``ParameterDict``."""
-    if set(tree) != set(dst.keys()):
-        raise ValueError(f"{what} weights {sorted(tree)}")
-    for name, w in tree.items():
-        _load(dst[name], w["w"])
+def _load_tree(dst, tree: dict, what: str) -> None:
+    """A nested tree of arrays into the container of the same names (a
+    ``ParameterDict``, ``ParamTree`` or ``Block``: a norm, an MLP, the
+    ``moe``, ``ssd`` and ``rec`` trees); names that differ raise.  A
+    matrix the container holds bare (an MLP's) takes its ``{"w": W}``."""
+    names = set(dst.keys())
+    if set(tree) != names:
+        raise ValueError(f"{what} weights {sorted(tree)} differ from "
+                         f"{sorted(names)}")
+    for name, sub in tree.items():
+        target = dst[name]
+        if isinstance(target, torch.Tensor):
+            if isinstance(sub, dict):
+                if set(sub) != {"w"}:
+                    raise ValueError(f"{what}.{name} weights {sorted(sub)}")
+                sub = sub["w"]
+            _load(target, sub)
+        elif name == "attn":
+            _load_attn(target, sub, f"{what}.attn")
+        else:
+            _load_tree(target, sub, f"{what}.{name}")
 
 
-def _load_moe(layer, tree: dict, i: int) -> None:
-    """The reference's ``moe`` tree: ``router.w`` (E, X), experts
-    ``wi``/``wg`` (X, E, F) and ``wo`` (X, F, E), an optional ``shared``
-    MLP."""
-    if getattr(layer, "moe", None) is None:
-        raise ValueError(f"layer {i}: an moe tree for a {layer.kind} block")
-    dst = layer.moe
-    if set(tree) != set(dst.keys()):
-        raise ValueError(f"layer {i}: moe weights {sorted(tree)} differ from "
-                         f"{sorted(dst.keys())}")
-    for name in ("router", "wi", "wg", "wo"):
-        _load(dst[name]["w"], tree[name]["w"])
-    if "shared" in tree:
-        _load_mlp(dst["shared"], tree["shared"], f"layer {i}: shared expert")
+def _load_attn(attn, at: dict, what: str) -> None:
+    for name in ("q", "k", "v"):
+        _load(getattr(attn, f"w{name}"), at[f"w{name}"]["w"])
+        if "b" in at[f"w{name}"]:
+            _load(getattr(attn, f"b{name}"), at[f"w{name}"]["b"])
+    _load(attn.wo, at["wo"]["w"])
+    for name in ("q_norm", "k_norm"):
+        if name in at:
+            _load_tree(getattr(attn, name), at[name], f"{what}.{name}")
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
@@ -174,10 +174,15 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
     checkpoint): ``embed.table``, ``head.table`` where the head is untied,
     ``final_norm``, and the stack's ``scan`` params stacked
     ``(n_periods, ...)`` per period position (layer ``i * p + j`` is
-    period i, position j) followed by its ``tail`` list; a ``moe``
-    block's ``moe`` tree in place of ``mlp``.  Matrices (an untied head
-    and the experts too) are stored in ``cfg.dtype``, norm scales, the
-    MoE router and the embedding table in float32."""
+    period i, position j) followed by its ``tail`` list.  A layer's tree
+    has its block's names: ``ln1``, ``attn``, ``ln2``, ``mlp`` (a ``moe``
+    block's ``moe`` tree in its place; ``pn1``/``pn2`` with post-norms),
+    ``ln1`` and ``ssd`` for an ``ssd`` block, ``ln1``, ``rec``, ``ln2``
+    and ``mlp`` for an ``rglru`` block; other names raise.  Matrices (an
+    untied head, the experts, the SSD and RG-LRU projections and conv
+    weights too) are stored in ``cfg.dtype``; norm scales, the MoE
+    router, ``A_log``/``D``/``dt_bias``, ``lam`` and the embedding table
+    in float32."""
     dev = resolve_device(device)
     lm = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                  device=dev)
@@ -190,27 +195,12 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
                              f" but the tree has entries {sorted(tree)}")
         if not cfg.tie_embeddings:
             _load(lm.head, tree["head"]["table"])
-        _load_dict(lm.final_norm, tree["final_norm"])
+        _load_tree(lm.final_norm, tree["final_norm"], "final_norm")
         for i, layer in enumerate(lm.stack.layers):
             if i < n_full * p:
                 bt = _take(stack["scan"][f"b{i % p}"], i // p)
             else:
                 bt = stack["tail"][i - n_full * p]
-            for name in ("ln1", "ln2", "pn1", "pn2"):
-                if name in bt:
-                    _load_dict(getattr(layer, name), bt[name])
-            at, attn = bt["attn"], layer.attn
-            for name in ("q", "k", "v"):
-                _load(getattr(attn, f"w{name}"), at[f"w{name}"]["w"])
-                if "b" in at[f"w{name}"]:
-                    _load(getattr(attn, f"b{name}"), at[f"w{name}"]["b"])
-            _load(attn.wo, at["wo"]["w"])
-            for name in ("q_norm", "k_norm"):
-                if name in at:
-                    _load_dict(getattr(attn, name), at[name])
-            if "moe" in bt:
-                _load_moe(layer, bt["moe"], i)
-            else:
-                _load_mlp(layer.mlp, bt["mlp"], f"layer {i}: mlp")
+            _load_tree(layer, bt, f"layer {i}: a {layer.kind} block's")
     lm.refresh_head()
     return lm

@@ -37,6 +37,44 @@ def init_norm(dim: int, device=None, kind: str = "rmsnorm") -> nn.ParameterDict:
         requires_grad=False) for n in names})
 
 
+def weight(w: torch.Tensor, dtype: torch.dtype) -> nn.ParameterDict:
+    """The reference's ``{"w": W}`` entry, W stored in ``dtype``."""
+    return nn.ParameterDict({"w": nn.Parameter(w.to(dtype),
+                                               requires_grad=False)})
+
+
+class ParamTree(nn.Module):
+    """A reference-shaped tree as a module: its entries (parameters and
+    sub-trees) read as ``params[name]``, so the functions that take the
+    reference's parameter dicts take it too."""
+
+    def __init__(self, **entries):
+        super().__init__()
+        for name, value in entries.items():
+            setattr(self, name, value)
+
+    def keys(self) -> list[str]:
+        return ([n for n, _ in self.named_children()]
+                + [n for n, _ in self.named_parameters(recurse=False)])
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.keys()
+
+
+def causal_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time: x (B, S, C), w (W, C); the W taps
+    unrolled in the reference's order of sums."""
+    width, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + pad[:, i:i + s, :] * w[i]
+    return out
+
+
 def dense(w: torch.Tensor, x: torch.Tensor,
           b: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ W (+ b)``, W: (in, *out), contracting the last axis of x."""

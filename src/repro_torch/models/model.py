@@ -1,6 +1,8 @@
 """Language-model assembly: embeddings -> layer stack -> head, prefill and
-the decode step.  The port of ``repro/models/model.py`` for stacks of
-``attn``/``attn_local`` blocks.
+the decode step.  The port of ``repro/models/model.py`` for every block
+kind and the modality-frontend stubs: a config with a ``frontend``
+(internvl2's patches, hubert's frames) takes precomputed embeddings in
+``batch["frontend_embeds"]`` as a prefix of the sequence.
 
 Weights: every matrix is stored once in the working type ``cfg.dtype``
 (the reference keeps float32 and casts at every use: the same numbers);
@@ -34,10 +36,6 @@ def _table(cfg: ModelConfig, gen: torch.Generator, device) -> torch.Tensor:
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        if cfg.frontend:
-            raise NotImplementedError(
-                "modality frontends are not ported yet (ROADMAP queue 1, "
-                "item 15)")
         self.cfg = cfg
         self.embed = nn.Parameter(_table(cfg, gen, device), requires_grad=False)
         self.stack = Stack(cfg, gen, device)
@@ -75,13 +73,24 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
 
 def _embed_inputs(lm: LM, batch) -> torch.Tensor:
     """Token embeddings, scaled by sqrt(d_model) in float32 when the
-    config asks, then cast to the working type."""
-    return embed(lm.embed, batch["tokens"], scale=lm.cfg.emb_scale).to(lm.dtype)
+    config asks, then cast to the working type; with a frontend,
+    ``batch["frontend_embeds"]`` (B, F, E) first, cast to the working
+    type and then scaled under ``emb_scale``.  hubert's ``frontend_len =
+    -1`` means every position is a frame: its ``tokens`` are (B, 0)."""
+    cfg = lm.cfg
+    x = embed(lm.embed, batch["tokens"], scale=cfg.emb_scale).to(lm.dtype)
+    if cfg.frontend:
+        fe = batch["frontend_embeds"].to(lm.dtype)
+        if cfg.emb_scale:
+            fe = fe * math.sqrt(cfg.d_model)
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 @torch.no_grad()
 def forward(lm: LM, batch) -> torch.Tensor:
-    """batch["tokens"]: (B, S) int -> logits (B, S, V_pad)."""
+    """batch["tokens"]: (B, S) int (and ``frontend_embeds`` (B, F, E)
+    with a frontend) -> logits (B, F + S, V_pad)."""
     x = _embed_inputs(lm, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)

@@ -19,13 +19,12 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..core.routing import stable_rank_by_group
-from .layers import init_dense, init_mlp, mlp
+from .layers import ParamTree, init_dense, init_mlp, mlp, weight
 
 
-def init_moe(cfg, gen: torch.Generator, device=None) -> nn.ModuleDict:
+def init_moe(cfg, gen: torch.Generator, device=None) -> ParamTree:
     """Router ``router.w`` (E, X) float32 (std 0.02), experts ``wi.w``/
     ``wg.w`` (X, E, F) and ``wo.w`` (X, F, E) in ``cfg.dtype`` (std
     1/sqrt(fan-in); ``wg`` whatever the MLP kind, as in the reference),
@@ -35,21 +34,18 @@ def init_moe(cfg, gen: torch.Generator, device=None) -> nn.ModuleDict:
     f = cfg.d_ff_expert or cfg.d_ff
     dt = getattr(torch, cfg.dtype)
 
-    def param(t):
-        return nn.ParameterDict({"w": nn.Parameter(t, requires_grad=False)})
-
     def experts(fan_in, fan_out):
         w = torch.randn((x, fan_in, fan_out), generator=gen,
                         dtype=torch.float32, device=device)
-        return param(w.mul_(1.0 / math.sqrt(fan_in)).to(dt))
+        return weight(w.mul_(1.0 / math.sqrt(fan_in)), dt)
 
-    mods = {"router": param(init_dense(gen, e, (x,), scale=0.02,
-                                       device=device)),
+    mods = {"router": weight(init_dense(gen, e, (x,), scale=0.02,
+                                        device=device), torch.float32),
             "wi": experts(e, f), "wg": experts(e, f), "wo": experts(f, e)}
     if cfg.n_shared_experts:
         mods["shared"] = init_mlp(gen, e, f * cfg.n_shared_experts,
                                   cfg.mlp_kind, dt, device)
-    return nn.ModuleDict(mods)
+    return ParamTree(**mods)
 
 
 def _pick_groups(t: int, want: int) -> int:

@@ -43,6 +43,9 @@ class Stack(nn.Module):
 
 def init_stack_cache(cfg, batch, max_len, dtype=torch.bfloat16, *,
                      device=None) -> list:
-    """One ring buffer per layer, in layer order."""
+    """One cache per layer, in layer order, by the layer's kind: a ring
+    buffer for attention, the recurrent state and conv history for
+    ``ssd``/``rglru`` (recurrentgemma's 26 layers: 8 periods of R, R, A,
+    then R, R)."""
     return [init_block_cache(cfg, kind, batch, max_len, dtype, device=device)
             for kind in cfg.block_pattern]

@@ -39,10 +39,18 @@ class GenerationResult:
 class Engine:
     """Serves ``lm`` (built on ``device``: the card unless the caller
     names another) with a prefix cache of ``pool_pages`` pages of
-    ``page_size`` tokens."""
+    ``page_size`` tokens.  Token prompts only: a config with a modality
+    frontend raises (F13), and a stack that is not homogeneous global
+    attention raises at its first prefill (``prefill._check``)."""
 
     def __init__(self, model_cfg, lm: LM, *, max_len=4096, page_size=64,
                  pool_pages=512, dtype=torch.bfloat16, device=None):
+        if model_cfg.frontend:
+            # the reference's engine builds no ``frontend_embeds`` and
+            # fails in ``_embed_inputs`` with a KeyError
+            raise ValueError(
+                f"{model_cfg.name} has a {model_cfg.frontend} frontend: the "
+                "engine serves token prompts only (F13 in ROADMAP.md)")
         self.device = resolve_device(device)
         lm_dev = lm.embed.device
         if lm_dev.type != self.device.type:

@@ -269,24 +269,23 @@ def test_greedy_sample_masks_padded_vocab():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises
+# what is refused raises
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["ssd", "rglru"])
-def test_unported_block_kinds_raise(kind):
+def test_unknown_block_kind_raises():
+    """A kind the reference does not know raises ``ValueError(kind)``, as
+    its ``init_block`` and ``init_block_cache`` do."""
     cfg = reduced(get_config("gemma3-12b"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tblocks.Block(cfg, kind, torch.Generator().manual_seed(0), CPU)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tblocks.init_block_cache(cfg, kind, 1, 8, device=CPU)
+    with pytest.raises(ValueError, match="conv_mixer"):
+        tblocks.Block(cfg, "conv_mixer", torch.Generator().manual_seed(0), CPU)
+    with pytest.raises(ValueError, match="conv_mixer"):
+        tblocks.init_block_cache(cfg, "conv_mixer", 1, 8, device=CPU)
 
 
 def test_unported_architectures_and_prefix_kv_raise(setup):
-    """An architecture whose blocks are not ported raises, and so does a
-    local layer given a KV prefix above DIRECT_ATTN_MAX_SEQ queries (F11:
-    the reference's banded branch misses prefix keys there)."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_config("mamba2-370m")
+    """An unknown architecture raises, and so does a local layer given a
+    KV prefix above DIRECT_ATTN_MAX_SEQ queries (F11: the reference's
+    banded branch misses prefix keys there)."""
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg, _jcfg, _tree, _jp, lm = setup
