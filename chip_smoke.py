@@ -12,7 +12,9 @@ neighbourhood-interpolation query, the L1 tier, the pipeline, elastic
 membership and online resharding, replication with crash failover and
 repair, the multi-rank backend, the telemetry, memoized preprocessing,
 checkpoints and the rehash of the table, gemma3-12b prefill and decode,
-and the prefix-cache serving engine on llama3-405b and on MoE stacks),
+the prefix-cache serving engine on llama3-405b and on MoE stacks, the
+other model families, and training with the local-attention backward
+kernel),
 checks the results, and times every kernel.  One
 JSON line per phase:
 
@@ -249,13 +251,48 @@ JSON line per phase:
              CPU, logits at rtol/atol 1e-4, and mamba2's and
              recurrentgemma's 24 decode steps against their own forward
              within 2e-2.  The phase's launches are all of these;
+14d. train - the training stack (``repro_torch.optim``, ``train``,
+             ``models.loss_fn``): (a) the local-attention backward kernel
+             against autograd through its plain version at gemma3-12b's
+             local layers (B=2, S=2048 and 4096, H=16, Hk=8, D=256,
+             window 1024) and recurrentgemma-2b's (S=4096, H=10, Hk=1,
+             window 2048) in bf16, and at S=2048 in float32, and
+             gemma3's S=2048 at window 1 in both, each gradient within
+             local_attn_kernel.bwd_tolerance; (b)
+             train-full: gemma3-12b at its published widths, one period
+             (5 local + 1 global layers), bf16 with float32 masters and
+             remat per period, 4 AdamW steps of 2 x 2048 tokens through
+             make_train_step: finite losses, 10 forward (forward and
+             recompute) and 5 backward local-attention launches a step,
+             the step times, the backward kernel's device ms in a
+             profiled step and its share of a step, the peak memory; (c)
+             train-parity: the reduced gemma3-12b (float32) on the card
+             and on the CPU, the first step's gradients within 2e-5 of
+             each leaf's scale and the same bits on a second card run
+             (the reduced qwen3-moe's too, reported); after the first
+             step mu and nu leaf by leaf and the parameters entry by
+             entry within what the gradients' measured difference allows
+             an AdamW step (an entry within it of zero may move lr
+             either way); 2 steps' losses at rtol 1e-5, the last
+             parameters within 2 lr a step; (d) restart: trainer.run on
+             examples/torch_train_lm.py's ~100M model (float32, 40 steps
+             of 8 x 256 tokens, a checkpoint every 20): a failure
+             injected at step 27 and a resume against an uninterrupted
+             run, parameters within 1e-6 (bit equality reported), the
+             mean loss of the last 5 steps below that of the first 5;
+             (e) the int8 reduce-scatter on NCCL at world size 1 within
+             its quantization bound, its wire bytes.  The phase's
+             launches are (b)'s; (c)'s and (d)'s are printed apart;
 15. timing - each kernel, its plain version and the nearest single
              PyTorch call at the main path's shapes, with CUDA events and
              a cold L2 before each launch, beside the byte bound (the
              local-attention kernel beside its operation bound); hash64
              and stencil_keys also traced (trace_cold): their own device
              time beside the event interval; local_attention also at
-             recurrentgemma-2b's shape (the families phase's layer 2).
+             recurrentgemma-2b's shape (the families phase's layer 2);
+             local_attention_bwd at train-full's second step's inputs
+             beside autograd through the plain version and SDPA's
+             backward with the band mask.
 
 Then the ``kernels`` line (launch counts per phase, the launches made to
 hold a kernel against its plain version left out; every kernel must
@@ -362,6 +399,25 @@ VL_TEXT = 3072                 # its text tokens
 VL_DECODE = 16
 AUDIO_FRAMES = 2048            # hubert-xlarge: ~41 s of audio at 50 frames/s
 FAM_PARITY_STEPS = 24          # decode steps of families-parity (window 16)
+TRAIN_ARCH = "gemma3-12b"      # train-full: published widths, one period
+TRAIN_LAYERS = 6               # of 48: 5 local + 1 global
+TRAIN_BATCH = 2
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 4                # AdamW steps of train-full (the last profiled)
+TRAIN_PARITY_STEPS = 2
+RESTART_STEPS = 40             # the 100M model's run; fails at 27, resumes
+RESTART_FAIL_AT = 27           # from the step-20 checkpoint
+RESTART_EVERY = 20
+RESTART_BATCH = 8              # sequences of RESTART_SEQ tokens a step
+RESTART_SEQ = 256              # (the example's defaults)
+RESTART_LR = 6e-4              # the example's peak rate, after 3 warmup steps
+# the backward kernel against its plain gradients: gemma3's (S 2048, the
+# training shape, and 4096) and recurrentgemma's local layers
+BWD_CASES = (("gemma3_s2048", 2, 2048, 16, 8, 256, 1024),
+             ("gemma3_s4096", 2, 4096, 16, 8, 256, 1024),
+             ("recurrentgemma", 2, 4096, 10, 1, 256, 2048),
+             # window 1: the plain dq and dk are 0 (bwd_tolerance's floor)
+             ("gemma3_s2048_w1", 2, 2048, 16, 8, 256, 1))
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
 # kernels whose own device time the timing phase reports beside the event
@@ -389,6 +445,9 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/l1_kernel.py:54"),
     "local_attention": ("src/repro_torch/kernels/csrc/local_attn.cu",
                         "src/repro/kernels/local_attn_kernel.py:76"),
+    # no Pallas kernel: the gradient XLA derives from repro/models/flash.py
+    "local_attention_bwd": ("src/repro_torch/kernels/csrc/local_attn_bwd.cu",
+                            "src/repro/models/flash.py:54"),
 }
 # the phases whose path calls each kernel: each must launch it (every
 # engine phase runs read and write passes)
@@ -402,7 +461,8 @@ KERNEL_PHASES = {
                   "sharded"),
     "stencil_keys": ("interp", "elastic", "sharded"),
     "l1_probe": ("l1", "elastic", "faults", "sharded"),
-    "local_attention": ("lm", "families"),
+    "local_attention": ("lm", "families", "train"),
+    "local_attention_bwd": ("train",),
 }
 
 
@@ -434,11 +494,12 @@ def words(gen, n: int, w: int, device):
 
 
 class Capture:
-    """Records the arguments of every kernel call the port makes while
-    active (the kernels still run), bound to positional order with the
-    defaults filled in."""
+    """Records the arguments of every kernel call the port makes through
+    ``kernels/ops.py`` while active (the kernels still run), bound to
+    positional order with the defaults filled in.  The backward kernel
+    is reached through its autograd Function, not ``ops``."""
 
-    NAMES = tuple(KERNEL_SOURCES)
+    NAMES = tuple(n for n in KERNEL_SOURCES if n != "local_attention_bwd")
 
     def __init__(self, ops):
         self.ops = ops
@@ -808,6 +869,17 @@ def bound_local_attention(q, k, v, window):
     pairs = w * (w + 1) // 2 + (s - w) * w      # sum over rows of min(i+1, w)
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
     return nbytes, 4 * d * pairs * b * h
+
+
+def bound_local_attention_bwd(q, k, v, out, dout, window):
+    """Q, K, V, O and dO read once, dQ, dK and dV written once; 10 * D
+    operations per valid (query, key) pair: the band's 5 products (q.k
+    again, dO.v, dS k, P dO, dS q)."""
+    b, s, h, d = q.shape
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    nbytes = (q.numel() * 5 + k.numel() * 4) * q.element_size()
+    return nbytes, 10 * d * pairs * b * h
 
 
 def bound_ms(nbytes: int, ops: int,
@@ -5102,6 +5174,512 @@ def phase_families(errs, tols):
     return launches, calls[:1]
 
 
+# ---------------------------------------------------------------------------
+# train: the training stack (optim/, train/, loss_fn) and the backward
+# kernel
+# ---------------------------------------------------------------------------
+
+def _bwd_vs_plain(label, args, cases, errs, tols):
+    """The backward kernel's (dq, dk, dv) on ``args`` (q, k, v, out, dout,
+    window) against autograd through the plain version, each within
+    ``bwd_tolerance``."""
+    import torch
+
+    from repro_torch.kernels import local_attn_kernel, ref
+
+    got = local_attn_kernel.local_attention_bwd(*args)
+    torch.cuda.synchronize()
+    plain = ref.local_attention_bwd(*args)
+    torch.cuda.synchronize()
+    tol = local_attn_kernel.bwd_tolerance(plain)
+    row = {"case": label, "shape": list(args[0].shape),
+           "kv_heads": args[1].shape[2], "window": args[5],
+           "dtype": str(args[0].dtype).split(".")[-1]}
+    for name, x, y, t in zip(("dq", "dk", "dv"), got, plain, tol):
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"local_attention_bwd {label}: {name} shape/type")
+        err = float((x.float() - y.float()).abs().max())
+        check(err <= t, f"local_attention_bwd {label}: {name} differs from "
+                        f"the plain gradient by {err} > {t}")
+        # each output against its own tolerance: the line's max_abs_err is
+        # the largest error over the tolerance it was held to
+        errs["local_attention_bwd"] = max(errs.get("local_attention_bwd", 0.0),
+                                          err)
+        tols["local_attention_bwd"] = max(tols.get("local_attention_bwd", 0.0),
+                                          t)
+        row[f"{name}_max_abs_err"], row[f"{name}_tolerance"] = err, t
+    cases.append(row)
+    del got, plain
+
+
+def _train_kernel_checks(errs, tols):
+    """(a) the backward kernel against its plain gradients at gemma3's and
+    recurrentgemma's local-layer shapes, bf16 and float32 (float32 at
+    gemma3's S = 2048 only), and gemma3's S = 2048 at window 1."""
+    import torch
+
+    from repro_torch.kernels import local_attn_kernel
+
+    gen = torch.Generator().manual_seed(21)
+    cases: list = []
+    for label, b, s, h, hk, d, w in BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and not label.startswith("gemma3_s2048"):
+                continue
+            q, k, v = _attn_case(gen, b, s, h, hk, d, dtype)
+            dout = torch.randn((b, s, h, d), generator=gen).to(dtype).to(DEVICE)
+            out = local_attn_kernel.local_attention(q, k, v, w)
+            _bwd_vs_plain(f"{label}_{str(dtype).split('.')[-1]}",
+                          (q, k, v, out, dout, w), cases, errs, tols)
+            del q, k, v, dout, out
+            _release()
+    return cases
+
+
+def _train_batch(cfg, b: int, s: int, seed: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int64)
+    labels = toks[:, 1:].copy()
+    labels[0, :s // 8] = -1                     # an ignored prefix
+    return {"tokens": torch.from_numpy(toks[:, :-1]),
+            "labels": torch.from_numpy(labels)}
+
+
+def _train_full(calls):
+    """(b) train-full: gemma3-12b's published widths, one period (5 local
+    + 1 global layers), bf16 with float32 masters, remat per period;
+    TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens, the last
+    under torch.profiler.  One step's backward-kernel inputs go to
+    ``calls`` for the timing phase."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import local_attn_kernel, ops
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              block_pattern=get_config(TRAIN_ARCH)
+                              .block_pattern[:TRAIN_LAYERS])
+    n_local = sum(k == "attn_local" for k in cfg.block_pattern)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    (lm, state), init_s = _timed(lambda: make_train_state(cfg, gen,
+                                                          device=DEVICE))
+    state_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=1,
+                                            total_steps=100))
+    batches = [_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 40 + i)
+               for i in range(TRAIN_STEPS)]
+    losses, step_s, per_step = [], [], []
+    orig_bwd = local_attn_kernel.local_attention_bwd
+
+    def keep(*args):
+        if not calls:
+            calls.append(tuple(a.detach().clone() if torch.is_tensor(a)
+                               else a for a in args))
+        return orig_bwd(*args)
+
+    for i, batch in enumerate(batches[:-1]):
+        before = ops.launches()
+        if i == 1:
+            local_attn_kernel.local_attention_bwd = keep
+        try:
+            (_, state, m), secs = _timed(lambda: step(lm, state, batch))
+        finally:
+            local_attn_kernel.local_attention_bwd = orig_bwd
+        after = ops.launches()
+        per_step.append({k: after[k] - before[k]
+                         for k in ("local_attention", "local_attention_bwd")})
+        losses.append(float(m["loss"]))
+        step_s.append(secs)
+    peak = torch.cuda.max_memory_allocated()
+    last: list = []
+    prof = _profile(lambda: last.append(step(lm, state, batches[-1])), top=40)
+    losses.append(float(last[0][2]["loss"]))
+    for n in per_step:
+        check(n["local_attention"] == 2 * n_local,
+              f"train-full: {n['local_attention']} forward launches a step, "
+              f"expected {2 * n_local} (forward and remat recompute)")
+        check(n["local_attention_bwd"] == n_local,
+              f"train-full: {n['local_attention_bwd']} backward launches a "
+              f"step, expected {n_local}")
+    check(all(math.isfinite(x) for x in losses), f"train-full: loss {losses}")
+    bwd_ms = share = "not measured"
+    if isinstance(prof.get("device_ms"), float):
+        # the backward kernel's two CUDA kernels (either path)
+        bwd_ms = sum(r["ms"] for r in prof["top"]
+                     if re.search(r"\b(dq|dkv)(_tc)?_kernel<", r["kernel"]))
+        # of the unprofiled steps' median (the profiler slows the host)
+        share = bwd_ms / (statistics.median(step_s[1:] or step_s) * 1e3)
+    out = {"arch": cfg.name, "layers": list(cfg.block_pattern),
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "params": param_count(lm), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "init_s": init_s,
+           "state_gb": state_gb, "held_before_gb": held / 1e9,
+           "losses": losses, "step_s": step_s,
+           "launches_per_step": per_step,
+           "max_memory_allocated_gb": peak / 1e9,
+           "profiled_step": prof, "bwd_kernel_ms_in_step": bwd_ms,
+           "bwd_kernel_share_of_step": share}
+    del lm, state, batches
+    _release()
+    return out
+
+
+def _adam_first_step_limit(g, delta, clip, lr, eps):
+    """Per entry, how far apart one AdamW step from zero moments can put
+    two copies of a parameter whose gradients differ by at most ``delta``
+    (``g`` one of them, both clipped by ``clip``): the bias-corrected
+    update is ``u(x) = c x / (c |x| + eps)``, so two gradients of one sign
+    give updates ``c eps delta / ((c (|g| - delta) + eps)(c |g| + eps))``
+    apart, and an entry within ``delta`` of zero may take a step of ``lr``
+    either way."""
+    import torch
+
+    a = clip * (g.abs() - delta).clamp(min=0) + eps
+    b = clip * g.abs() + eps
+    du = torch.where(g.abs() <= delta, 2.0,
+                     (eps * clip * delta / (a * b)).clamp(max=2.0))
+    return lr * du
+
+
+def _train_parity():
+    """(c) train-parity: the reduced gemma3-12b (float32, window 16) from
+    one set of weights on the card (local layers through both kernels)
+    and on the CPU (plain versions): the first step's gradients leaf by
+    leaf within 2e-5 of each leaf's largest magnitude
+    (tests/test_torch_train.py's bound against the JAX package).  After
+    the first step, ``mu`` and ``nu`` leaf by leaf and the parameters
+    entry by entry within what the gradients' measured difference
+    allows (``_adam_first_step_limit``, plus 1e-6 of the entry and 1e-8
+    for rounding); TRAIN_PARITY_STEPS steps' losses at rtol 1e-5; the
+    last step's parameters within 2 lr a step (a sign that flipped in the
+    first step moves the second step's gradients)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_state, make_train_step
+
+    cfg = reduced(get_config(TRAIN_ARCH))
+    cpu, cpu_state = make_train_state(cfg, torch.Generator().manual_seed(7),
+                                      device="cpu")
+    card, _ = make_train_state(
+        cfg, torch.Generator(device=DEVICE).manual_seed(7), device=DEVICE)
+    with torch.no_grad():
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            a.copy_(b)
+    card.refresh_head()
+    card_state = init_opt_state(dict(card.named_parameters()))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, ocfg)
+    batches = [_train_batch(cfg, 2, 48, 60 + i)
+               for i in range(TRAIN_PARITY_STEPS)]
+    grads = []
+    for lm, dev in ((card, DEVICE), (card, DEVICE), (cpu, "cpu")):
+        loss, _ = loss_fn(lm, {k: v.to(dev) for k, v in batches[0].items()})
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            loss, list(lm.parameters()))])
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(grads[0], grads[2]))
+    check(grad_err <= 2e-5, f"train-parity: gradients differ card/CPU by "
+                            f"{grad_err} of a leaf's largest magnitude")
+    # the card's gradient twice from the same weights: the same bits (no
+    # float atomics on the path: the backward kernel, the embedding's
+    # sorted index backward, cuBLAS)
+    rerun_equal = all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+    check(rerun_equal, "train-parity: two gradients on the card differ")
+    moe_equal = _moe_grads_repeat()
+    p0 = [p.detach().clone() for p in cpu.parameters()]
+    losses, first = [], {}
+    for i, batch in enumerate(batches):
+        _, card_state, mc = step(card, card_state, batch)
+        _, cpu_state, mp = step(cpu, cpu_state, batch)
+        losses.append((float(mc["loss"]), float(mp["loss"])))
+        if i == 0:
+            first = _first_step_parity(card, cpu, card_state, cpu_state,
+                                       grads[0], grads[2], p0, (mc, mp),
+                                       ocfg)
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    check(loss_err <= 1e-5, f"train-parity: losses card/CPU {losses}")
+    diffs = [(a.detach().cpu() - b.detach()).abs()
+             for a, b in zip(card.parameters(), cpu.parameters())]
+    param_err = max(float(d.max()) for d in diffs)
+    check(param_err <= 2 * ocfg.lr * TRAIN_PARITY_STEPS,
+          f"train-parity: parameters differ by {param_err}")
+    return {"layers": cfg.n_layers, "window": cfg.local_window,
+            "steps": TRAIN_PARITY_STEPS, "grad_rerun_bit_equal": rerun_equal,
+            "moe_grad_rerun_bit_equal": moe_equal,
+            "grad_max_rel_err": grad_err,
+            "grad_rel_tol": 2e-5, "losses_card_cpu": losses,
+            "loss_max_rel_err": loss_err, "loss_rtol": 1e-5, **first,
+            "param_max_abs_err": param_err,
+            "params_beyond_2e-5": sum(int((d > 2e-5).sum()) for d in diffs),
+            "params": sum(d.numel() for d in diffs),
+            "param_atol": 2 * ocfg.lr * TRAIN_PARITY_STEPS}
+
+
+def _first_step_parity(card, cpu, card_state, cpu_state, g_card, g_cpu, p0,
+                       metrics, ocfg) -> dict:
+    """train-parity's checks after the first step: ``mu`` = (1 - b1) c g
+    and ``nu`` = (1 - b2) c^2 g^2 leaf by leaf (c the clip factor of each
+    side's ``metrics``), and each parameter within
+    ``_adam_first_step_limit`` of the CPU's, where each leaf's gradient
+    difference is taken as twice the measured one (and at least 1e-6 of
+    the leaf's largest gradient: the step's own backward may round
+    otherwise than ``loss_fn``'s above)."""
+    clip_card, clip = (min(1.0, ocfg.grad_clip / float(m["grad_norm"]))
+                       for m in metrics)
+    dclip = abs(clip_card - clip)
+    lr = float(metrics[1]["lr"])
+    names = [n for n, _ in cpu.named_parameters()]
+    worst = {"mu": 0.0, "nu": 0.0, "param": 0.0}
+    n_near_zero = 0
+    for name, pc, pk, gk, gc, p_init in zip(
+            names, cpu.parameters(), card.parameters(), g_card, g_cpu, p0):
+        m = float(gc.abs().max())
+        delta = max(2 * float((gk - gc).abs().max()), 1e-6 * m)
+        for key, tol in (
+                ("mu", (1 - ocfg.b1) * (clip * delta + dclip * m)),
+                ("nu", (1 - ocfg.b2) * (clip ** 2 * delta * (2 * m + delta)
+                                        + dclip * (2 * clip + dclip) * m * m))):
+            a, b = card_state[key][name].cpu(), cpu_state[key][name]
+            lim = tol + 1e-6 * float(b.abs().max())
+            err = float((a - b).abs().max())
+            check(err <= lim, f"train-parity: {key} of {name} differs "
+                              f"card/CPU by {err} > {lim}")
+            worst[key] = max(worst[key], err / lim if lim else 0.0)
+        lim = (_adam_first_step_limit(gc, delta, clip, lr, ocfg.eps)
+               + 1e-6 * p_init.abs() + 1e-8)
+        over = (pk.detach().cpu() - pc.detach()).abs() / lim
+        check(float(over.max()) <= 1.0,
+              f"train-parity: {name} after the first step differs card/CPU "
+              f"beyond its limit ({float(over.max())} of it)")
+        worst["param"] = max(worst["param"], float(over.max()))
+        n_near_zero += int((gc.abs() <= delta).sum())
+    return {"first_step_mu_err_of_limit": worst["mu"],
+            "first_step_nu_err_of_limit": worst["nu"],
+            "first_step_param_err_of_limit": worst["param"],
+            "first_step_params_within_delta_of_zero": n_near_zero,
+            "first_step_clip_card_cpu": [clip_card, clip]}
+
+
+def _moe_grads_repeat() -> bool:
+    """Whether the reduced qwen3-moe-235b-a22b's gradient (float32) on the
+    card is the same bits twice (its dispatch scatters and combine
+    gathers index the same rows each time)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import loss_fn
+    from repro_torch.train import make_train_state
+
+    cfg = reduced(get_config(MOE_ARCH))
+    lm, _ = make_train_state(
+        cfg, torch.Generator(device=DEVICE).manual_seed(8), device=DEVICE)
+    batch = {k: v.to(DEVICE) for k, v in _train_batch(cfg, 2, 48, 70).items()}
+    grads = []
+    for _ in range(2):
+        loss, _ = loss_fn(lm, batch)
+        grads.append(torch.autograd.grad(loss, list(lm.parameters())))
+    return all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def _train_restart(cfg=None):
+    """(d) restart: ``trainer.run`` on examples/torch_train_lm.py's ~100M
+    starcoder2-family model (float32; ``cfg`` replaces it), RESTART_STEPS
+    steps of RESTART_BATCH x RESTART_SEQ tokens with a checkpoint every
+    RESTART_EVERY: a failure injected at RESTART_FAIL_AT, a resume from
+    the last commit, then an uninterrupted run; the final parameters
+    equal, the loss falling."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.data import DataConfig
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import FailureInjector, TrainerConfig, run
+
+    if cfg is None:
+        spec = importlib.util.spec_from_file_location(
+            "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        cfg = mod.model_100m()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=RESTART_SEQ,
+                      global_batch=RESTART_BATCH)
+    ocfg = AdamWConfig(lr=RESTART_LR, warmup_steps=3,
+                       total_steps=RESTART_STEPS)
+    logs: list = []
+    with tempfile.TemporaryDirectory() as d, \
+            tempfile.TemporaryDirectory() as d2:
+        tcfg = TrainerConfig(total_steps=RESTART_STEPS,
+                             checkpoint_every=RESTART_EVERY,
+                             checkpoint_dir=d, log_every=1)
+        failed = False
+        t0 = time.perf_counter()
+        try:
+            run(cfg, dcfg, ocfg, tcfg, log=logs.append, device=DEVICE,
+                failure=FailureInjector(fail_at_step=RESTART_FAIL_AT))
+        except RuntimeError as e:
+            failed = "injected failure" in str(e)
+        check(failed, "restart: the injected failure did not fire")
+        committed = latest_step(d)
+        lm, _, hist = run(cfg, dcfg, ocfg, tcfg, log=logs.append,
+                          device=DEVICE)
+        resumed_s = time.perf_counter() - t0
+        _release()
+        tcfg2 = dataclasses.replace(tcfg, checkpoint_dir=d2,
+                                    checkpoint_every=RESTART_STEPS + 1)
+        (ref, _, ref_hist), straight_s = _timed(
+            lambda: run(cfg, dcfg, ocfg, tcfg2, log=lambda *_: None,
+                        device=DEVICE))
+    diff = max(float((a.detach() - b.detach()).abs().max())
+               for a, b in zip(lm.parameters(), ref.parameters()))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(lm.parameters(),
+                                                      ref.parameters()))
+    # the loss of a step is noisy (new documents each step): the mean of
+    # the first 5 steps against that of the last 5
+    first = statistics.mean(h["loss"] for h in ref_hist[:5])
+    last = statistics.mean(h["loss"] for h in ref_hist[-5:])
+    check(committed == RESTART_EVERY, f"restart: committed step {committed}")
+    check(hist[0]["step"] == RESTART_EVERY, f"restart: resumed at {hist[0]}")
+    check(diff <= 1e-6, f"restart: resumed parameters differ by {diff}")
+    check(last < first, f"restart: loss did not fall ({first} -> {last})")
+    check(abs(hist[-1]["loss"] - ref_hist[-1]["loss"]) <= 1e-6 * max(
+        abs(ref_hist[-1]["loss"]), 1.0), "restart: final losses differ")
+    out = {"params": param_count(ref), "steps": RESTART_STEPS,
+           "failed_at": RESTART_FAIL_AT, "resumed_from": committed,
+           "param_max_abs_diff": diff, "bit_equal": bit_equal,
+           "loss_first": first, "loss_last": last,
+           "failed_then_resumed_s": resumed_s, "straight_s": straight_s,
+           "ms_per_step": straight_s * 1e3 / RESTART_STEPS}
+    del lm, ref
+    _release()
+    return out
+
+
+def _train_creduce():
+    """(e) the int8 reduce-scatter on NCCL at world size 1: equal to the
+    plain mean within the quantization bound (half a step of the chunk's
+    max / 127); its wire bytes beside a float32 all-reduce's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.optim.compressed_reduce import compressed_reduce, wire_bytes
+
+    n = 1 << 24
+    g = torch.randn(n, generator=torch.Generator().manual_seed(5)).to(DEVICE)
+    _sharded_group()
+    try:
+        out, secs = _timed(lambda: compressed_reduce(g))
+    finally:
+        dist.destroy_process_group()
+    bound = float(g.abs().max()) / 127.0 * 0.5 + 1e-6
+    err = float((out - g).abs().max())
+    check(out.shape == g.shape and err <= bound,
+          f"compressed reduce: error {err} > {bound}")
+    return {"n": n, "world": 1, "max_abs_err": err, "bound": bound,
+            "s": secs, "wire_bytes": wire_bytes(n, 1)}
+
+
+def phase_train(errs, tols):
+    """The training stack: (a) the backward kernel against its plain
+    gradients; (b) train-full between a reset and a read of the launch
+    counts, which are the phase's; then (c) train-parity, (d) restart and
+    (e) the compressed reduce with their launches counted apart.  Returns
+    the launches and train-full's backward-kernel inputs for the timing
+    phase."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    _release()
+    emit("train_kernel_parity", cases=_train_kernel_checks(errs, tols))
+    calls: list = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    full = _train_full(calls)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    emit("train_full", **full)
+    ops.reset_launches()
+    parity = _train_parity()
+    torch.cuda.synchronize()
+    emit("train_parity", **parity, launches_parity=ops.launches())
+    ops.reset_launches()
+    restart = _train_restart()
+    torch.cuda.synchronize()
+    emit("train_restart", **restart, launches_restart=ops.launches())
+    emit("train_creduce", **_train_creduce())
+    print(f"train {full['arch']} ({TRAIN_LAYERS} layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}): steps {full['step_s']} s, losses {full['losses']}, "
+          f"backward kernel {full['bwd_kernel_ms_in_step']} ms of the "
+          f"profiled step ({full['bwd_kernel_share_of_step']}), peak "
+          f"{full['max_memory_allocated_gb']} GB; restart "
+          f"{restart['param_max_abs_diff']} (bit-equal "
+          f"{restart['bit_equal']}), loss {restart['loss_first']} -> "
+          f"{restart['loss_last']}", flush=True)
+    emit("train", launches=launches, seconds=time.perf_counter() - t0)
+    _release()
+    return launches, calls
+
+
+def sdpa_bwd_call(args):
+    """SDPA's backward with the band mask: the gradients of one
+    ``scaled_dot_product_attention`` call (K/V expanded per query group)
+    for ``args`` (q, k, v, out, dout, window), its forward and the mask
+    made outside the timing."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, _out, dout, window = args
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (
+        q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+    i = torch.arange(q.shape[1], device=q.device)
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    dt = dout.transpose(1, 2)
+    return lambda *a: torch.autograd.grad(o, (qt, kt, vt), dt,
+                                          retain_graph=True)
+
+
+def time_bwd(args) -> dict:
+    """The backward kernel at ``args``: ms, its plain version's, SDPA's
+    backward's and the bound (bf16: the tensor cores' rate)."""
+    import torch
+
+    from repro_torch.kernels import local_attn_kernel, ref
+
+    nbytes, nops = bound_local_attention_bwd(*args)
+    rate = BF16_TFLOPS if args[0].dtype == torch.bfloat16 else ALU_OPS_PER_S
+    b_ms, b_by = bound_ms(nbytes, nops, rate)
+    return {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")],
+            "window": args[5],
+            "ms": time_cold(local_attn_kernel.local_attention_bwd, args),
+            "plain_ms": time_cold(ref.local_attention_bwd, args, reps=5,
+                                  warmup=1),
+            "library_ms": time_cold(sdpa_bwd_call(args), args),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops}
+
+
 def warm_card(seconds: float = 1.0) -> None:
     """Keep the card busy for ``seconds`` before the first timed launch:
     the lm phase ends with work on the CPU, and a card that idled runs
@@ -5116,7 +5694,8 @@ def warm_card(seconds: float = 1.0) -> None:
         torch.cuda.synchronize()
 
 
-def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls):
+def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls,
+                 tcalls):
     import torch
 
     import torch.nn.functional as F
@@ -5200,6 +5779,8 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls):
         if name in TRACED:
             # the kernel's own device time beside the event interval
             out[name]["traced"] = trace_cold(kern, args)
+    # a local layer's backward in train-full's second step
+    out["local_attention_bwd"] = time_bwd(tcalls[0])
     # the write round's send leg (L = 48) beside the read round's (L = 22)
     wargs = wcalls["route_pack"][0]
     nbytes, nops = bound_route_pack(*wargs)
@@ -5237,6 +5818,8 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls):
     # dim (nvcc -Xptxas -v; their shared memory is dynamic, set at launch)
     out["local_attention"]["ptxas"] = ptxas_lines(
         "local_attn", f"ILi{acalls[0][0].shape[-1]}E")
+    out["local_attention_bwd"]["ptxas"] = ptxas_lines(
+        "local_attn_bwd", f"Li{tcalls[0][0].shape[-1]}E")
     emit("timing", timing=f"CUDA events, median of {TIMING_REPS} launches "
                           "(plain: 5), L2 flushed before each", kernels=out)
     return out
@@ -5293,8 +5876,9 @@ def main(argv: list[str]) -> int:
     launches["serve"] = phase_serve(errs)
     launches["moe"] = phase_moe(errs)
     launches["families"], fcalls = phase_families(errs, tols)
+    launches["train"], tcalls = phase_train(errs, tols)
     timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls,
-                          fcalls)
+                          fcalls, tcalls)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,5 +1,5 @@
-"""Carry a table, an L1 cache or a language model's weights between the
-JAX package and the port as numpy arrays.
+"""Carry a table, an L1 cache, a language model's weights or its
+optimizer state between the JAX package and the port as numpy arrays.
 
 The JAX package's ``DHTState`` and ``L1State`` hold uint32 arrays; the
 port holds int32 bit-views of the same words in flat buffers with a dump
@@ -186,6 +186,14 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
     dev = resolve_device(device)
     lm = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                  device=dev)
+    return load_lm_params(lm, tree)
+
+
+def load_lm_params(lm: LM, tree: dict) -> LM:
+    """``lm_params_from_numpy``'s loading into an existing model: the
+    tree's arrays (or tensors) copied into ``lm``'s parameters, each cast
+    to its type; the tied head refreshed.  Returns ``lm``."""
+    cfg = lm.cfg
     p, n_full, _tail = find_period(cfg.block_pattern)
     stack = tree["stack"]
     with torch.no_grad():
@@ -204,3 +212,126 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, *,
             _load_tree(layer, bt, f"layer {i}: a {layer.kind} block's")
     lm.refresh_head()
     return lm
+
+
+_MLP_TREES = ("mlp", "shared")   # the port holds their matrices bare
+
+
+def lm_param_paths(lm: LM) -> dict[str, tuple[str, int | None]]:
+    """Each parameter of ``lm`` (its ``named_parameters`` name) -> its
+    reference path and period: ``("stack/scan/b0/attn/wq/b", 2)`` is
+    period 2 of the reference's stacked ``(n_periods, ...)`` leaf,
+    ``("stack/tail/0/ln1/scale", None)``, ``("embed/table", None)``.  The
+    port's ``bq``/``bk``/``bv`` are the reference's ``wq/b``..., its MLP
+    matrices the reference's ``{"w": W}`` entries."""
+    p, n_full, _tail = find_period(lm.cfg.block_pattern)
+    out = {}
+    for name, _ in lm.named_parameters():
+        parts = name.split(".")
+        period = None
+        if parts[0] in ("embed", "head"):
+            path = [parts[0], "table"]
+        elif parts[0] == "final_norm":
+            path = parts
+        else:                                     # stack.layers.<i>.<rest>
+            i, rest = int(parts[2]), parts[3:]
+            if i < n_full * p:
+                path, period = ["stack", "scan", f"b{i % p}"], i // p
+            else:
+                path = ["stack", "tail", str(i - n_full * p)]
+            if rest[0] == "attn" and rest[1][0] == "b" and len(rest) == 2:
+                rest = ["attn", "w" + rest[1][1:], "b"]          # bq -> wq/b
+            elif rest[0] == "attn" and rest[1] in ("wq", "wk", "wv", "wo"):
+                rest = rest + ["w"]
+            elif len(rest) >= 2 and rest[-2] in _MLP_TREES:
+                rest = rest + ["w"]
+            path += rest
+        out[name] = ("/".join(path), period)
+    return out
+
+
+def _nest(flat: dict[str, np.ndarray]) -> dict:
+    """``{"a/b/c": x}`` -> ``{"a": {"b": {"c": x}}}``; the stack's
+    ``tail`` becomes a list, as in the reference's tree."""
+    tree: dict = {}
+    for path, x in flat.items():
+        node = tree
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = x
+    tail = tree.get("stack", {}).get("tail")
+    if tail is not None:
+        tree["stack"]["tail"] = [tail[str(i)] for i in range(len(tail))]
+    return tree
+
+
+def lm_tree(lm: LM, values: dict) -> dict:
+    """``values`` ({parameter name: tensor}) as the reference's nested
+    tree of float32 numpy arrays, periods stacked on axis 0."""
+    paths = lm_param_paths(lm)
+    flat: dict[str, list] = {}
+    for name, (path, period) in paths.items():
+        x = values[name].detach().to(torch.float32).cpu().numpy()
+        if period is None:
+            flat[path] = x
+        else:
+            flat.setdefault(path, []).append((period, x))
+    return _nest({k: (np.stack([x for _, x in sorted(v)])
+                      if isinstance(v, list) else v)
+                  for k, v in flat.items()})
+
+
+def lm_params_to_numpy(lm: LM, masters: dict | None = None) -> dict:
+    """The port's weights as ``repro.models.init_lm``'s tree of float32
+    numpy arrays (the inverse of ``lm_params_from_numpy``).  ``masters``
+    ({parameter name: float32 tensor}, an optimizer state's ``"master"``)
+    replaces the working copies it holds: the float32 parameters the
+    reference's trainer updates."""
+    masters = masters or {}
+    return lm_tree(lm, {n: masters.get(n, p)
+                         for n, p in lm.named_parameters()})
+
+
+def opt_state_to_numpy(lm: LM, state: dict) -> dict:
+    """An optimizer state of ``lm`` (``optim.init_opt_state`` over its
+    named parameters) as the reference's: ``{"mu", "nu"}`` trees and
+    ``"step"`` (int32).  Masters are the reference's float32 parameters:
+    ``lm_params_to_numpy(lm, state["master"])``."""
+    return {"mu": lm_tree(lm, state["mu"]), "nu": lm_tree(lm, state["nu"]),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}
+
+
+def opt_state_from_numpy(lm: LM, tree: dict) -> dict:
+    """The reference's optimizer state (``{"mu", "nu", "step"}`` and
+    optionally ``"master"``, trees of arrays) as the port's state over
+    ``lm``'s named parameters, on their devices: the moments float32,
+    a master for each parameter that is not float32."""
+    paths = lm_param_paths(lm)
+    params = dict(lm.named_parameters())
+    dev = next(iter(params.values())).device
+
+    def leaf(t, name) -> torch.Tensor:
+        """The float32 value of parameter ``name``'s entry of tree ``t`` on
+        its device (a restored tensor is sliced where it lies)."""
+        path, period = paths[name]
+        node = t
+        for k in path.split("/"):
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        if not isinstance(node, torch.Tensor):
+            node = np.asarray(node, dtype=np.float32)
+            node = torch.from_numpy(np.ascontiguousarray(
+                node if period is None else node[period]))
+        elif period is not None:
+            node = node[period]
+        return node.to(device=params[name].device,
+                       dtype=torch.float32).clone()
+
+    st = {"mu": {n: leaf(tree["mu"], n) for n in params},
+          "nu": {n: leaf(tree["nu"], n) for n in params},
+          "step": torch.tensor(int(tree["step"]), dtype=torch.int32,
+                               device=dev)}
+    if "master" in tree:
+        st["master"] = {n: leaf(tree["master"], n)
+                        for n, p in params.items() if p.dtype != torch.float32}
+    return st

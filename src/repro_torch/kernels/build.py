@@ -68,12 +68,16 @@ LIBRARIES = {
         "repro_local_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _P),
     }),
+    "local_attn_bwd": ("local_attn_bwd.cu", {
+        "repro_local_attention_bwd": (_P,) * 10 + (_I,) * 7 + (_L,) * 15
+                                     + (_P,),
+    }),
 }
 
 LAUNCHES: dict[str, int] = {
     "route_pack": 0, "route_unpack": 0, "hash64": 0, "shard_apply": 0,
     "checksum": 0, "round_sig": 0, "stencil_keys": 0, "probe": 0,
-    "l1_probe": 0, "local_attention": 0}
+    "l1_probe": 0, "local_attention": 0, "local_attention_bwd": 0}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each library built

@@ -1,4 +1,6 @@
-"""Wrapper of the sliding-window attention CUDA kernel (``csrc/local_attn.cu``).
+"""Wrappers of the sliding-window attention CUDA kernels: the forward
+(``csrc/local_attn.cu``), its backward (``csrc/local_attn_bwd.cu``) and
+the ``torch.autograd.Function`` that joins them for training.
 
 Counterpart of ``repro/kernels/local_attn_kernel.py``
 (``local_attention_pallas``), generalised to grouped KV heads (query head
@@ -7,7 +9,8 @@ strides with the feature axis contiguous, so the model's (B, S, H, D)
 projections go in without a transposed copy (the kernel stages rows with
 16-byte copies, so a view whose rows are not 16-byte aligned is copied to
 a contiguous tensor first).  CUDA tensors only:
-``kernels/ops.py`` routes CPU tensors to ``kernels/ref.local_attention``.
+``kernels/ops.py`` routes CPU tensors to ``kernels/ref.local_attention``
+(whose own autograd gives the CPU's gradients).
 """
 from __future__ import annotations
 
@@ -94,3 +97,93 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      b, s, h, k.shape[2], d, min(int(window), s),
                      int(q.dtype == torch.bfloat16), *strides, stream_of(q))
     return out
+
+
+def bwd_tolerance(plain_grads) -> tuple[float, ...]:
+    """Largest |kernel - plain| each of the backward kernel's gradients
+    ``(dq, dk, dv)`` is held to, from the plain version's: the sums run
+    in another order, so 1e-5 of that gradient's own largest magnitude
+    (float32 sums of terms that size), and in bfloat16 at least
+    ``tolerance``'s one ulp there.  The floor, 4e-6 of the largest over
+    the three, is for a gradient that is zero: at window 1 the plain dq
+    and dk are exactly 0, the kernel's are the rounding of two float32
+    sums (dP and delta) that cancel, up to 1.37e-6 of dv's magnitude on
+    an H100 at (2, 2048, 16/8, 256) in float32."""
+    own = [float(g.abs().max()) if g.numel() else 0.0 for g in plain_grads]
+    floor = 4e-6 * max(own)
+    return tuple(max(1e-5 * m, floor, tolerance(g))
+                 if g.dtype == torch.bfloat16 else max(1e-5 * m, floor)
+                 for g, m in zip(plain_grads, own))
+
+
+def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, window: int):
+    """The gradients ``(dq, dk, dv)`` of ``local_attention(q, k, v,
+    window)`` whose output was ``out``, for the output gradient ``dout``:
+    q, out, dout (B, S, H, D) and k/v (B, S, Hk, D) on the card, one
+    type (float32 or bfloat16), feature axes contiguous.  Returns
+    contiguous tensors in that type."""
+    check_inputs(q, k, v, window)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"local_attention_bwd {name}: expected a CUDA "
+                             f"tensor on {q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"local_attention_bwd {name}: type {t.dtype}, "
+                             f"q is {q.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"local_attention_bwd {name}: the feature axis "
+                             "must be contiguous")
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"local_attention_bwd: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must be q's "
+                         f"{tuple(q.shape)}")
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    if q.dtype not in DTYPES or d not in HEAD_DIMS:
+        raise ValueError(f"local_attention_bwd: takes {DTYPES} and head dims "
+                         f"{HEAD_DIMS}, got {q.dtype}, D = {d}")
+    if b * h > 65535:
+        raise ValueError(f"local_attention_bwd: B * H = {b * h} > 65535")
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    # each row's log-sum-exp and delta: written by the first kernel, read
+    # by the second
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    q, k, v, out, dout = (_rows_aligned(t) for t in (q, k, v, out, dout))
+    strides = [st for t in (q, k, v, out, dout) for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        build.launch("local_attention_bwd", "local_attn_bwd",
+                     "repro_local_attention_bwd", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), b, s, h, hk, d,
+                     min(int(window), s), int(q.dtype == torch.bfloat16),
+                     *strides, stream_of(q))
+    return dq, dk, dv
+
+
+class LocalAttention(torch.autograd.Function):
+    """``local_attention`` with a gradient: the forward kernel, unchanged,
+    and the backward kernel on what it saved (q, k, v and the output).
+    Card tensors only, as both kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        out = local_attention(q, k, v, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if dout.stride(3) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = local_attention_bwd(q, k, v, out, dout, ctx.window)
+        return dq, dk, dv, None

@@ -107,8 +107,15 @@ def stencil_keys(x, sig_digits: int, key_words: int, radius: int = 1,
 
 def local_attention(q, k, v, window: int):
     """Causal sliding-window attention, q (B, S, H, D), k/v (B, S, Hk, D)
-    -> (B, S, H, D); a (BH, S, D) problem is the view ``x[:, :, None]``."""
+    -> (B, S, H, D); a (BH, S, D) problem is the view ``x[:, :, None]``.
+    Where autograd records (grad mode on and an input that requires a
+    gradient), a card call goes through ``LocalAttention``, whose backward
+    is the backward kernel; the CPU's plain version has its own autograd.
+    Serving (no graph) calls the forward kernel alone."""
     if _on_cuda(q, k, v):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return local_attn_kernel.LocalAttention.apply(q, k, v, window)
         return local_attn_kernel.local_attention(q, k, v, window)
     local_attn_kernel.check_inputs(q, k, v, window)
     return ref.local_attention(q, k, v, window)

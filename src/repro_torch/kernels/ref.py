@@ -193,3 +193,16 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~valid, -1e30)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, window: int):
+    """The gradients ``(dq, dk, dv)`` of ``local_attention`` for the output
+    gradient ``dout``, by autograd through it, in the inputs' types.
+    ``out`` (the forward's output) is not read: autograd recomputes what
+    it needs."""
+    del out
+    with torch.enable_grad():
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = local_attention(qs, ks, vs, window)
+        return torch.autograd.grad(o, (qs, ks, vs), dout)

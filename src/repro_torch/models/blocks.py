@@ -22,8 +22,11 @@ RECURRENT = (C.SSD, C.RGLRU)
 
 
 class Block(ParamTree):
-    """One layer of kind ``kind``, its entries the reference's block tree.  A ``moe`` block's last call's stats
-    stay in ``moe_stats``: ``aux_loss`` and ``dropped``, on the device."""
+    """One layer of kind ``kind``, its entries the reference's block tree.
+    ``forward`` (serving) keeps a ``moe`` block's last call's stats in
+    ``moe_stats``: ``aux_loss`` and ``dropped``, on the device.
+    ``forward_aux`` (training) returns the aux loss as a value instead,
+    so a recomputed forward (remat) writes nothing twice."""
 
     def __init__(self, cfg, kind: str, gen: torch.Generator, device):
         super().__init__()
@@ -58,20 +61,19 @@ class Block(ParamTree):
             return y
         return norm(getattr(self, name), y, self.cfg.norm_kind)
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor):
+        """``x + pn2(mlp(ln2 x))`` and the MoE stats (None for an MLP)."""
         cfg = self.cfg
         h = norm(self.ln2, x, cfg.norm_kind)
+        stats = None
         if self.kind == C.MOE:
-            h, self.moe_stats = moe_forward(self.moe, cfg, h)
+            h, stats = moe_forward(self.moe, cfg, h)
         else:
             h = mlp(self.mlp, h, cfg.mlp_kind)
-        return x + self._post("pn2", h)
+        return x + self._post("pn2", h), stats
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                kv_prefix=None, collect_kv: bool = False):
-        """x: (B, S, E) -> (B, S, E); with ``collect_kv`` also the
-        attention's ``(k, v)`` (``Attention.forward`` for both
-        arguments; a recurrent block has no K/V and raises)."""
+    def _forward(self, x, positions, kv_prefix, collect_kv):
+        """(x', the attention's (k, v) or None, the MoE stats or None)."""
         cfg = self.cfg
         h = norm(self.ln1, x, cfg.norm_kind)
         if self.kind in RECURRENT:
@@ -80,13 +82,33 @@ class Block(ParamTree):
                                  "or collect (the prefix cache serves "
                                  "homogeneous global-attention stacks)")
             if self.kind == C.SSD:
-                return x + ssd_forward(cfg, self.ssd, h)
-            return self._mlp(x + rglru_forward(cfg, self.rec, h))
+                return x + ssd_forward(cfg, self.ssd, h), None, None
+            x, _ = self._mlp(x + rglru_forward(cfg, self.rec, h))
+            return x, None, None
         h = self.attn(h, positions, kv_prefix=kv_prefix, collect_kv=collect_kv)
+        kv = None
         if collect_kv:
             h, kv = h
-            return self._mlp(x + self._post("pn1", h)), kv
-        return self._mlp(x + self._post("pn1", h))
+        x, stats = self._mlp(x + self._post("pn1", h))
+        return x, kv, stats
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                kv_prefix=None, collect_kv: bool = False):
+        """x: (B, S, E) -> (B, S, E); with ``collect_kv`` also the
+        attention's ``(k, v)`` (``Attention.forward`` for both
+        arguments; a recurrent block has no K/V and raises)."""
+        x, kv, stats = self._forward(x, positions, kv_prefix, collect_kv)
+        if stats is not None:
+            self.moe_stats = stats
+        return (x, kv) if collect_kv else x
+
+    def forward_aux(self, x: torch.Tensor, positions: torch.Tensor):
+        """``(x', aux)``: the block and its float32 load-balance loss (0
+        but for ``moe``), both in the graph."""
+        x, _kv, stats = self._forward(x, positions, None, False)
+        if stats is None:
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, stats["aux_loss"]
 
     def decode(self, cache: dict, x: torch.Tensor, t: int) -> torch.Tensor:
         """One-token step (the reference's ``block_decode``); updates
@@ -100,9 +122,12 @@ class Block(ParamTree):
             h, new = step(cfg, params, cache, h, t)
             cache.update(new)
             x = x + h
-            return x if self.kind == C.SSD else self._mlp(x)
+            return x if self.kind == C.SSD else self._mlp(x)[0]
         h = self.attn.decode(cache, h, t)
-        return self._mlp(x + self._post("pn1", h))
+        x, stats = self._mlp(x + self._post("pn1", h))
+        if stats is not None:
+            self.moe_stats = stats
+        return x
 
 
 def init_block_cache(cfg, kind, batch, max_len, dtype=torch.bfloat16, *,

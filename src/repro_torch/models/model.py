@@ -1,8 +1,14 @@
-"""Language-model assembly: embeddings -> layer stack -> head, prefill and
-the decode step.  The port of ``repro/models/model.py`` for every block
-kind and the modality-frontend stubs: a config with a ``frontend``
-(internvl2's patches, hubert's frames) takes precomputed embeddings in
-``batch["frontend_embeds"]`` as a prefix of the sequence.
+"""Language-model assembly: embeddings -> layer stack -> head, the train
+loss, prefill and the decode step.  The port of ``repro/models/model.py``
+for every block kind and the modality-frontend stubs: a config with a
+``frontend`` (internvl2's patches, hubert's frames) takes precomputed
+embeddings in ``batch["frontend_embeds"]`` as a prefix of the sequence.
+
+Serving (``forward``, ``prefill``, ``decode_step``) builds no graph.
+``loss_fn`` does: it is the training forward, with the aux loss of MoE
+blocks summed through the stack and remat per period group, and the tied
+head unembedding through the table itself (``embed`` cast in the graph),
+so the table's gradient has both of its uses, as the reference's has.
 
 Weights: every matrix is stored once in the working type ``cfg.dtype``
 (the reference keeps float32 and casts at every use: the same numbers);
@@ -25,6 +31,8 @@ from .config import ModelConfig
 from .layers import embed, init_norm, norm, unembed
 from .stack import Stack, init_stack_cache
 
+IGNORE = -1  # label id for masked-out positions (e.g. frontend prefix)
+AUX_WEIGHT = 0.01  # the MoE aux loss's weight in the train loss
 
 def _table(cfg: ModelConfig, gen: torch.Generator, device) -> torch.Tensor:
     """A float32 ``(V_pad, E)`` table of normals times 0.02 (the
@@ -108,6 +116,38 @@ def prefill(lm: LM, batch) -> torch.Tensor:
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     return lm.logits(lm.stack(x, positions)[:, -1])
+
+
+def loss_fn(lm: LM, batch, *, n_valid=None):
+    """Next-token (decoder) or frame-label (encoder) cross entropy, in a
+    graph.  ``batch["labels"]``: (B, F + S) int with ``IGNORE`` for masked
+    positions.  Returns ``(loss + AUX_WEIGHT * aux, {"loss", "aux_loss",
+    "tokens"})``, tensors on the device.
+
+    The mean is over the valid labels of this batch, as the reference's;
+    ``n_valid`` replaces that count (a data-parallel step passes the
+    global batch's count over the group's size, so the ranks' mean loss
+    is the global one)."""
+    cfg = lm.cfg
+    x = _embed_inputs(lm, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x, aux = lm.stack.forward_aux(x, positions)
+    x = norm(lm.final_norm, x, cfg.norm_kind)
+    logits = unembed(lm.embed if cfg.tie_embeddings else lm.head, x)
+    logits = logits.to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    labels = batch["labels"].to(x.device)
+    valid = labels != IGNORE
+    safe = torch.clamp(labels, min=0).to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    n = torch.clamp(valid.sum(), min=1) if n_valid is None else n_valid
+    loss = torch.where(valid, nll, 0.0).sum() / n
+    metrics = {"loss": loss.detach(), "aux_loss": aux.detach(), "tokens": n}
+    return loss + AUX_WEIGHT * aux, metrics
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -71,7 +71,7 @@ def moe_forward(params, cfg, x: torch.Tensor, *, n_groups: int = 32):
 
     xt = x.reshape(g, sg, e)
     logits = torch.einsum("gse,ex->gsx", xt.to(torch.float32),
-                          params["router"]["w"])
+                          params["router"]["w"].to(torch.float32))
     gate_all = torch.softmax(logits, dim=-1)
     # lax.top_k's order: the largest first, on ties the lower expert
     gate_s, idx_s = torch.sort(gate_all, dim=-1, descending=True, stable=True)

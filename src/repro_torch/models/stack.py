@@ -3,13 +3,16 @@
 The reference scans over the pattern's repeating period with parameters
 stacked ``(n_periods, ...)`` per period position, to keep XLA's compile
 time O(period).  PyTorch runs eagerly, so the port keeps the layers in a
-``ModuleList`` in layer order; the period structure matters only to the
-weight conversion (``convert.lm_params_from_numpy``).
+``ModuleList`` in layer order; the period structure matters to the
+weight conversion (``convert.lm_params_from_numpy``) and to training's
+remat: ``forward_aux`` checkpoints each full period group, as the
+reference's ``nothing_saveable`` policy does, and runs the tail plain.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import Block, init_block_cache
 
@@ -27,6 +30,7 @@ def find_period(pattern: tuple[str, ...]) -> tuple[int, int, int]:
 class Stack(nn.Module):
     def __init__(self, cfg, gen: torch.Generator, device):
         super().__init__()
+        self.cfg = cfg
         self.layers = nn.ModuleList(
             Block(cfg, kind, gen, device) for kind in cfg.block_pattern)
 
@@ -34,6 +38,30 @@ class Stack(nn.Module):
         for layer in self.layers:
             x = layer(x, positions)
         return x
+
+    def forward_aux(self, x: torch.Tensor, positions: torch.Tensor):
+        """``(x', aux)``: the stack with the blocks' aux losses summed in
+        the graph (float32; the reference's ``stack_forward``).  Each
+        period group keeps only its input for the backward and is run
+        again there (``torch.utils.checkpoint``, non-reentrant); the tail
+        layers are not checkpointed."""
+        p, n_full, _tail = find_period(self.cfg.block_pattern)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def group(x, layers):
+            a = torch.zeros((), dtype=torch.float32, device=x.device)
+            for layer in layers:
+                x, la = layer.forward_aux(x, positions)
+                a = a + la
+            return x, a
+
+        for i in range(n_full):
+            layers = self.layers[i * p:(i + 1) * p]
+            x, a = checkpoint(group, x, layers, use_reentrant=False,
+                              preserve_rng_state=False)
+            aux = aux + a
+        x, a = group(x, self.layers[n_full * p:])
+        return x, aux + a
 
     def decode(self, cache: list, x: torch.Tensor, t: int) -> torch.Tensor:
         for layer, c in zip(self.layers, cache):

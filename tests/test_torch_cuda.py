@@ -853,6 +853,76 @@ def test_local_attention_kernel_takes_strided_views(gen):
         local_attn_kernel.local_attention(odd, odd, odd, 4)
 
 
+def _bwd_inputs(gen, dtype, b, s, h, hk, d):
+    q = torch.randn((b, s, h, d), generator=gen).to(dtype).cuda()
+    k = torch.randn((b, s, hk, d), generator=gen).to(dtype).cuda()
+    v = torch.randn((b, s, hk, d), generator=gen).to(dtype).cuda()
+    dout = torch.randn((b, s, h, d), generator=gen).to(dtype).cuda()
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,d,w", [
+    (1, 300, 4, 2, 256, 64),     # gemma3's head dim, ragged S
+    (2, 100, 2, 2, 16, 1024),    # window >= S
+    (1, 77, 2, 1, 64, 5),        # window below a tile
+    (1, 40, 2, 2, 128, 1),       # window 1
+    (3, 1, 2, 1, 32, 8),         # S = 1
+    (2, 64, 1, 1, 8, 16),
+    (1, 160, 2, 1, 64, 31),      # windows one below, at and one above the
+    (1, 160, 2, 1, 64, 32),      # 32-key tiles
+    (1, 160, 2, 1, 64, 33),
+    (2, 520, 4, 2, 256, 200),    # G = 2 at D = 256 over many tiles
+    (1, 300, 10, 1, 256, 100)])  # recurrentgemma's G = 10
+def test_local_attention_bwd_kernel_matches_plain(gen, dtype, b, s, h, hk, d,
+                                                  w):
+    """The backward kernel's (dq, dk, dv) against autograd through the
+    plain version within ``bwd_tolerance``, and the same bits on a second
+    run (no atomics)."""
+    q, k, v, dout = _bwd_inputs(gen, dtype, b, s, h, hk, d)
+    out = local_attn_kernel.local_attention(q, k, v, w)
+    got = local_attn_kernel.local_attention_bwd(q, k, v, out, dout, w)
+    again = local_attn_kernel.local_attention_bwd(q, k, v, out, dout, w)
+    plain = ref.local_attention_bwd(q, k, v, out, dout, w)
+    tols = local_attn_kernel.bwd_tolerance(plain)
+    for name, x, y, z, tol in zip(("dq", "dk", "dv"), got, plain, again, tols):
+        assert x.dtype == dtype and x.shape == y.shape, name
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol, (name, err, tol)
+        assert torch.equal(x, z), name
+
+
+def test_local_attention_autograd_launches_both_kernels(gen):
+    """Through ``ops.local_attention`` with inputs that need a gradient:
+    one forward and one backward launch, gradients equal to the backward
+    kernel called by hand; strided views of a wider projection go in;
+    without a graph (serving) the forward kernel alone."""
+    wide = torch.randn((2, 70, 6, 32), generator=gen).cuda().requires_grad_()
+    q, k, v = wide[:, :, :4], wide[:, :, 4:5], wide[:, :, 5:6]
+    before = ops.launches()
+    out = ops.local_attention(q, k, v, window=9)
+    dout = torch.randn(out.shape, generator=gen).cuda()
+    (grad,) = torch.autograd.grad(out, wide, dout)
+    after = ops.launches()
+    assert after["local_attention"] == before["local_attention"] + 1
+    assert after["local_attention_bwd"] == before["local_attention_bwd"] + 1
+    with torch.no_grad():
+        ops.local_attention(q, k, v, window=9)
+    served = ops.launches()
+    assert served["local_attention"] == after["local_attention"] + 1
+    assert served["local_attention_bwd"] == after["local_attention_bwd"]
+    dq, dk, dv = local_attn_kernel.local_attention_bwd(
+        q.detach(), k.detach(), v.detach(), out.detach(), dout, 9)
+    torch.testing.assert_close(grad, torch.cat([dq, dk, dv], dim=2),
+                               rtol=0, atol=0)
+    odd = torch.zeros((1, 8, 2, 48), device="cuda")
+    with pytest.raises(ValueError):                     # head dim 48
+        local_attn_kernel.local_attention_bwd(odd, odd, odd, odd, odd, 4)
+    x = torch.zeros((1, 8, 2, 32), device="cuda")
+    with pytest.raises(ValueError):                     # types differ
+        local_attn_kernel.local_attention_bwd(x, x, x, x, x.bfloat16(), 4)
+
+
 def test_lm_on_card_matches_cpu(gen):
     """The reduced gemma3-12b on the card (local layers through the
     kernel) against the same weights on the CPU (plain version): forward

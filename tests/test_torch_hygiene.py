@@ -15,6 +15,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "examples" / "torch_poet_reactive_transport.py",
     ROOT / "examples" / "torch_serve_prefix_cache.py",
+    ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_train_lm.py",
 ]
 
 

@@ -1233,3 +1233,112 @@ def test_bf16_kernel_arithmetic_within_tolerance(s, w, h, hk, pallas_blocks):
         pallas = torch.from_numpy(pallas.astype(np.float32)).reshape(
             1, h, s, 256).permute(0, 2, 1, 3)
         assert float((got.float() - pallas).abs().max()) <= tol
+
+
+def _emulate_bwd_kernel(q, k, v, o, dout, window):
+    """The backward kernel's tile recurrence (``csrc/local_attn_bwd.cu``)
+    in float32: the dq kernel per 64 query rows (delta from the stored
+    output, a pass over the band's 32-key tiles for max and sum, a second
+    for P, dP, dS and dQ), then the dkv kernel over the G query heads and
+    their query tiles, from the first kernel's lse and delta, the heads
+    summed into one accumulator.  In bf16 at D >= 64 (the tensor-core
+    path) the dkv kernel takes 64 keys and 32-row query tiles, and P and
+    dS enter their products as bf16 hi + lo pairs; otherwise (CUDA
+    cores, float32 sums of float32 values) 32 keys and 64-row tiles."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    tc = q.dtype == torch.bfloat16 and d >= 64
+    kb, qt = (64, 32) if tc else (32, 64)
+
+    def split(x):
+        if not tc:
+            return x
+        hi = x.to(torch.bfloat16).float()
+        return hi + (x - hi).to(torch.bfloat16).float()
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, dout))
+    sq = math.sqrt(d)
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    lse = torch.zeros((b, h, s))
+    delta = torch.zeros((b, h, s))
+
+    def band(rows, keys):
+        return ((keys[None, :] <= rows[:, None])
+                & (rows[:, None] - keys[None, :] < window))
+
+    for bi in range(b):
+        for hi in range(h):
+            kh = hi // g
+            for q0 in range(0, s, 64):
+                rows = torch.arange(q0, min(q0 + 64, s))
+                qq, gg = qf[bi, rows, hi], gf[bi, rows, hi]
+                dl = (gg * of[bi, rows, hi]).sum(-1)
+                k_lo, k_hi = max(0, q0 - window + 1), min(s, q0 + 64)
+                tiles = [torch.arange(t0, min(t0 + 32, k_hi))
+                         for t0 in range(k_lo, k_hi, 32)]
+                m = torch.full((len(rows),), -1e30)
+                ll = torch.zeros(len(rows))
+                for keys in tiles:
+                    ok = band(rows, keys)
+                    sc = torch.where(ok, qq @ kf[bi, keys, kh].T / sq, -1e30)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    ll = ll * torch.exp(m - m_new) + torch.where(
+                        ok, torch.exp(sc - m_new[:, None]), 0.0).sum(-1)
+                    m = m_new
+                lrow = m + torch.log(ll)
+                acc = torch.zeros((len(rows), d))
+                for keys in tiles:
+                    ok = band(rows, keys)
+                    kk, vv = kf[bi, keys, kh], vf[bi, keys, kh]
+                    p = torch.where(ok, torch.exp(qq @ kk.T / sq - lrow[:, None]),
+                                    0.0)
+                    acc += split(p * (gg @ vv.T - dl[:, None])) @ kk
+                dq[bi, rows, hi] = acc / sq
+                lse[bi, hi, rows], delta[bi, hi, rows] = lrow, dl
+    for bi in range(b):
+        for kh in range(hk):
+            for k0 in range(0, s, kb):
+                keys = torch.arange(k0, min(k0 + kb, s))
+                kk, vv = kf[bi, keys, kh], vf[bi, keys, kh]
+                q_hi = min(s, k0 + kb + window - 1)
+                acc_k = torch.zeros((len(keys), d))
+                acc_v = torch.zeros((len(keys), d))
+                for hi in range(kh * g, kh * g + g):
+                    for t0 in range(k0, q_hi, qt):
+                        rows = torch.arange(t0, min(t0 + qt, s))
+                        qq, gg = qf[bi, rows, hi], gf[bi, rows, hi]
+                        ok = band(rows, keys).T
+                        pt = torch.where(ok, torch.exp(
+                            kk @ qq.T / sq - lse[bi, hi, rows][None, :]), 0.0)
+                        dst = pt * (vv @ gg.T - delta[bi, hi, rows][None, :])
+                        acc_v += split(pt) @ gg
+                        acc_k += split(dst) @ qq
+                dk[bi, keys, kh], dv[bi, keys, kh] = acc_k / sq, acc_v
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,w,h,hk,d", [
+    (200, 40, 4, 2, 32),     # G = 2, several query and key tiles
+    (150, 1000, 2, 1, 16),   # window >= S
+    (130, 1, 2, 2, 64),      # window 1, S past the 64-row tiles
+    (96, 33, 2, 1, 256),     # gemma3's head dim, window one above a tile
+    (160, 70, 10, 1, 128)])  # recurrentgemma's G = 10, three key blocks
+def test_bwd_kernel_arithmetic_within_tolerance(dtype, s, w, h, hk, d):
+    """The backward kernel's arithmetic, emulated tile by tile on the CPU,
+    against autograd through the plain version (``ref.local_attention_bwd``)
+    within ``local_attn_kernel.bwd_tolerance``: 1e-5 of each gradient's
+    own largest magnitude, and in bfloat16 at least one bf16 ulp there."""
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _attn_inputs(2, s, h, hk, d, seed=s + w))
+    dout = torch.from_numpy(np.random.default_rng(w).standard_normal(
+        (2, s, h, d)).astype(np.float32)).to(dtype)
+    out = ref.local_attention(q, k, v, w)
+    got = _emulate_bwd_kernel(q, k, v, out, dout, w)
+    plain = ref.local_attention_bwd(q, k, v, out, dout, w)
+    tols = local_attn_kernel.bwd_tolerance(plain)
+    for name, x, y, tol in zip(("dq", "dk", "dv"), got, plain, tols):
+        assert x.dtype == dtype and x.shape == y.shape, name
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol, (name, err, tol)

@@ -550,12 +550,93 @@ def group_faults(rank: int, out: _Out) -> None:
         _virtual_crash(out)
 
 
+# the train group (tests/test_torch_train.py): 2 ranks, half a batch each
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_SEED = 4
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 10}
+CREDUCE_N = 4 * 1024
+
+
+def train_batches(vocab: int, seed: int = 9) -> list:
+    """2 steps' batches of 4 rows x 16 tokens; rows 0-1 (rank 0's half)
+    hold 9 IGNORE labels, rows 2-3 (rank 1's) 2."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        toks = rng.integers(0, vocab, size=(4, 16)).astype(np.int32)
+        labels = rng.integers(0, vocab, size=(4, 16)).astype(np.int32)
+        labels[0, :6] = -1
+        labels[1, :3] = -1
+        labels[3, 10:12] = -1
+        out.append({"tokens": toks, "labels": labels})
+    return out
+
+
+def creduce_grads(seed: int = 0) -> np.ndarray:
+    """(4, CREDUCE_N) float32: rank r's gradient is row r."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(4, CREDUCE_N)) * np.array(
+        [[1.0], [3.0], [0.5], [2.0]])).astype(np.float32)
+
+
+def group_train(rank: int, out: _Out) -> None:
+    """The data-parallel step: this rank's half of each batch through
+    ``make_train_step(group=WORLD)``; the losses and every parameter."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_lm
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    cfg = reduced(get_config(TRAIN_ARCH), n_layers=2)
+    lm = init_lm(cfg, generator=torch.Generator().manual_seed(TRAIN_SEED),
+                 device="cpu")
+    lm.requires_grad_(True)
+    state = init_opt_state(dict(lm.named_parameters()))
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                           group=dist.group.WORLD)
+    losses = []
+    for batch in train_batches(cfg.vocab_size):
+        half = {k: torch.from_numpy(v[rank * 2:(rank + 1) * 2])
+                for k, v in batch.items()}
+        lm, state, m = step(lm, state, half)
+        losses.append(float(m["loss"]))
+    out["losses"] = np.asarray(losses)
+    for n, p in lm.named_parameters():
+        out[f"param/{n}"] = p.detach().numpy()
+
+
+def group_creduce(rank: int, out: _Out) -> None:
+    """The int8 reduce-scatter: rank r's row of ``creduce_grads``."""
+    import torch
+
+    from repro_torch.optim import compressed_reduce as cr
+
+    seen = []
+    orig = cr.dist.all_to_all_single
+
+    def spy(output, inp, *a, **kw):
+        seen.append(str(inp.dtype))
+        return orig(output, inp, *a, **kw)
+
+    cr.dist.all_to_all_single = spy
+    try:
+        got = cr.compressed_reduce(torch.from_numpy(creduce_grads()[rank]))
+    finally:
+        cr.dist.all_to_all_single = orig
+    out["out"] = got.numpy()
+    out["wire_dtype"] = np.asarray(seen[0])
+
+
 GROUPS = {"modes": group_modes, "tier": group_tier,
           "elastic": group_elastic}
 # ranks a group runs on (WORLD unless named)
 GROUP_WORLD = {"elastic": ELASTIC_WORLD}
 # groups run by other test files than tests/test_torch_distributed.py
-OTHER_GROUPS = {"faults": group_faults}
+OTHER_GROUPS = {"faults": group_faults, "train": group_train,
+                "creduce": group_creduce}
 
 
 def main(argv) -> int:
