@@ -417,7 +417,9 @@ BWD_CASES = (("gemma3_s2048", 2, 2048, 16, 8, 256, 1024),
              ("gemma3_s4096", 2, 4096, 16, 8, 256, 1024),
              ("recurrentgemma", 2, 4096, 10, 1, 256, 2048),
              # window 1: the plain dq and dk are 0 (bwd_tolerance's floor)
-             ("gemma3_s2048_w1", 2, 2048, 16, 8, 256, 1))
+             ("gemma3_s2048_w1", 2, 2048, 16, 8, 256, 1),
+             # one key past the bf16 path's 64-key tiles
+             ("gemma3_s2048_w65", 2, 2048, 16, 8, 256, 65))
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
 # kernels whose own device time the timing phase reports beside the event
@@ -871,14 +873,15 @@ def bound_local_attention(q, k, v, window):
     return nbytes, 4 * d * pairs * b * h
 
 
-def bound_local_attention_bwd(q, k, v, out, dout, window):
-    """Q, K, V, O and dO read once, dQ, dK and dV written once; 10 * D
-    operations per valid (query, key) pair: the band's 5 products (q.k
-    again, dO.v, dS k, P dO, dS q)."""
+def bound_local_attention_bwd(q, k, v, out, dout, window, lse):
+    """Q, K, V, O, dO and the forward's lse read once, dQ, dK and dV
+    written once; 10 * D operations per valid (query, key) pair: the
+    band's 5 products (q.k again, dO.v, dS k, P dO, dS q)."""
     b, s, h, d = q.shape
     w = min(window, s)
     pairs = w * (w + 1) // 2 + (s - w) * w
-    nbytes = (q.numel() * 5 + k.numel() * 4) * q.element_size()
+    nbytes = ((q.numel() * 5 + k.numel() * 4) * q.element_size()
+              + lse.numel() * lse.element_size())
     return nbytes, 10 * d * pairs * b * h
 
 
@@ -927,6 +930,34 @@ def ptxas_lines(lib: str, entry: str = "") -> list:
                     else m.group(1) if m else current[-60:])
             lines.append(f"{name}: {text}")
     return lines
+
+
+def sass_counts(lib: str, entry: str = "") -> dict:
+    """Tensor-core instructions in library ``lib``'s SASS (``cuobjdump
+    -sass`` of the built file), per kernel whose mangled name holds
+    ``entry``: HGMMA (wgmma) and HMMA (mma.sync) counts, keyed as
+    ``ptxas_lines`` names the kernels."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(build._lib_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, current = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            current = None
+            if entry in m.group(1):
+                n = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)(?:ILi(\d+)E|E)",
+                              m.group(1))
+                current = (f"{n.group(1)}<{n.group(2)}>" if n and n.group(2)
+                           else n.group(1) if n else m.group(1)[-60:])
+                counts[current] = {"HGMMA": 0, "HMMA": 0}
+        elif current is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", ln):
+                    counts[current][op] += 1
+    return counts
 
 
 def phase_build():
@@ -3767,13 +3798,27 @@ def _attn_vs_plain(label, args, cases, errs, tols):
           f"local_attention {label}: output shape/type")
     check(err <= tol, f"local_attention {label}: kernel differs from its "
                       f"plain version by {err} > {tol}")
+    # asked for the rows' lse (training's forward): the same output bits,
+    # and the lse within lse_tolerance of the plain one
+    del plain
+    out_l, lse = local_attn_kernel.local_attention(*args, with_lse=True)
+    check(torch.equal(out_l, out), f"local_attention {label}: the output "
+                                   "differs when the lse is asked for")
+    del out_l
+    plain_lse = ref.local_attention_lse(*args)
+    lse_err = float((lse - plain_lse).abs().max())
+    lse_tol = local_attn_kernel.lse_tolerance(plain_lse)
+    check(lse_err <= lse_tol, f"local_attention {label}: lse differs from "
+                              f"the plain lse by {lse_err} > {lse_tol}")
+    del lse, plain_lse
     errs["local_attention"] = max(errs.get("local_attention", 0.0), err)
     tols["local_attention"] = max(tols.get("local_attention", 0.0), tol)
     q = args[0]
     cases.append({"case": label, "shape": list(q.shape),
                   "kv_heads": args[1].shape[2], "window": args[3],
                   "dtype": str(q.dtype).split(".")[-1], "max_abs_err": err,
-                  "tolerance": tol})
+                  "tolerance": tol, "lse_max_abs_err": lse_err,
+                  "lse_tolerance": lse_tol})
 
 
 def _lm_kernel_checks(cfg, errs, tols):
@@ -5181,14 +5226,18 @@ def phase_families(errs, tols):
 
 def _bwd_vs_plain(label, args, cases, errs, tols):
     """The backward kernel's (dq, dk, dv) on ``args`` (q, k, v, out, dout,
-    window) against autograd through the plain version, each within
-    ``bwd_tolerance``."""
+    window, lse) against autograd through the plain version, each within
+    ``bwd_tolerance``, and the same bits on a second call."""
     import torch
 
     from repro_torch.kernels import local_attn_kernel, ref
 
     got = local_attn_kernel.local_attention_bwd(*args)
+    again = local_attn_kernel.local_attention_bwd(*args)
     torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"local_attention_bwd {label}: a second call gives other bits")
+    del again
     plain = ref.local_attention_bwd(*args)
     torch.cuda.synchronize()
     tol = local_attn_kernel.bwd_tolerance(plain)
@@ -5228,10 +5277,11 @@ def _train_kernel_checks(errs, tols):
                 continue
             q, k, v = _attn_case(gen, b, s, h, hk, d, dtype)
             dout = torch.randn((b, s, h, d), generator=gen).to(dtype).to(DEVICE)
-            out = local_attn_kernel.local_attention(q, k, v, w)
+            out, lse = local_attn_kernel.local_attention(q, k, v, w,
+                                                         with_lse=True)
             _bwd_vs_plain(f"{label}_{str(dtype).split('.')[-1]}",
-                          (q, k, v, out, dout, w), cases, errs, tols)
-            del q, k, v, dout, out
+                          (q, k, v, out, dout, w, lse), cases, errs, tols)
+            del q, k, v, dout, out, lse
             _release()
     return cases
 
@@ -5317,7 +5367,7 @@ def _train_full(calls):
     if isinstance(prof.get("device_ms"), float):
         # the backward kernel's two CUDA kernels (either path)
         bwd_ms = sum(r["ms"] for r in prof["top"]
-                     if re.search(r"\b(dq|dkv)(_tc)?_kernel<", r["kernel"]))
+                     if re.search(r"\b(dq|dkv)(_wg)?_kernel<", r["kernel"]))
         # of the unprofiled steps' median (the profiler slows the host)
         share = bwd_ms / (statistics.median(step_s[1:] or step_s) * 1e3)
     out = {"arch": cfg.name, "layers": list(cfg.block_pattern),
@@ -5643,12 +5693,12 @@ def phase_train(errs, tols):
 def sdpa_bwd_call(args):
     """SDPA's backward with the band mask: the gradients of one
     ``scaled_dot_product_attention`` call (K/V expanded per query group)
-    for ``args`` (q, k, v, out, dout, window), its forward and the mask
-    made outside the timing."""
+    for ``args`` (q, k, v, out, dout, window, lse), its forward and the
+    mask made outside the timing."""
     import torch
     import torch.nn.functional as F
 
-    q, k, v, _out, dout, window = args
+    q, k, v, _out, dout, window = args[:6]
     g = q.shape[2] // k.shape[2]
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (
         q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
@@ -5662,8 +5712,9 @@ def sdpa_bwd_call(args):
 
 
 def time_bwd(args) -> dict:
-    """The backward kernel at ``args``: ms, its plain version's, SDPA's
-    backward's and the bound (bf16: the tensor cores' rate)."""
+    """The backward kernel at ``args`` (q, k, v, out, dout, window, lse):
+    ms, its plain version's, SDPA's backward's and the bound (bf16: the
+    tensor cores' rate)."""
     import torch
 
     from repro_torch.kernels import local_attn_kernel, ref
@@ -5779,6 +5830,10 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls,
         if name in TRACED:
             # the kernel's own device time beside the event interval
             out[name]["traced"] = trace_cold(kern, args)
+    # the forward asked for the rows' lse as well (training's call)
+    out["local_attention"]["ms_with_lse"] = time_cold(
+        lambda *a: local_attn_kernel.local_attention(*a, with_lse=True),
+        acalls[0])
     # a local layer's backward in train-full's second step
     out["local_attention_bwd"] = time_bwd(tcalls[0])
     # the write round's send leg (L = 48) beside the read round's (L = 22)
@@ -5820,6 +5875,15 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls,
         "local_attn", f"ILi{acalls[0][0].shape[-1]}E")
     out["local_attention_bwd"]["ptxas"] = ptxas_lines(
         "local_attn_bwd", f"Li{tcalls[0][0].shape[-1]}E")
+    # the backward kernels' tensor-core instructions in the built SASS:
+    # the bf16 path at D >= 64 issues wgmma (HGMMA) and no mma.sync (HMMA)
+    sass = sass_counts("local_attn_bwd", f"Li{tcalls[0][0].shape[-1]}E")
+    out["local_attention_bwd"]["sass"] = sass
+    wg = {name: n for name, n in sass.items() if "_wg_kernel" in name}
+    check(len(wg) == 2 and all(n["HGMMA"] > 0 and n["HMMA"] == 0
+                               for n in wg.values()),
+          f"local_attention_bwd: the bf16 kernels' SASS is not wgmma alone: "
+          f"{sass}")
     emit("timing", timing=f"CUDA events, median of {TIMING_REPS} launches "
                           "(plain: 5), L2 flushed before each", kernels=out)
     return out

@@ -65,8 +65,8 @@ LIBRARIES = {
                            _P),
     }),
     "local_attn": ("local_attn.cu", {
-        "repro_local_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _L, _L, _L, _L, _L, _L, _L, _L, _L, _P),
+        "repro_local_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P),
     }),
     "local_attn_bwd": ("local_attn_bwd.cu", {
         "repro_local_attention_bwd": (_P,) * 10 + (_I,) * 7 + (_L,) * 15

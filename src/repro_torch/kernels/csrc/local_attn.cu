@@ -4,6 +4,11 @@
 // the input type (float32 or bfloat16).  Query row i of head h attends
 // over the keys j of KV head h / (H / Hk) with j <= i and i - j < window;
 // scores q.k / sqrt(D), softmax and the product with V all in float32.
+// Where the caller passes a float32 (B, H, S) buffer (training's forward;
+// serving passes null), each row's log-sum-exp of its scaled scores goes
+// there too, in natural-log units: max + log(sum), from the softmax's own
+// running max and sum, so local_attn_bwd.cu needs no pass of its own for
+// it.  The write is 4 bytes a row (262 KB at gemma3-12b's training shape).
 //
 // Replaces: repro/kernels/local_attn_kernel.py local_attention_pallas
 // (_kernel), which computes the same function per (batch * head) on
@@ -32,7 +37,9 @@
 // sums).  128 query rows per CTA in two warpgroups of 64, 64-key tiles;
 // at D = 256 64 KB of Q and 2 x 64 KB of K/V, one CTA per SM.  Every
 // tile is held as 64-wide feature blocks of 128-byte rows with the
-// 128-byte swizzle, the layout wgmma's shared-memory descriptors read.
+// 128-byte swizzle, the layout wgmma's shared-memory descriptors read
+// (the staging, descriptors and wgmma forms are in wgmma.cuh, shared with
+// the backward).
 //   q.k: wgmma m64n64k16, A (Q) and B (K) both from shared memory; Q is
 //   re-read per tile, so the 64 x 256 float32 output accumulator (128
 //   registers a thread) fits.  The products are exact in float32.
@@ -60,40 +67,26 @@
 #include <cuda_runtime.h>
 
 #include "murmur.cuh"  // REPRO_DEFINE_ERROR_STRING
+#include "wgmma.cuh"
 
 REPRO_DEFINE_ERROR_STRING()
 
 namespace {
 
+using namespace repro;
+
 constexpr float kNegInf = -1e30f;
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where !ok (src is not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ bool key_valid(int key, int row, int k_hi,
                                           int window) {
   return key < k_hi && key <= row && row - key < window;
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
 // (x, y) -> bf16 pairs hi = rn(x, y) and lo = rn((x, y) - hi); x in the
 // low half, as the mma operands order the lower column first
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
@@ -103,120 +96,15 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
   lo = bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
 }
 
-// ---------------------------------------------------------------------------
-// bf16: tensor cores (wgmma)
-// ---------------------------------------------------------------------------
-
 constexpr int kBfBQ = 128;              // query rows per CTA: 2 warpgroups
 constexpr int kBfBK = 64;               // keys per staged tile
 constexpr int kBfStages = 2;
 
 template <int D>
-struct BfTile {
-  static constexpr int DP = D < 64 ? 64 : D;   // padded to whole 64-blocks
-  static constexpr int NB = DP / 64;           // 64-wide feature blocks
-  // chunk ch (16 bytes) of row r in a (ROWS, DP) tile held as NB blocks
-  // of (ROWS, 64): 128-byte rows, chunks XOR-swizzled by r % 8 (the
-  // 128-byte swizzle of wgmma's shared-memory operands)
-  template <int ROWS>
-  static __device__ __forceinline__ uint32_t at(int r, int ch) {
-    return (ch >> 3) * (ROWS * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
-  }
-};
-
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_bf16(uint32_t dst, const bf16* g,
-                                           long long rs, int p0, int lim) {
-  using T = BfTile<D>;
-  constexpr int NCH = T::DP / 8;
-#pragma unroll
-  for (int c = threadIdx.x; c < ROWS * NCH; c += 256) {
-    const int r = c / NCH;
-    const int ch = c % NCH;
-    const bool ok = p0 + r < lim && ch * 8 < D;
-    const bf16* src = ok ? g + (p0 + r) * rs + ch * 8 : g;
-    cp_async16(dst + T::template at<ROWS>(r, ch), src, ok);
-  }
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; 8-row groups 1024
-// bytes apart (both offsets: only one is read for a 64-wide operand)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_arrive() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keeps the compiler from moving register reads or writes across a
-// wgmma fence or wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// 2^x (MUFU, relative error ~2^-22)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-// d (64 x 64) += A (64 x 16, shared, K-major) * B (16 x 64, shared,
-// K-major)
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, N-major)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
 __global__ void __launch_bounds__(256, 1)
 attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                 int H, int G, int window, long long qsb, long long qss,
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int G, int window, long long qsb, long long qss,
                  long long qsh, long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh) {
   using T = BfTile<D>;
@@ -245,12 +133,12 @@ attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ksb + hk * ksh;
   const bf16* vb = v + b * vsb + hk * vsh;
 
-  stage_bf16<D, kBfBQ>(s_q, q + b * qsb + h * qsh, qss, q_start, S);
+  stage_bf16<D, kBfBQ, 256>(s_q, q + b * qsb + h * qsh, qss, q_start, S);
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles) {
-      stage_bf16<D, BK>(s_kv + 2 * i * TILE, kb, kss, k_lo + i * BK, k_hi);
-      stage_bf16<D, BK>(s_kv + (2 * i + 1) * TILE, vb, vss, k_lo + i * BK,
+      stage_bf16<D, BK, 256>(s_kv + 2 * i * TILE, kb, kss, k_lo + i * BK, k_hi);
+      stage_bf16<D, BK, 256>(s_kv + (2 * i + 1) * TILE, vb, vss, k_lo + i * BK,
                         k_hi);
     }
     cp_async_commit();
@@ -273,9 +161,9 @@ attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int nx = it + STAGES - 1;
       if (nx < n_tiles) {
         const int st = nx % STAGES;
-        stage_bf16<D, BK>(s_kv + 2 * st * TILE, kb, kss, k_lo + nx * BK,
+        stage_bf16<D, BK, 256>(s_kv + 2 * st * TILE, kb, kss, k_lo + nx * BK,
                           k_hi);
-        stage_bf16<D, BK>(s_kv + (2 * st + 1) * TILE, vb, vss,
+        stage_bf16<D, BK, 256>(s_kv + (2 * st + 1) * TILE, vb, vss,
                           k_lo + nx * BK, k_hi);
       }
       cp_async_commit();
@@ -386,6 +274,11 @@ attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = i ? row_b : row_a;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0) {
+      // natural log of the scaled scores' sum: (m c + log2 l) ln 2
+      lse[static_cast<long long>(bh) * S + row] =
+          fmaf(m[i], c, log2f(denom)) * kLn2;
+    }
     bf16* op = out + ((static_cast<long long>(b) * S + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
@@ -402,9 +295,9 @@ attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int S, int H, int Hk, int window, const long long* st,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int S, int H, int Hk, int window,
+                const long long* st, cudaStream_t stream) {
   using T = BfTile<D>;
   // + 1024: the kernel aligns the base to the swizzle's 1024-byte period
   const size_t smem =
@@ -419,8 +312,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kBfBQ - 1) / kBfBQ, B * H);
   kernel<<<grid, 256, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, H / Hk,
-      window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H,
+      H / Hk, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -479,8 +372,8 @@ __device__ __forceinline__ void ld_vec(const float* p, float (&o)[N]) {
 template <int D>
 __global__ void __launch_bounds__(kF32Threads, 1)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ out, int S,
-                int H, int G, int window, long long qsb, long long qss,
+                const float* __restrict__ v, float* __restrict__ out,
+                float* __restrict__ lse, int S, int H, int G, int window, long long qsb, long long qss,
                 long long qsh, long long ksb, long long kss, long long ksh,
                 long long vsb, long long vss, long long vsh) {
   using T = F32Tile<D>;
@@ -638,7 +531,14 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
-    if (kg == 0) s_l[srow0 + 4 * i] = l[i];
+    if (kg == 0) {
+      s_l[srow0 + 4 * i] = l[i];
+      const int qpos = q_start + srow0 + 4 * i;
+      if (lse != nullptr && qpos < S) {
+        lse[static_cast<long long>(bh) * S + qpos] =
+            m[i] + logf(fmaxf(l[i], 1e-30f));
+      }
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -664,9 +564,9 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int Hk, int window, const long long* st,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int S, int H, int Hk, int window,
+               const long long* st, cudaStream_t stream) {
   const size_t smem = F32Tile<D>::SMEM_FLOATS * sizeof(float);
   auto kernel = attn_f32_kernel<D>;
   if (smem > 48 * 1024) {
@@ -678,17 +578,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kF32BQ - 1) / kF32BQ, B * H);
   kernel<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, H / Hk,
-      window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, H,
+      H / Hk, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(bool is_bf16, const void* q, const void* k, const void* v,
-           void* out, int B, int S, int H, int Hk, int window,
+           void* out, float* lse, int B, int S, int H, int Hk, int window,
            const long long* st, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, out, B, S, H, Hk, window, st, stream)
-                 : launch_f32<D>(q, k, v, out, B, S, H, Hk, window, st, stream);
+  return is_bf16 ? launch_bf16<D>(q, k, v, out, lse, B, S, H, Hk, window, st,
+                                  stream)
+                 : launch_f32<D>(q, k, v, out, lse, B, S, H, Hk, window, st,
+                                 stream);
 }
 
 }  // namespace
@@ -696,22 +598,24 @@ int launch(bool is_bf16, const void* q, const void* k, const void* v,
 // D in {8, 16, 32, 64, 128, 256} (others: cudaErrorInvalidValue, and the
 // wrapper refuses them first).  strides: element strides (batch, seq,
 // head) of q, then k, then v; every row must start 16-byte aligned (the
-// wrapper copies a view that does not).
+// wrapper copies a view that does not).  lse: null, or a float32 (B, H, S)
+// buffer that receives each row's log-sum-exp of its scaled scores.
 extern "C" int repro_local_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int S,
-    int H, int Hk, int D, int window, int is_bf16, long long qsb,
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int S, int H, int Hk, int D, int window, int is_bf16, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
+  float* l = static_cast<float*>(lse);
   switch (D) {
-    case 8: return launch<8>(bf, q, k, v, out, B, S, H, Hk, window, st, s);
-    case 16: return launch<16>(bf, q, k, v, out, B, S, H, Hk, window, st, s);
-    case 32: return launch<32>(bf, q, k, v, out, B, S, H, Hk, window, st, s);
-    case 64: return launch<64>(bf, q, k, v, out, B, S, H, Hk, window, st, s);
-    case 128: return launch<128>(bf, q, k, v, out, B, S, H, Hk, window, st, s);
-    case 256: return launch<256>(bf, q, k, v, out, B, S, H, Hk, window, st, s);
+    case 8: return launch<8>(bf, q, k, v, out, l, B, S, H, Hk, window, st, s);
+    case 16: return launch<16>(bf, q, k, v, out, l, B, S, H, Hk, window, st, s);
+    case 32: return launch<32>(bf, q, k, v, out, l, B, S, H, Hk, window, st, s);
+    case 64: return launch<64>(bf, q, k, v, out, l, B, S, H, Hk, window, st, s);
+    case 128: return launch<128>(bf, q, k, v, out, l, B, S, H, Hk, window, st, s);
+    case 256: return launch<256>(bf, q, k, v, out, l, B, S, H, Hk, window, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,45 +1,69 @@
 // Backward of causal sliding-window (local) attention with grouped KV heads:
 // q (B, S, H, D), k/v (B, S, Hk, D), the forward's output o and its
-// gradient dO (B, S, H, D), any strides with the feature axis contiguous
-// -> dq (B, S, H, D), dk/dv (B, S, Hk, D) contiguous, in the input type
-// (float32 or bfloat16), every sum in float32.  Query row i of head h
-// attends over the keys j of KV head h / (H / Hk) with j <= i and
-// i - j < window; scores q.k / sqrt(D).
+// gradient dO (B, S, H, D), any strides with the feature axis contiguous,
+// and the forward's per-row log-sum-exp lse (B, H, S) float32 (natural
+// log of the scaled scores, as local_attn.cu writes it) -> dq (B, S, H, D),
+// dk/dv (B, S, Hk, D) contiguous, in the input type (float32 or bfloat16),
+// every sum in float32.  Query row i of head h attends over the keys j of
+// KV head h / (H / Hk) with j <= i and i - j < window; scores q.k /
+// sqrt(D); P = exp(s / sqrt(D) - lse).
 //
 // Replaces: nothing in repro/kernels/.  The JAX package has no backward
 // kernel: XLA derives the gradient of the banded path of
 // repro/models/flash.py.  This is the gradient of local_attn.cu's
 // function, the plain version's autograd (kernels/ref.py).
 //
-// Two kernels, one launch each, no atomics (the sums of every output
-// element run in one thread in a fixed order, so the result is the same
-// bits on every run):
-//   dq kernel, a CTA per (64 query rows, b, h): stages Q and dO once;
-//     delta_i = sum_d dO_id o_id (o as the forward stored it); pass 1
-//     walks the band's 32-key tiles for each row's max and sum (lse = m +
-//     log l); pass 2 walks them again: P = exp(s - lse), dP = dO V^T,
-//     dS = P (dP - delta), dQ += dS K; dQ / sqrt(D) at the end.  It
-//     writes lse and delta for the second kernel.
-//   dkv kernel, a CTA per (a block of keys, b, KV head): stages K and V
-//     once and walks the G query heads of the group and, for each, the
-//     query tiles in [j0, j0 + keys + window - 1): P^T, dP^T = V dO^T and
-//     dS^T from the stored lse and delta; dV += P^T dO, dK += dS^T Q.
-//     The G heads' contributions sum in registers.
-// bf16 at D >= 64 (training's path) runs on the tensor cores: mma.sync
-// m16n8k16 with bf16 operands from ldmatrix and float32 sums.  The
-// products with Q, K, V and dO are exact in float32; P and dS enter
-// theirs as bf16 hi + lo pairs (hi = bf16(x), lo = bf16(x - hi)), so they
-// keep ~2^-17 of their value where one bf16 operand would move each term
-// by up to 2^-9.  The dq kernel gives each of 4 warps 16 rows; the dkv
-// kernel takes 64 keys and 32-row query tiles, its 8 warps 16 keys and
-// half the features each (both warps of a key group compute its scores).
-// Tiles sit in shared memory as bf16 rows padded by 16 bytes (conflict-free
-// ldmatrix); 99 KB a CTA at D = 256.  Softmax in base 2: the dq kernel's
-// lse is stored in base-2 units of the scaled score.
-// float32 (and D < 64) runs on CUDA cores: bf16 inputs are widened as they
-// are staged, tiles of float32 rows padded by 4 floats; the dq kernel
-// takes 64 rows and 32-key tiles, the dkv kernel 32 keys and 64-row query
-// tiles; 204.5 and 212.5 KB of shared memory at D = 256.
+// Two kernels, one launch each, no atomics: every output element is summed
+// by one thread in a fixed order, so a second call gives the same bits.
+//   dq kernel, a CTA per (64 query rows, b, h): delta_i = sum_d dO_id o_id
+//     (o as the forward stored it), written for the second kernel; then
+//     one walk over the band's key tiles: P from the forward's lse, dP =
+//     dO V^T, dS = P (dP - delta), dQ += dS K; dQ / sqrt(D) at the end.
+//   dkv kernel, a CTA per (64 keys, b, KV head): K and V staged once; it
+//     walks the G query heads of the group and, for each, the query tiles
+//     in [k0, k0 + 64 + window - 1): P^T, dP^T = V dO^T, dS^T from the
+//     stored lse and delta; dV += P^T dO, dK += dS^T Q.  The G heads'
+//     contributions sum in registers.
+//
+// bf16 at D in {64, 128, 256} (training's path): wgmma on the tensor
+// cores, bf16 operands, float32 sums (dq_wg_kernel, dkv_wg_kernel).  Every
+// tile is 64 rows, held in shared memory in wgmma's 128-byte-swizzled
+// layout (wgmma.cuh, shared with the forward) and loaded with 16-byte
+// cp.async copies; the streamed tiles go through a two-stage ring, so the
+// next tile is in flight while this one is multiplied (cp.async rather
+// than TMA: the views are strided and may start at any 16-byte row, which
+// cp.async takes as the forward does, and the copies come from the
+// threads that then compute, so no producer warp holds registers).
+//   dq: one warpgroup (128 threads) and 64 rows a CTA.  Per 64-key tile:
+//     S = Q K^T and dP = dO V^T (m64n64k16, A and B both K-major in shared
+//     memory), issued together; then P and dS in registers; then dQ += dS
+//     K with dS as the register A operand and K as the N-major B.
+//     Shared memory at D = 256: Q, dO and 2 x (K, V), 32 KB each, 193 KB
+//     with the 1 KB for the swizzle's alignment; one CTA per SM.
+//   dkv: two warpgroups a CTA, split by product, not by features.
+//     Warpgroup 0: S^T = K Q^T, P^T = 2^(s c - lse log2 e) (masked to 0),
+//     P^T to shared memory, then dV += P^T dO.  Warpgroup 1: dP^T = V dO^T
+//     (at the same time as warpgroup 0's S^T), then, after a named barrier,
+//     dS^T = P^T (dP^T - delta) and dK += dS^T Q.  Each holds one 64 x D
+//     float32 accumulator (128 registers a thread at D = 256) and its A
+//     operand is already in its own registers.  Query tiles (Q, dO and
+//     their 64 lse and delta) stream through the ring across the G heads.
+//     Shared memory at D = 256: K and V 64 KB, 2 x (Q, dO) 128 KB, P^T
+//     (64 x 64 float32) 16 KB, lse/delta 1 KB, + 1 KB alignment: 210 KB,
+//     one CTA per SM.
+//   Registers at D = 256 (ptxas): dq 234, dkv 232 a thread, no spills.
+//   P and dS enter their products as single bf16 values (one rounding,
+//   2^-9 of each term).  Held against autograd through the plain version
+//   under the unchanged bwd_tolerance (one bf16 ulp at each gradient's
+//   largest magnitude) on the card at every case chip_smoke.py and
+//   tests/test_torch_cuda.py run, and emulated on the CPU by
+//   tests/test_torch_kernels.py::test_bwd_kernel_arithmetic_within_tolerance.
+//   The products with Q, K, V and dO are exact in float32.
+// float32 (and bf16 at D < 64) runs on CUDA cores (dq_kernel, dkv_kernel):
+// bf16 inputs are widened as they are staged, tiles of float32 rows padded
+// by 4 floats; the dq kernel takes 64 rows and 32-key tiles, the dkv kernel
+// 32 keys and 64-row query tiles; 204.5 and 212.5 KB of shared memory at
+// D = 256.
 //
 // Bound on the H100: operations.  Per valid (query, key) pair of a head
 // the backward does 5 products of length D (q.k again, dO.v, dS k, P dO,
@@ -47,27 +71,32 @@
 // 2048, H = 16, Hk = 8, D = 256, window 1024) the valid pairs are ~1.57 M
 // a head, 10 * pairs * D = 129 GFLOP a call: 0.13 ms at the bf16
 // tensor-core rate (989 TFLOP/s), 1.9 ms at the CUDA cores' 67 TFLOP/s.
-// The tensor-core path issues 26 D operations a pair: the dq kernel's
-// first pass, the dkv kernel's scores in both feature halves, and the
-// products with P and dS twice (hi and lo).
+// The wgmma path issues 14 D operations a pair (S twice, dP twice, dQ, dK,
+// dV), on the 64 x 64 tiles the band touches: ~6% more pairs than the
+// band's at that shape.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W) at that
+// shape: 0.764 ms (5.9x the bound; SDPA's backward with a band mask
+// 1.961 ms), split about evenly between the two kernels (0.408 and 0.402
+// ms a call in a profiled training step).  The mma.sync version it
+// replaced took 2.180 ms.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "murmur.cuh"  // REPRO_DEFINE_ERROR_STRING
+#include "wgmma.cuh"
 
 REPRO_DEFINE_ERROR_STRING()
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using namespace repro;
+
 constexpr int kThreads = 256;
 constexpr int kQ = 64;     // dq kernel: query rows a CTA
 constexpr int kK = 32;     // dq kernel: keys a tile
 constexpr int kKB = 32;    // dkv kernel: keys a CTA
 constexpr int kQT = 64;    // dkv kernel: query rows a tile
-using bf16 = __nv_bfloat16;
-
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
@@ -191,7 +220,7 @@ struct Dims {
 };
 
 // ---------------------------------------------------------------------------
-// dq kernel (and the rows' lse and delta)
+// dq kernel (and the rows' delta)
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -199,8 +228,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ o,
           const T* __restrict__ dout, T* __restrict__ dq,
-          float* __restrict__ lse_out, float* __restrict__ delta_out, int S,
-          int H, int G, int window, long long qsb, long long qss, long long qsh, long long ksb,
+          const float* __restrict__ lse_in, float* __restrict__ delta_out,
+          int S, int H, int G, int window, long long qsb, long long qss,
+          long long qsh, long long ksb,
           long long kss, long long ksh, long long vsb, long long vss,
           long long vsh, long long osb, long long oss, long long osh,
           long long gsb, long long gss, long long gsh) {
@@ -235,9 +265,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, D, DS, kQ>(dos, dout + b * gsb + h * gsh, gss, q0, S);
   __syncthreads();
 
-  // delta: a warp a row, lanes over the features
+  // delta: a warp a row, lanes over the features; the row's lse as the
+  // forward stored it
   for (int r = warp; r < kQ; r += kThreads / 32) {
     const int row = q0 + r;
+    const long long at = static_cast<long long>(bh) * S + row;
     float acc = 0.f;
     if (row < S) {
       const T* orow = o + b * osb + row * oss + h * osh;
@@ -245,7 +277,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) s_delta[r] = acc;
+    if (lane == 0) {
+      s_delta[r] = acc;
+      s_lse[r] = row < S ? lse_in[at] : 0.f;
+      if (row < S) delta_out[at] = acc;
+    }
   }
 
   // score layout: warp w owns rows 8w .. 8w + 7; lane (rg, kg) = (lane /
@@ -254,75 +290,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kg = lane & 7;
   const int srow0 = warp * 8 + rg;
 
-  // pass 1: each row's max and sum over the band
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = k_lo + it * kK;
-    __syncthreads();   // the K tile is free
-    stage<T, D, DS, kK>(ks, kb, kss, t0, k_hi);
-    __syncthreads();
-    float s[2][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[2], kv[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) qa[i] = ld4(qs + (srow0 + 4 * i) * DS + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ld4(ks + (kg + 8 * j) * DS + d);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kv[j].w, s[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + srow0 + 4 * i;
-      float mt = kNegInf;
-      bool valid[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = t0 + kg + 8 * j;
-        valid[j] = key < k_hi && key_valid(key, row, S, window);
-        s[i][j] = valid[j] ? s[i][j] / sqrt_d : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
-      const float m_new = fmaxf(m[i], mt);
-      l[i] *= expf(m[i] - m_new);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (valid[j]) l[i] += expf(s[i][j] - m_new);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
-    const int r = srow0 + 4 * i;
-    if (kg == 0) {
-      const float lse = m[i] + logf(fmaxf(l[i], 1e-30f));
-      s_lse[r] = lse;
-      if (q0 + r < S) {
-        const long long at = static_cast<long long>(bh) * S + q0 + r;
-        lse_out[at] = lse;
-        delta_out[at] = s_delta[r];
-      }
-    }
-  }
-
-  // pass 2: dS and dQ
+  // dS and dQ
   using A = AccTile<D, kQ>;
   float acc[A::R][A::C];
 #pragma unroll
@@ -332,7 +300,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = k_lo + it * kK;
-    __syncthreads();   // the K/V tiles and dS are free; lse is visible
+    __syncthreads();   // the K/V tiles and dS are free; lse and delta are
+                       // visible
     stage<T, D, DS, kK>(ks, kb, kss, t0, k_hi);
     stage<T, D, DS, kK>(vs, vb, vss, t0, k_hi);
     __syncthreads();
@@ -509,434 +478,439 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync m16n8k16: bf16 products, float32 sums)
+// bf16 on the tensor cores (wgmma m64n64k16: bf16 products, float32 sums)
 // ---------------------------------------------------------------------------
 
-constexpr int kTcQ = 64;    // dq: query rows a CTA (4 warps x 16)
-constexpr int kTcK = 32;    // dq: keys a tile
-constexpr int kTcKB = 64;   // dkv: keys a CTA (4 warps x 16, two feature halves)
-constexpr int kTcQT = 32;   // dkv: query rows a tile
+constexpr int kWgRows = 64;      // rows of every tile: query rows of a dq
+                                 // CTA, keys of a dkv CTA, and the streamed
+                                 // key (dq) or query (dkv) tiles
+constexpr int kWgStages = 2;     // the ring of streamed tiles
+constexpr uint32_t kBlk = kWgRows * 128;   // bytes of a tile's 64-feature block
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct TcDims {
-  static constexpr int TS = D + 8;        // padded row (bf16): 16-byte rows,
-                                          // conflict-free ldmatrix
-  static constexpr int TB = TS * 2;       // its bytes
-  static constexpr size_t DQ_BYTES =
-      static_cast<size_t>(2 * kTcQ + 2 * kTcK) * TB + kTcQ * 4;
+struct WgDims {
+  static constexpr uint32_t TILE = kWgRows * BfTile<D>::DP * 2;   // bytes
+  // + 1024: the kernels align the base to the swizzle's 1024-byte period
+  static constexpr size_t DQ_BYTES = (2 + 2 * kWgStages) * TILE + 1024;
+  static constexpr size_t P_BYTES = kWgRows * kWgRows * 4;         // P^T
+  static constexpr size_t LD_BYTES = 2 * kWgRows * 4;   // a stage's lse, delta
   static constexpr size_t DKV_BYTES =
-      static_cast<size_t>(2 * kTcKB + 2 * kTcQT) * TB + 2 * kTcQT * 4;
+      (2 + 2 * kWgStages) * TILE + P_BYTES + kWgStages * LD_BYTES + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// c (16 x 8) += a (16 x 16, row) * b (16 x 8, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-// (x, y) -> bf16 pairs hi = rn(x, y), lo = rn((x, y) - hi); x in the low
-// half (the lower column)
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = bf2_bits(h);
-  lo = bf2_bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+// 4 bytes global -> shared, or 4 zero bytes where !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
-// rows [p0, p0 + ROWS) of a (., D) bf16 view with row stride rs into a
-// (ROWS, TS) bf16 tile, 16 bytes a thread a step; rows at or past lim
-// are zero
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void stage_tc(bf16* dst, const bf16* g,
-                                         long long rs, int p0, int lim) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < ROWS * CH; c += NT) {
-    const int r = c / CH;
-    const int ch = c - r * CH;
-    const int p = p0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (p < lim) val = *reinterpret_cast<const uint4*>(g + p * rs + ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * TcDims<D>::TS + ch * 8) = val;
+// a 64 x 64 accumulator tile as the bf16 A operand of its four k16 steps,
+// each value rounded once: slice n (8 columns) is step n / 2's registers
+// 2 (n % 2) (row lane / 4) and 2 (n % 2) + 1 (row + 8)
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    a[n >> 1][(n & 1) * 2] = bits(__floats2bfloat162_rn(x[4 * n], x[4 * n + 1]));
+    a[n >> 1][(n & 1) * 2 + 1] =
+        bits(__floats2bfloat162_rn(x[4 * n + 2], x[4 * n + 3]));
   }
 }
 
-// acc[n] (16 x 8 n-tiles) += A (the warp's 16 rows at a_base) . B^T, B the
-// 8 * NT rows at b_base, both (rows, D) tiles in shared memory
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], uint32_t a_base,
-                                        uint32_t b_base) {
-  constexpr int TB = TcDims<D>::TB;
-  const int lane = threadIdx.x & 31;
-  const int i = lane >> 3;
-  const int r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, a_base + ((i & 1) * 8 + r) * TB + (kk * 16 + (i >> 1) * 8) * 2);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, b_base + (np * 16 + (i >> 1) * 8 + r) * TB +
-                     (kk * 16 + (i & 1) * 8) * 2);
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
+__device__ __forceinline__ bool pair_valid(int key, int row, int k_hi, int S,
+                                           int window) {
+  return key < k_hi && row < S && key <= row && row - key < window;
 }
 
-// A fragments (16 x 16 a k-step) of a C-layout tile, split into bf16 hi
-// and lo parts: tile n-tiles 2j and 2j + 1 are k-step j
-template <int NT>
-__device__ __forceinline__ void to_a_split(const float (&c)[NT][4],
-                                           uint32_t (&ah)[NT / 2][4],
-                                           uint32_t (&al)[NT / 2][4]) {
+// sum of the products of two 8-element bf16 vectors, in float32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    split2(c[2 * j][0], c[2 * j][1], ah[j][0], al[j][0]);
-    split2(c[2 * j][2], c[2 * j][3], ah[j][1], al[j][1]);
-    split2(c[2 * j + 1][0], c[2 * j + 1][1], ah[j][2], al[j][2]);
-    split2(c[2 * j + 1][2], c[2 * j + 1][3], ah[j][3], al[j][3]);
+  for (int j = 0; j < 4; ++j) {
+    const float2 fx = __bfloat1622float2(x[j]);
+    const float2 fy = __bfloat1622float2(y[j]);
+    acc = fmaf(fx.x, fy.x, acc);
+    acc = fmaf(fx.y, fy.y, acc);
   }
+  return acc;
 }
 
-// acc[n] (16 x NN n-tiles of 8 features from f0) += (ah + al) . B, B the
-// 16 * KS rows at b_base of a (rows, D) tile: features f0 ..
-template <int D, int KS, int NN>
-__device__ __forceinline__ void mma_av(float (&acc)[NN][4],
-                                       const uint32_t (&ah)[KS][4],
-                                       const uint32_t (&al)[KS][4],
-                                       uint32_t b_base, int f0) {
-  constexpr int TB = TcDims<D>::TB;
-  const int lane = threadIdx.x & 31;
-  const int i = lane >> 3;
-  const int r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int np = 0; np < NN / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, b_base + (ks * 16 + (i & 1) * 8 + r) * TB +
-                       (f0 + np * 16 + (i >> 1) * 8) * 2);
-      mma16816(acc[2 * np], ah[ks], b[0], b[1]);
-      mma16816(acc[2 * np], al[ks], b[0], b[1]);
-      mma16816(acc[2 * np + 1], ah[ks], b[2], b[3]);
-      mma16816(acc[2 * np + 1], al[ks], b[2], b[3]);
-    }
-  }
-}
-
-// out[(b, row, head), f0 + feature] = acc / scale for the warp's rows
-// row_a (C rows g) and row_a + 8; rows at or past S skipped
-template <int D, int NN>
-__device__ __forceinline__ void store_tc(const float (&acc)[NN][4], bf16* out,
-                                         int b, int S, int NH, int head,
-                                         int row_a, int f0, float scale) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row_a + 8 * half;
-    if (row >= S) continue;
-    bf16* dst = out + ((static_cast<long long>(b) * S + row) * NH + head) * D +
-                f0 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-          acc[n][2 * half] / scale, acc[n][2 * half + 1] / scale);
-    }
-  }
-}
-
-// dq on the tensor cores: a CTA per (64 query rows, b, h), warp w rows
-// 16w .. 16w + 15.  lse is written in base-2 units of the scaled score
-// (the dkv kernel below reads it so).
+// d (64 x 64) = A B^T over the D features: A and B 64-row tiles at a, b
 template <int D>
-__global__ void __launch_bounds__(128)
-dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__device__ __forceinline__ void tile_abt(float (&d)[32], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t off = (ks >> 2) * kBlk + (ks & 3) * 32;
+    wgmma_qk(d, gmma_desc(a + off), gmma_desc(b + off));
+  }
+}
+
+// acc (64 x D) += A B: A the four k16 steps in registers, B the 64-row
+// tile at b (rows the k axis)
+template <int NB>
+__device__ __forceinline__ void tile_ab(float (&acc)[NB][32],
+                                        const uint32_t (&a)[4][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      wgmma_pv(acc[n], a[ks], gmma_desc(b + n * kBlk + ks * 2048));
+    }
+  }
+}
+
+// out[(b, row, head)] = acc / scale for the thread's accumulator rows
+// row_a and row_a + 8, rows at or past S skipped
+template <int D>
+__device__ __forceinline__ void store_wg(const float (&acc)[BfTile<D>::NB][32],
+                                         bf16* out, int b, int S, int NH,
+                                         int head, int row_a, float scale) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    if (row >= S) continue;
+    bf16* op = out + ((static_cast<long long>(b) * S + row) * NH + head) * D;
+#pragma unroll
+    for (int n = 0; n < BfTile<D>::NB; ++n) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(op + 64 * n + 8 * j + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[n][4 * j + 2 * i] / scale,
+                                  acc[n][4 * j + 2 * i + 1] / scale);
+      }
+    }
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) fence_regs(acc[n]);
+}
+
+// dq: a CTA per (64 query rows, b, h), one warpgroup; the key tiles of
+// the band [q0 - window + 1, q0 + 63] through the ring
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ o,
              const bf16* __restrict__ dout, bf16* __restrict__ dq,
-             float* __restrict__ lse_out, float* __restrict__ delta_out,
+             const float* __restrict__ lse, float* __restrict__ delta_out,
              int S, int H, int G, int window, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh,
              long long vsb, long long vss, long long vsh, long long osb,
              long long oss, long long osh, long long gsb, long long gss,
              long long gsh) {
-  constexpr int TS = TcDims<D>::TS;
-  constexpr int TB = TcDims<D>::TB;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // (kTcQ, TS)
-  bf16* gs = qs + kTcQ * TS;                  // dO (kTcQ, TS)
-  bf16* ks = gs + kTcQ * TS;                  // (kTcK, TS)
-  bf16* vs = ks + kTcK * TS;                  // (kTcK, TS)
-  float* s_delta = reinterpret_cast<float*>(vs + kTcK * TS);   // (kTcQ,)
+  constexpr int NB = BfTile<D>::NB;
+  constexpr int STAGES = kWgStages;
+  constexpr uint32_t TILE = WgDims<D>::TILE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_q = (smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t s_g = s_q + TILE;                 // dO
+  const uint32_t s_kv = s_g + TILE;                // stage i: K, then V
 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int hk = h / G;
-  const int q0 = blockIdx.x * kTcQ;
+  const int q0 = blockIdx.x * kWgRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row_a = q0 + 16 * warp + g;
+  const int row_a = q0 + 16 * warp + (lane >> 2);
+  const int row_b = row_a + 8;
   const int k_lo = max(0, q0 - window + 1);
-  const int k_hi = min(S, q0 + kTcQ);
+  const int k_hi = min(S, q0 + kWgRows);
+  const int n_tiles = (k_hi - k_lo + kWgRows - 1) / kWgRows;
   const bf16* kb = k + b * ksb + hk * ksh;
   const bf16* vb = v + b * vsb + hk * vsh;
+  // p = 2^(s c - lse log2(e)) on raw scores s
   const float c = kLog2e / sqrtf(static_cast<float>(D));
 
-  stage_tc<D, kTcQ, 128>(qs, q + b * qsb + h * qsh, qss, q0, S);
-  stage_tc<D, kTcQ, 128>(gs, dout + b * gsb + h * gsh, gss, q0, S);
-  __syncthreads();
-  // delta of the warp's 16 rows, lanes over the features
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = 16 * warp + rr;
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < S) {
-      const bf16* orow = o + b * osb + row * oss + h * osh;
-      for (int d = lane; d < D; d += 32) {
-        acc = fmaf(__bfloat162float(gs[r * TS + d]), __bfloat162float(orow[d]),
-                   acc);
-      }
-    }
+  stage_bf16<D, kWgRows, 128>(s_q, q + b * qsb + h * qsh, qss, q0, S);
+  stage_bf16<D, kWgRows, 128>(s_g, dout + b * gsb + h * gsh, gss, q0, S);
+  cp_async_commit();
 #pragma unroll
-    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) s_delta[r] = acc;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) {
+      stage_bf16<D, kWgRows, 128>(s_kv + 2 * i * TILE, kb, kss,
+                                  k_lo + i * kWgRows, k_hi);
+      stage_bf16<D, kWgRows, 128>(s_kv + (2 * i + 1) * TILE, vb, vss,
+                                  k_lo + i * kWgRows, k_hi);
+    }
+    cp_async_commit();
   }
-  __syncwarp();
-  const float delta[2] = {s_delta[16 * warp + g], s_delta[16 * warp + g + 8]};
-
-  const uint32_t q_base = smem_u32(qs) + 16 * warp * TB;
-  const uint32_t g_base = smem_u32(gs) + 16 * warp * TB;
-  const uint32_t k_base = smem_u32(ks);
-  const uint32_t v_base = smem_u32(vs);
-
-  // pass 1: each row's max and sum (base 2, scaled scores)
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  for (int t0 = k_lo; t0 < k_hi; t0 += kTcK) {
-    __syncthreads();   // the K tile is free
-    stage_tc<D, kTcK, 128>(ks, kb, kss, t0, k_hi);
-    __syncthreads();
-    float s[4][4] = {};
-    mma_abt<D, 4>(s, q_base, k_base);
-    float mt[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t0 + 8 * n + 2 * t + (e & 1);
-        const int row = row_a + 8 * (e >> 1);
-        s[n][e] = key < k_hi && key_valid(key, row, S, window) ? s[n][e] * c
-                                                                : kNegInf;
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float m_new = fmaxf(m[i], mt[i]);
-      l[i] *= exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (s[n][e] > 0.5f * kNegInf) l[e >> 1] += exp2f(s[n][e] - m[e >> 1]);
-      }
-    }
-  }
-  float lse[2];
+  float lse2[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    lse[i] = m[i] + log2f(fmaxf(l[i], 1e-30f));
-    const int row = row_a + 8 * i;
-    if (t == 0 && row < S) {
-      const long long at = static_cast<long long>(bh) * S + row;
-      lse_out[at] = lse[i];
-      delta_out[at] = delta[i];
-    }
+    const int row = i ? row_b : row_a;
+    lse2[i] = row < S ? lse[static_cast<long long>(bh) * S + row] * kLog2e
+                      : 0.f;
   }
+  cp_async_wait<STAGES - 1>();   // Q and dO have landed
+  __syncthreads();
 
-  // pass 2: dS = P (dP - delta), dQ += dS K
-  float acc[D / 8][4] = {};
-  for (int t0 = k_lo; t0 < k_hi; t0 += kTcK) {
-    __syncthreads();   // the K/V tiles are free
-    stage_tc<D, kTcK, 128>(ks, kb, kss, t0, k_hi);
-    stage_tc<D, kTcK, 128>(vs, vb, vss, t0, k_hi);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mma_abt<D, 4>(s, q_base, k_base);
-    mma_abt<D, 4>(dp, g_base, v_base);
+  // delta of the warp's 16 rows (its accumulator rows), lanes over the
+  // rows' 16-byte chunks
+  float delta[2] = {0.f, 0.f};
+  {
+    const unsigned char* g_tile = smem + (s_g - smem_addr(smem));
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = 16 * warp + rr;
+      const int row = q0 + r;
+      float acc = 0.f;
+      if (row < S) {
+        const bf16* orow = o + b * osb + row * oss + h * osh;
+        for (int ch = lane; ch < D / 8; ch += 32) {
+          acc += dot8(*reinterpret_cast<const uint4*>(
+                          g_tile + BfTile<D>::template at<kWgRows>(r, ch)),
+                      *reinterpret_cast<const uint4*>(orow + ch * 8));
+        }
+      }
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t0 + 8 * n + 2 * t + (e & 1);
-        const int i = e >> 1;
-        const int row = row_a + 8 * i;
-        const float p = key < k_hi && key_valid(key, row, S, window)
-                            ? exp2f(fmaf(s[n][e], c, -lse[i]))
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - delta[i]);
+      for (int off = 16; off; off >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      }
+      if (rr == (lane >> 2)) delta[0] = acc;
+      if (rr == (lane >> 2) + 8) delta[1] = acc;
+      if (lane == 0 && row < S) {
+        delta_out[static_cast<long long>(bh) * S + row] = acc;
       }
     }
-    uint32_t ah[2][4], al[2][4];
-    to_a_split<4>(s, ah, al);
-    mma_av<D, 2, D / 8>(acc, ah, al, k_base, 0);
   }
-  store_tc<D, D / 8>(acc, dq, b, S, H, h, row_a, 0, sqrtf(static_cast<float>(D)));
+
+  float acc[NB][32];
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    {
+      const int nx = it + STAGES - 1;
+      if (nx < n_tiles) {
+        const int st = nx % STAGES;
+        stage_bf16<D, kWgRows, 128>(s_kv + 2 * st * TILE, kb, kss,
+                                    k_lo + nx * kWgRows, k_hi);
+        stage_bf16<D, kWgRows, 128>(s_kv + (2 * st + 1) * TILE, vb, vss,
+                                    k_lo + nx * kWgRows, k_hi);
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<STAGES - 1>();
+    fence_proxy_async();   // the copies are visible to wgmma's reads
+    __syncthreads();
+
+    const int t0 = k_lo + it * kWgRows;
+    const uint32_t s_k = s_kv + 2 * (it % STAGES) * TILE;
+    const uint32_t s_v = s_k + TILE;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wg_arrive();
+    tile_abt<D>(s, s_q, s_k);     // S = Q K^T
+    tile_abt<D>(dp, s_g, s_v);    // dP = dO V^T
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool full = t0 + kWgRows <= k_hi && t0 + kWgRows - 1 <= q0 &&
+                      q0 + kWgRows - 1 - t0 < window && q0 + kWgRows <= S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int sel = (i >> 1) & 1;
+      const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const bool ok =
+          full || pair_valid(key, sel ? row_b : row_a, k_hi, S, window);
+      const float p = ok ? ex2(fmaf(s[i], c, -lse2[sel])) : 0.f;
+      s[i] = p * (dp[i] - delta[sel]);   // dS
+    }
+    uint32_t a[4][4];
+    pack_a(s, a);
+    fence_acc(acc);
+    wg_arrive();
+    tile_ab(acc, a, s_k);         // dQ += dS K
+    wg_commit();
+    wg_wait0();
+    fence_acc(acc);
+    __syncthreads();              // the stage is free
+  }
+  cp_async_wait<0>();
+  store_wg<D>(acc, dq, b, S, H, h, row_a, sqrtf(static_cast<float>(D)));
 }
 
-// dk / dv on the tensor cores: a CTA per (64 keys, b, KV head), 8 warps:
-// warp w the keys 16 (w % 4) .. + 15 and the features of half w / 4 (the
-// scores of a key group are computed by both of its warps); the G query
-// heads and their 32-row query tiles in [j0, j0 + 64 + window - 1)
+// dk / dv: a CTA per (64 keys, b, KV head), warpgroup 0 the P^T side (dV),
+// warpgroup 1 the dS^T side (dK); the G query heads and their 64-row
+// query tiles in [k0, k0 + 64 + window - 1) through the ring
 template <int D>
-__global__ void __launch_bounds__(256)
-dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(256, 1)
+dkv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse_in,
-              const float* __restrict__ delta_in, bf16* __restrict__ dk,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, bf16* __restrict__ dk,
               bf16* __restrict__ dv, int S, int H, int Hk, int G, int window,
               long long qsb, long long qss, long long qsh, long long ksb,
               long long kss, long long ksh, long long vsb, long long vss,
               long long vsh, long long gsb, long long gss, long long gsh) {
-  constexpr int TS = TcDims<D>::TS;
-  constexpr int TB = TcDims<D>::TB;
-  constexpr int NN = D / 16;   // n-tiles of a feature half
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);   // (kTcKB, TS)
-  bf16* vs = ks + kTcKB * TS;                 // (kTcKB, TS)
-  bf16* qs = vs + kTcKB * TS;                 // (kTcQT, TS)
-  bf16* gs = qs + kTcQT * TS;                 // dO (kTcQT, TS)
-  float* s_lse = reinterpret_cast<float*>(gs + kTcQT * TS);   // (kTcQT,)
-  float* s_delta = s_lse + kTcQT;                             // (kTcQT,)
+  using W = WgDims<D>;
+  constexpr int NB = BfTile<D>::NB;
+  constexpr int STAGES = kWgStages;
+  constexpr uint32_t TILE = W::TILE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_addr(smem);
+  const uint32_t s_k = (s0 + 1023u) & ~1023u;
+  const uint32_t s_v = s_k + TILE;
+  const uint32_t s_qg = s_v + TILE;                // stage i: Q, then dO
+  const uint32_t s_p = s_qg + 2 * STAGES * TILE;   // P^T, (32, 128) floats
+  const uint32_t s_ld = s_p + W::P_BYTES;          // stage i: lse, delta
 
   const int bk = blockIdx.y;
   const int b = bk / Hk;
   const int hk = bk - b * Hk;
-  const int k0 = blockIdx.x * kTcKB;
-  const int warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * kWgRows;
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int kgrp = warp & 3;
-  const int f0 = (warp >> 2) * (D / 2);
-  const int key_a = k0 + 16 * kgrp + g;
-  const int q_hi = static_cast<int>(min(static_cast<long long>(S),
-                                        static_cast<long long>(k0) + kTcKB +
-                                            window - 1));
+  const int key_a = k0 + 16 * (tid >> 5) + (lane >> 2);
+  const int key_b = key_a + 8;
+  const int q_hi = static_cast<int>(min(
+      static_cast<long long>(S), static_cast<long long>(k0) + kWgRows + window - 1));
+  const int n_tiles = (q_hi - k0 + kWgRows - 1) / kWgRows;
+  const int total = G * n_tiles;
   const float c = kLog2e / sqrtf(static_cast<float>(D));
 
-  stage_tc<D, kTcKB, 256>(ks, k + b * ksb + hk * ksh, kss, k0, S);
-  stage_tc<D, kTcKB, 256>(vs, v + b * vsb + hk * vsh, vss, k0, S);
-  const uint32_t k_base = smem_u32(ks) + 16 * kgrp * TB;
-  const uint32_t v_base = smem_u32(vs) + 16 * kgrp * TB;
-  const uint32_t q_base = smem_u32(qs);
-  const uint32_t g_base = smem_u32(gs);
-
-  float acc_k[NN][4] = {}, acc_v[NN][4] = {};
-  for (int hh = 0; hh < G; ++hh) {
+  // the query tile of flat step j (head j / n_tiles) into stage st
+  auto stage_q = [&](int j, int st) {
+    const int hh = j / n_tiles;
+    const int t0 = k0 + (j - hh * n_tiles) * kWgRows;
     const int h = hk * G + hh;
-    const bf16* qb = q + b * qsb + h * qsh;
-    const bf16* gb = dout + b * gsb + h * gsh;
-    const float* lse_b = lse_in + (static_cast<long long>(b) * H + h) * S;
-    const float* delta_b = delta_in + (static_cast<long long>(b) * H + h) * S;
-    for (int t0 = k0; t0 < q_hi; t0 += kTcQT) {
-      __syncthreads();   // the Q/dO tiles are free
-      stage_tc<D, kTcQT, 256>(qs, qb, qss, t0, S);
-      stage_tc<D, kTcQT, 256>(gs, gb, gss, t0, S);
-      for (int r = threadIdx.x; r < kTcQT; r += 256) {
-        const bool in = t0 + r < S;
-        s_lse[r] = in ? lse_b[t0 + r] : 0.f;
-        s_delta[r] = in ? delta_b[t0 + r] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4] = {}, dp[4][4] = {};
-      mma_abt<D, 4>(s, k_base, q_base);    // S^T: keys x queries
-      mma_abt<D, 4>(dp, v_base, g_base);   // dP^T = V dO^T
+    stage_bf16<D, kWgRows, 256>(s_qg + 2 * st * TILE, q + b * qsb + h * qsh,
+                                qss, t0, S);
+    stage_bf16<D, kWgRows, 256>(s_qg + (2 * st + 1) * TILE,
+                                dout + b * gsb + h * gsh, gss, t0, S);
+    if (threadIdx.x < 2 * kWgRows) {
+      const int r = threadIdx.x & (kWgRows - 1);
+      const float* src = (threadIdx.x < kWgRows ? lse : delta) +
+                         (static_cast<long long>(b) * H + h) * S;
+      const bool ok = t0 + r < S;
+      cp_async4(s_ld + st * W::LD_BYTES + threadIdx.x * 4,
+                ok ? src + t0 + r : src, ok);
+    }
+  };
+
+  stage_bf16<D, kWgRows, 256>(s_k, k + b * ksb + hk * ksh, kss, k0, S);
+  stage_bf16<D, kWgRows, 256>(s_v, v + b * vsb + hk * vsh, vss, k0, S);
+  stage_q(0, 0);
+  cp_async_commit();
+
+  float acc[NB][32];   // warpgroup 0: dV; warpgroup 1: dK
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < NB; ++n) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qr = 8 * n + 2 * t + (e & 1);
-          const int key = key_a + 8 * (e >> 1);
-          const float p = key < S && key_valid(key, t0 + qr, S, window)
-                              ? exp2f(fmaf(s[n][e], c, -s_lse[qr]))
-                              : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - s_delta[qr]);
-        }
+    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+  }
+  float2* pt = reinterpret_cast<float2*>(smem + (s_p - s0)) + tid;
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) stage_q(it + 1, (it + 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    fence_proxy_async();   // the copies are visible to wgmma's reads
+    __syncthreads();
+
+    const int st = it % STAGES;
+    const int t0 = k0 + (it % n_tiles) * kWgRows;
+    const uint32_t s_qt = s_qg + 2 * st * TILE;
+    const uint32_t s_gt = s_qt + TILE;
+    const float* ld =
+        reinterpret_cast<const float*>(smem + (s_ld - s0) + st * W::LD_BYTES);
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    fence_regs(x);
+    wg_arrive();
+    // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T
+    tile_abt<D>(x, wg ? s_v : s_k, wg ? s_gt : s_qt);
+    wg_commit();
+    wg_wait0();
+    fence_regs(x);
+
+    if (wg == 0) {
+      const bool full = k0 + kWgRows <= S && t0 + kWgRows <= S &&
+                        t0 >= k0 + kWgRows - 1 &&
+                        t0 + kWgRows - 1 - k0 < window;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int key = (i & 2) ? key_b : key_a;
+        const bool ok = full || pair_valid(key, t0 + col, S, S, window);
+        x[i] = ok ? ex2(fmaf(x[i], c, -ld[col] * kLog2e)) : 0.f;   // P^T
       }
-      {
-        uint32_t hi[2][4], lo[2][4];
-        to_a_split<4>(s, hi, lo);
-        mma_av<D, 2, NN>(acc_v, hi, lo, g_base, f0);   // dV += P^T dO
-        to_a_split<4>(dp, hi, lo);
-        mma_av<D, 2, NN>(acc_k, hi, lo, q_base, f0);   // dK += dS^T Q
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pt[i * 128] = make_float2(x[2 * i], x[2 * i + 1]);
+      __threadfence_block();
+      asm volatile("bar.arrive 1, 256;\n" ::: "memory");   // P^T is written
+    } else {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float2 p = pt[i * 128];
+        const int col = 8 * (i >> 1) + 2 * (lane & 3);
+        x[2 * i] = p.x * (x[2 * i] - ld[kWgRows + col]);            // dS^T
+        x[2 * i + 1] = p.y * (x[2 * i + 1] - ld[kWgRows + col + 1]);
       }
     }
+    uint32_t a[4][4];
+    pack_a(x, a);
+    fence_acc(acc);
+    wg_arrive();
+    // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q
+    tile_ab(acc, a, wg ? s_qt : s_gt);
+    wg_commit();
+    wg_wait0();
+    fence_acc(acc);
+    __syncthreads();   // the stage and P^T are free
   }
-  store_tc<D, NN>(acc_v, dv, b, S, Hk, hk, key_a, f0, 1.f);
-  store_tc<D, NN>(acc_k, dk, b, S, Hk, hk, key_a, f0,
-                  sqrtf(static_cast<float>(D)));
+  cp_async_wait<0>();
+  store_wg<D>(acc, wg ? dk : dv, b, S, Hk, hk, key_a,
+              wg ? sqrtf(static_cast<float>(D)) : 1.f);
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, void* dq, void* dk, void* dv, float* lse,
+int launch_wg(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, void* dq, void* dk, void* dv, const float* lse,
               float* delta, int B, int S, int H, int Hk, int window,
               const long long* st, cudaStream_t stream) {
-  using Dm = TcDims<D>;
-  auto kq = dq_tc_kernel<D>;
-  auto kkv = dkv_tc_kernel<D>;
+  using W = WgDims<D>;
+  auto kq = dq_wg_kernel<D>;
+  auto kkv = dkv_wg_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Dm::DQ_BYTES));
+      static_cast<int>(W::DQ_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Dm::DKV_BYTES));
+                             static_cast<int>(W::DKV_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const bf16* tq = static_cast<const bf16*>(q);
   const bf16* tk = static_cast<const bf16*>(k);
   const bf16* tv = static_cast<const bf16*>(v);
   const bf16* tg = static_cast<const bf16*>(dout);
-  const dim3 grid_q((S + kTcQ - 1) / kTcQ, B * H);
-  kq<<<grid_q, 128, Dm::DQ_BYTES, stream>>>(
+  const int rows = (S + kWgRows - 1) / kWgRows;
+  kq<<<dim3(rows, B * H), 128, W::DQ_BYTES, stream>>>(
       tq, tk, tv, static_cast<const bf16*>(o), tg, static_cast<bf16*>(dq), lse,
       delta, S, H, H / Hk, window, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv((S + kTcKB - 1) / kTcKB, B * Hk);
-  kkv<<<grid_kv, 256, Dm::DKV_BYTES, stream>>>(
+  kkv<<<dim3(rows, B * Hk), 256, W::DKV_BYTES, stream>>>(
       tq, tk, tv, tg, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       S, H, Hk, H / Hk, window, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[12], st[13], st[14]);
@@ -945,7 +919,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* lse,
+           const void* dout, void* dq, void* dk, void* dv, const float* lse,
            float* delta, int B, int S, int H, int Hk, int window,
            const long long* st, cudaStream_t stream) {
   using Dm = Dims<D>;
@@ -987,14 +961,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 template <int D>
 int launch_d(bool bf, const void* q, const void* k, const void* v,
              const void* o, const void* dout, void* dq, void* dk, void* dv,
-             float* lse, float* delta, int B, int S, int H, int Hk,
+             const float* lse, float* delta, int B, int S, int H, int Hk,
              int window, const long long* st, cudaStream_t s) {
   if (!bf) {
     return launch<float, D>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H,
                             Hk, window, st, s);
   }
   if constexpr (D >= 64) {
-    return launch_tc<D>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, Hk,
+    return launch_wg<D>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H, Hk,
                         window, st, s);
   } else {
     return launch<bf16, D>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, H,
@@ -1006,12 +980,13 @@ int launch_d(bool bf, const void* q, const void* k, const void* v,
 
 // D in {8, 16, 32, 64, 128, 256} (others: cudaErrorInvalidValue, and the
 // wrapper refuses them first).  strides: element strides (batch, seq,
-// head) of q, k, v, o, then dout.  lse and delta: float32 (B, H, S)
-// workspaces the first kernel fills and the second reads.
+// head) of q, k, v, o, then dout.  lse: the forward's float32 (B, H, S)
+// log-sum-exp; delta: a float32 (B, H, S) workspace the first kernel
+// fills and the second reads.
 extern "C" int repro_local_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    int B, int S, int H, int Hk, int D, int window, int is_bf16,
+    const void* dout, void* dq, void* dk, void* dv, const void* lse,
+    void* delta, int B, int S, int H, int Hk, int D, int window, int is_bf16,
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, long long gsb, long long gss, long long gsh,
@@ -1020,7 +995,7 @@ extern "C" int repro_local_attention_bwd(
                             vsh, osb, oss, osh, gsb, gss, gsh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
-  float* l = static_cast<float*>(lse);
+  const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
 #define REPRO_BWD_CASE(DD)                                                   \
   case DD:                                                                   \

@@ -37,6 +37,15 @@ def tolerance(plain_out: torch.Tensor) -> float:
     return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
 
 
+def lse_tolerance(plain_lse: torch.Tensor) -> float:
+    """Largest |kernel - plain| the forward's log-sum-exp is held to: both
+    are float32 from the same float32 scores, summed in another order and
+    (bf16) exponentiated by the MUFU's 2^x, ~2^-22 relative, so 1e-5 of
+    the largest |lse|, and 1e-5 where that is below 1."""
+    top = float(plain_lse.abs().max()) if plain_lse.numel() else 0.0
+    return 1e-5 * max(1.0, top)
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: int) -> None:
     """Raise unless q (B, S, H, D) and k/v (B, S, Hk, D) share a device and
@@ -69,9 +78,12 @@ def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int) -> torch.Tensor:
+                    window: int, with_lse: bool = False):
     """q (B, S, H, D), k/v (B, S, Hk, D) on the card, float32 or bfloat16,
-    feature axis contiguous -> (B, S, H, D) contiguous, q's type."""
+    feature axis contiguous -> (B, S, H, D) contiguous, q's type.  With
+    ``with_lse`` also each row's log-sum-exp of its scaled scores, (B, H,
+    S) float32 (``ref.local_attention_lse``), as ``(out, lse)``: the
+    backward kernel's input.  The output is the same bits either way."""
     check_inputs(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -87,16 +99,19 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > 65535:
         raise ValueError(f"local_attention: B * H = {b * h} > 65535")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     q, k, v = (_rows_aligned(t) for t in (q, k, v))
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         build.launch("local_attention", "local_attn", "repro_local_attention",
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, s, h, k.shape[2], d, min(int(window), s),
+                     lse.data_ptr() if with_lse else None, b, s, h,
+                     k.shape[2], d, min(int(window), s),
                      int(q.dtype == torch.bfloat16), *strides, stream_of(q))
-    return out
+    return (out, lse) if with_lse else out
 
 
 def bwd_tolerance(plain_grads) -> tuple[float, ...]:
@@ -117,12 +132,14 @@ def bwd_tolerance(plain_grads) -> tuple[float, ...]:
 
 
 def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, window: int):
+                        out: torch.Tensor, dout: torch.Tensor, window: int,
+                        lse: torch.Tensor):
     """The gradients ``(dq, dk, dv)`` of ``local_attention(q, k, v,
-    window)`` whose output was ``out``, for the output gradient ``dout``:
-    q, out, dout (B, S, H, D) and k/v (B, S, Hk, D) on the card, one
-    type (float32 or bfloat16), feature axes contiguous.  Returns
-    contiguous tensors in that type."""
+    window)`` whose output was ``out`` and log-sum-exp ``lse`` (both from
+    ``local_attention(..., with_lse=True)``), for the output gradient
+    ``dout``: q, out, dout (B, S, H, D) and k/v (B, S, Hk, D) on the card,
+    one type (float32 or bfloat16), feature axes contiguous; lse (B, H, S)
+    float32 contiguous.  Returns contiguous tensors in that type."""
     check_inputs(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)):
@@ -141,6 +158,11 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}")
     b, s, h, d = q.shape
     hk = k.shape[2]
+    if (not lse.is_cuda or lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, h, s) or not lse.is_contiguous()):
+        raise ValueError(f"local_attention_bwd lse: expected a contiguous "
+                         f"float32 {(b, h, s)} tensor on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     if q.dtype not in DTYPES or d not in HEAD_DIMS:
         raise ValueError(f"local_attention_bwd: takes {DTYPES} and head dims "
                          f"{HEAD_DIMS}, got {q.dtype}, D = {d}")
@@ -151,9 +173,7 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk, dv
-    # each row's log-sum-exp and delta: written by the first kernel, read
-    # by the second
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # each row's delta: written by the first kernel, read by the second
     delta = torch.empty_like(lse)
     q, k, v, out, dout = (_rows_aligned(t) for t in (q, k, v, out, dout))
     strides = [st for t in (q, k, v, out, dout) for st in t.stride()[:3]]
@@ -169,21 +189,22 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class LocalAttention(torch.autograd.Function):
-    """``local_attention`` with a gradient: the forward kernel, unchanged,
-    and the backward kernel on what it saved (q, k, v and the output).
-    Card tensors only, as both kernels."""
+    """``local_attention`` with a gradient: the forward kernel, asked for
+    each row's log-sum-exp as well, and the backward kernel on what it
+    saved (q, k, v, the output and the lse).  Card tensors only, as both
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int):
-        out = local_attention(q, k, v, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = local_attention(q, k, v, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if dout.stride(3) != 1:
             dout = dout.contiguous()
-        dq, dk, dv = local_attention_bwd(q, k, v, out, dout, ctx.window)
+        dq, dk, dv = local_attention_bwd(q, k, v, out, dout, ctx.window, lse)
         return dq, dk, dv, None

@@ -195,13 +195,33 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
 
+def local_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int) -> torch.Tensor:
+    """Each query row's log-sum-exp of its masked, scaled scores, (B, H,
+    S) float32 in natural-log units: the ``lse`` that the forward kernel
+    writes beside its output, ``max + log(sum(exp(s - max)))`` over the
+    row's band (never empty: key j = i is in it).  ``v`` is not read."""
+    del v
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) / math.sqrt(d)
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    valid = ((qp - kp) < window) & (kp <= qp)
+    scores = scores.masked_fill(~valid, -1e30)
+    m = scores.amax(dim=-1)
+    return m + torch.log(torch.exp(scores - m[..., None]).sum(dim=-1))
+
+
 def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, window: int):
+                        out: torch.Tensor, dout: torch.Tensor, window: int,
+                        lse: torch.Tensor | None = None):
     """The gradients ``(dq, dk, dv)`` of ``local_attention`` for the output
     gradient ``dout``, by autograd through it, in the inputs' types.
-    ``out`` (the forward's output) is not read: autograd recomputes what
-    it needs."""
-    del out
+    ``out`` and ``lse`` (the forward's output and log-sum-exp, which the
+    kernel reads) are not read: autograd recomputes what it needs."""
+    del out, lse
     with torch.enable_grad():
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
         o = local_attention(qs, ks, vs, window)

@@ -830,6 +830,26 @@ def test_local_attention_kernel_matches_plain(gen, dtype, b, s, h, hk, d, w):
     assert err <= local_attn_kernel.tolerance(plain), err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,d,w", [
+    (1, 300, 4, 2, 256, 64), (2, 100, 2, 2, 16, 1024), (1, 40, 2, 2, 128, 1),
+    (3, 1, 2, 1, 32, 8), (1, 130, 2, 1, 256, 65), (2, 520, 4, 2, 256, 200)])
+def test_local_attention_kernel_lse_matches_plain(gen, dtype, b, s, h, hk, d,
+                                                  w):
+    """The forward asked for each row's log-sum-exp: the lse against the
+    plain ``ref.local_attention_lse`` within ``lse_tolerance``, and the
+    output the same bits as without it."""
+    q = torch.randn((b, s, h, d), generator=gen).to(dtype).cuda()
+    k = torch.randn((b, s, hk, d), generator=gen).to(dtype).cuda()
+    v = torch.randn((b, s, hk, d), generator=gen).to(dtype).cuda()
+    out, lse = local_attn_kernel.local_attention(q, k, v, w, with_lse=True)
+    assert torch.equal(out, local_attn_kernel.local_attention(q, k, v, w))
+    plain = ref.local_attention_lse(q, k, v, w)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    err = float((lse - plain).abs().max())
+    assert err <= local_attn_kernel.lse_tolerance(plain), err
+
+
 def test_local_attention_kernel_takes_strided_views(gen):
     """Heads sliced out of a wider projection: no copy, same result."""
     wide = torch.randn((2, 50, 6, 32), generator=gen).cuda()
@@ -872,17 +892,20 @@ def _bwd_inputs(gen, dtype, b, s, h, hk, d):
     (1, 160, 2, 1, 64, 31),      # windows one below, at and one above the
     (1, 160, 2, 1, 64, 32),      # 32-key tiles
     (1, 160, 2, 1, 64, 33),
+    (1, 130, 2, 1, 256, 63),     # windows one below, at and one above the
+    (1, 130, 2, 1, 256, 64),     # 64-key and 64-row tiles of the bf16
+    (1, 130, 2, 1, 256, 65),     # path, S past two of them
     (2, 520, 4, 2, 256, 200),    # G = 2 at D = 256 over many tiles
     (1, 300, 10, 1, 256, 100)])  # recurrentgemma's G = 10
 def test_local_attention_bwd_kernel_matches_plain(gen, dtype, b, s, h, hk, d,
                                                   w):
-    """The backward kernel's (dq, dk, dv) against autograd through the
-    plain version within ``bwd_tolerance``, and the same bits on a second
-    run (no atomics)."""
+    """The backward kernel's (dq, dk, dv), from the forward's output and
+    lse, against autograd through the plain version within
+    ``bwd_tolerance``, and the same bits on a second run (no atomics)."""
     q, k, v, dout = _bwd_inputs(gen, dtype, b, s, h, hk, d)
-    out = local_attn_kernel.local_attention(q, k, v, w)
-    got = local_attn_kernel.local_attention_bwd(q, k, v, out, dout, w)
-    again = local_attn_kernel.local_attention_bwd(q, k, v, out, dout, w)
+    out, lse = local_attn_kernel.local_attention(q, k, v, w, with_lse=True)
+    got = local_attn_kernel.local_attention_bwd(q, k, v, out, dout, w, lse)
+    again = local_attn_kernel.local_attention_bwd(q, k, v, out, dout, w, lse)
     plain = ref.local_attention_bwd(q, k, v, out, dout, w)
     tols = local_attn_kernel.bwd_tolerance(plain)
     for name, x, y, z, tol in zip(("dq", "dk", "dv"), got, plain, again, tols):
@@ -911,16 +934,23 @@ def test_local_attention_autograd_launches_both_kernels(gen):
     served = ops.launches()
     assert served["local_attention"] == after["local_attention"] + 1
     assert served["local_attention_bwd"] == after["local_attention_bwd"]
+    _, lse = local_attn_kernel.local_attention(
+        q.detach(), k.detach(), v.detach(), 9, with_lse=True)
     dq, dk, dv = local_attn_kernel.local_attention_bwd(
-        q.detach(), k.detach(), v.detach(), out.detach(), dout, 9)
+        q.detach(), k.detach(), v.detach(), out.detach(), dout, 9, lse)
     torch.testing.assert_close(grad, torch.cat([dq, dk, dv], dim=2),
                                rtol=0, atol=0)
     odd = torch.zeros((1, 8, 2, 48), device="cuda")
+    lse8 = torch.zeros((1, 2, 8), device="cuda")
     with pytest.raises(ValueError):                     # head dim 48
-        local_attn_kernel.local_attention_bwd(odd, odd, odd, odd, odd, 4)
+        local_attn_kernel.local_attention_bwd(odd, odd, odd, odd, odd, 4, lse8)
     x = torch.zeros((1, 8, 2, 32), device="cuda")
     with pytest.raises(ValueError):                     # types differ
-        local_attn_kernel.local_attention_bwd(x, x, x, x, x.bfloat16(), 4)
+        local_attn_kernel.local_attention_bwd(x, x, x, x, x.bfloat16(), 4,
+                                              lse8)
+    with pytest.raises(ValueError):                     # lse (B, S, H)
+        local_attn_kernel.local_attention_bwd(x, x, x, x, x, 4,
+                                              lse8.transpose(1, 2))
 
 
 def test_lm_on_card_matches_cpu(gen):

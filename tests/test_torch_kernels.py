@@ -1235,32 +1235,29 @@ def test_bf16_kernel_arithmetic_within_tolerance(s, w, h, hk, pallas_blocks):
         assert float((got.float() - pallas).abs().max()) <= tol
 
 
-def _emulate_bwd_kernel(q, k, v, o, dout, window):
+def _emulate_bwd_kernel(q, k, v, o, dout, window, lse):
     """The backward kernel's tile recurrence (``csrc/local_attn_bwd.cu``)
-    in float32: the dq kernel per 64 query rows (delta from the stored
-    output, a pass over the band's 32-key tiles for max and sum, a second
-    for P, dP, dS and dQ), then the dkv kernel over the G query heads and
-    their query tiles, from the first kernel's lse and delta, the heads
-    summed into one accumulator.  In bf16 at D >= 64 (the tensor-core
-    path) the dkv kernel takes 64 keys and 32-row query tiles, and P and
-    dS enter their products as bf16 hi + lo pairs; otherwise (CUDA
-    cores, float32 sums of float32 values) 32 keys and 64-row tiles."""
+    in float32, from the forward's ``lse`` (B, H, S): the dq kernel per 64
+    query rows (delta from the stored output, one walk over the band's key
+    tiles for P, dP, dS and dQ), then the dkv kernel over the G query
+    heads and their query tiles, from lse and the first kernel's delta,
+    the heads summed into one accumulator.  In bf16 at D >= 64 (the wgmma
+    path) every tile is 64 rows (64-key tiles in the dq kernel, 64 keys by
+    64-row query tiles in the dkv kernel) and P and dS enter their
+    products rounded once to bf16; otherwise (CUDA cores, float32 sums of
+    float32 values) 32-key tiles, and 32 keys by 64-row query tiles."""
     b, s, h, d = q.shape
     hk = k.shape[2]
     g = h // hk
-    tc = q.dtype == torch.bfloat16 and d >= 64
-    kb, qt = (64, 32) if tc else (32, 64)
+    wg = q.dtype == torch.bfloat16 and d >= 64
+    kt, kb, qt = (64, 64, 64) if wg else (32, 32, 64)
 
-    def split(x):
-        if not tc:
-            return x
-        hi = x.to(torch.bfloat16).float()
-        return hi + (x - hi).to(torch.bfloat16).float()
+    def operand(x):
+        return x.to(torch.bfloat16).float() if wg else x
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, dout))
     sq = math.sqrt(d)
     dq = torch.zeros_like(qf)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    lse = torch.zeros((b, h, s))
     delta = torch.zeros((b, h, s))
 
     def band(rows, keys):
@@ -1274,28 +1271,18 @@ def _emulate_bwd_kernel(q, k, v, o, dout, window):
                 rows = torch.arange(q0, min(q0 + 64, s))
                 qq, gg = qf[bi, rows, hi], gf[bi, rows, hi]
                 dl = (gg * of[bi, rows, hi]).sum(-1)
+                lrow = lse[bi, hi, rows]
                 k_lo, k_hi = max(0, q0 - window + 1), min(s, q0 + 64)
-                tiles = [torch.arange(t0, min(t0 + 32, k_hi))
-                         for t0 in range(k_lo, k_hi, 32)]
-                m = torch.full((len(rows),), -1e30)
-                ll = torch.zeros(len(rows))
-                for keys in tiles:
-                    ok = band(rows, keys)
-                    sc = torch.where(ok, qq @ kf[bi, keys, kh].T / sq, -1e30)
-                    m_new = torch.maximum(m, sc.amax(-1))
-                    ll = ll * torch.exp(m - m_new) + torch.where(
-                        ok, torch.exp(sc - m_new[:, None]), 0.0).sum(-1)
-                    m = m_new
-                lrow = m + torch.log(ll)
                 acc = torch.zeros((len(rows), d))
-                for keys in tiles:
+                for t0 in range(k_lo, k_hi, kt):
+                    keys = torch.arange(t0, min(t0 + kt, k_hi))
                     ok = band(rows, keys)
                     kk, vv = kf[bi, keys, kh], vf[bi, keys, kh]
                     p = torch.where(ok, torch.exp(qq @ kk.T / sq - lrow[:, None]),
                                     0.0)
-                    acc += split(p * (gg @ vv.T - dl[:, None])) @ kk
+                    acc += operand(p * (gg @ vv.T - dl[:, None])) @ kk
                 dq[bi, rows, hi] = acc / sq
-                lse[bi, hi, rows], delta[bi, hi, rows] = lrow, dl
+                delta[bi, hi, rows] = dl
     for bi in range(b):
         for kh in range(hk):
             for k0 in range(0, s, kb):
@@ -1312,8 +1299,8 @@ def _emulate_bwd_kernel(q, k, v, o, dout, window):
                         pt = torch.where(ok, torch.exp(
                             kk @ qq.T / sq - lse[bi, hi, rows][None, :]), 0.0)
                         dst = pt * (vv @ gg.T - delta[bi, hi, rows][None, :])
-                        acc_v += split(pt) @ gg
-                        acc_k += split(dst) @ qq
+                        acc_v += operand(pt) @ gg
+                        acc_k += operand(dst) @ qq
                 dk[bi, keys, kh], dv[bi, keys, kh] = acc_k / sq, acc_v
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -1324,21 +1311,41 @@ def _emulate_bwd_kernel(q, k, v, o, dout, window):
     (150, 1000, 2, 1, 16),   # window >= S
     (130, 1, 2, 2, 64),      # window 1, S past the 64-row tiles
     (96, 33, 2, 1, 256),     # gemma3's head dim, window one above a tile
+    (96, 65, 2, 1, 256),     # one key past a 64-key tile
     (160, 70, 10, 1, 128)])  # recurrentgemma's G = 10, three key blocks
 def test_bwd_kernel_arithmetic_within_tolerance(dtype, s, w, h, hk, d):
-    """The backward kernel's arithmetic, emulated tile by tile on the CPU,
-    against autograd through the plain version (``ref.local_attention_bwd``)
-    within ``local_attn_kernel.bwd_tolerance``: 1e-5 of each gradient's
-    own largest magnitude, and in bfloat16 at least one bf16 ulp there."""
+    """The backward kernel's arithmetic, emulated tile by tile on the CPU
+    from the plain forward's output and lse, against autograd through the
+    plain version (``ref.local_attention_bwd``) within
+    ``local_attn_kernel.bwd_tolerance``: 1e-5 of each gradient's own
+    largest magnitude, and in bfloat16 at least one bf16 ulp there."""
     q, k, v = (torch.from_numpy(x).to(dtype)
                for x in _attn_inputs(2, s, h, hk, d, seed=s + w))
     dout = torch.from_numpy(np.random.default_rng(w).standard_normal(
         (2, s, h, d)).astype(np.float32)).to(dtype)
     out = ref.local_attention(q, k, v, w)
-    got = _emulate_bwd_kernel(q, k, v, out, dout, w)
-    plain = ref.local_attention_bwd(q, k, v, out, dout, w)
+    lse = ref.local_attention_lse(q, k, v, w)
+    got = _emulate_bwd_kernel(q, k, v, out, dout, w, lse)
+    plain = ref.local_attention_bwd(q, k, v, out, dout, w, lse)
     tols = local_attn_kernel.bwd_tolerance(plain)
     for name, x, y, tol in zip(("dq", "dk", "dv"), got, plain, tols):
         assert x.dtype == dtype and x.shape == y.shape, name
         err = float((x.float() - y.float()).abs().max())
         assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("s,w,h,hk,d", [(45, 16, 2, 1, 16), (130, 65, 4, 2, 64),
+                                        (33, 1, 2, 2, 32), (20, 64, 2, 1, 8)])
+def test_local_attention_lse_matches_logsumexp(s, w, h, hk, d):
+    """The plain lse (the forward kernel's second output, the backward's
+    input) against ``torch.logsumexp`` of the masked, scaled scores, the
+    masked keys at -inf, at atol 1e-5 (float32 on both sides)."""
+    q, k, v = map(torch.from_numpy, _attn_inputs(2, s, h, hk, d, seed=s + w))
+    got = ref.local_attention_lse(q, k, v, w)
+    kf = k.repeat_interleave(h // hk, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf) / math.sqrt(d)
+    i = torch.arange(s)
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w)
+    want = torch.logsumexp(scores.masked_fill(~band, float("-inf")), dim=-1)
+    assert got.dtype == torch.float32 and got.shape == (2, h, s)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
