@@ -292,7 +292,24 @@ JSON line per phase:
              recurrentgemma-2b's shape (the families phase's layer 2);
              local_attention_bwd at train-full's second step's inputs
              beside autograd through the plain version and SDPA's
-             backward with the band mask.
+             backward with the band mask;
+16. dryrun - the production layout and dry run (``launch/dryrun.py``),
+             run after the timing phase, so that its CPU work shares
+             the host with no measured phase, in a process of its own
+             that sees no card (meta tensors, a fake process group): (a) run_cell for llama3-405b train_4k and decode_32k
+             and gemma3-12b long_500k on pod16x16, mamba2-370m
+             decode_32k on pod2x16x16 and qwen3-moe-235b-a22b train_4k:
+             per-device argument and temp GB, the three roofline terms on
+             the H100's constants and the bottleneck; every cell but the
+             MoE one (its routing is a queue-3 fault) must be ok, and
+             llama3-405b train_4k's argument bytes must be 12 bytes a
+             parameter shard (float32 parameters, two moments), the batch
+             shard and the step counter, within 0.5% of 12 x
+             param_count() / 256 (the norm scales are replicated); (b)
+             the model-FLOP share of one H100 of train-full's and
+             lm-prefill's measured step times (no run again), beside the
+             FLOPs FlopCounterMode counts of the same programs on meta
+             tensors (``useful_ratio``) and the predicted shares.
 
 Then the ``kernels`` line (launch counts per phase, the launches made to
 hold a kernel against its plain version left out; every kernel must
@@ -422,6 +439,18 @@ BWD_CASES = (("gemma3_s2048", 2, 2048, 16, 8, 256, 1024),
              ("gemma3_s2048_w65", 2, 2048, 16, 8, 256, 65))
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
+# the dryrun phase's cells: (arch, shape, multi_pod); all but the MoE cell
+# must be ok
+DRYRUN_CELLS = (("llama3-405b", "train_4k", False),
+                ("llama3-405b", "decode_32k", False),
+                ("gemma3-12b", "long_500k", False),
+                ("mamba2-370m", "decode_32k", True),
+                ("qwen3-moe-235b-a22b", "train_4k", False))
+DRYRUN_UNGATED = {"qwen3-moe-235b-a22b"}
+DRYRUN_TIMEOUT_S = 300         # the dry-run process's time limit
+# predicted model-FLOP shares of one H100 (point, low, high)
+MFU_PREDICTED = {"train_full": (0.18, 0.15, 0.21),
+                 "lm_prefill": (0.33, 0.28, 0.38)}
 # kernels whose own device time the timing phase reports beside the event
 # interval (torch.profiler, ``trace_cold``)
 TRACED = ("hash64", "stencil_keys", "round_sig", "l1_probe")
@@ -3888,7 +3917,8 @@ def _profile(fn, top: int = 12) -> dict:
 
 
 def _lm_prefill_and_serve(cfg, calls):
-    """(b) lm-prefill and (e) lm-serve on the full-depth bf16 model."""
+    """(b) lm-prefill and (e) lm-serve on the full-depth bf16 model;
+    returns the second (uncaptured) prefill's seconds."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3981,6 +4011,7 @@ def _lm_prefill_and_serve(cfg, calls):
          greedy_equal=bool(torch.equal(first, greedy_sample(ref, cfg))),
          profile_one_step=prof,
          tokens=torch.cat([first[:, None], new], dim=1).tolist())
+    return warm_s
 
 
 def _lm_decode(cfg):
@@ -4064,8 +4095,8 @@ def phase_lm(errs, tols):
     version; then the main path, between a reset and a read of the launch
     counts: (b) lm-prefill and (e) lm-serve at full depth in bf16, (c)
     lm-decode and (d) lm-parity; then the kernel against its plain
-    version on the prefill's own layer inputs.  Returns the launches and
-    the inputs the timing phase uses."""
+    version on the prefill's own layer inputs.  Returns the launches, the
+    inputs the timing phase uses and lm-prefill's seconds."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4076,7 +4107,7 @@ def phase_lm(errs, tols):
     calls: list = []
     torch.cuda.synchronize()
     ops.reset_launches()
-    _lm_prefill_and_serve(cfg, calls)
+    prefill_s = _lm_prefill_and_serve(cfg, calls)
     torch.cuda.empty_cache()
     _lm_decode(cfg)
     torch.cuda.empty_cache()
@@ -4087,7 +4118,7 @@ def phase_lm(errs, tols):
         _attn_vs_plain(label, args, cases, errs, tols)
     emit("lm_kernel_parity", cases=cases)
     emit("lm", launches=launches)
-    return launches, calls
+    return launches, calls, prefill_s
 
 
 # ---------------------------------------------------------------------------
@@ -5652,8 +5683,9 @@ def phase_train(errs, tols):
     gradients; (b) train-full between a reset and a read of the launch
     counts, which are the phase's; then (c) train-parity, (d) restart and
     (e) the compressed reduce with their launches counted apart.  Returns
-    the launches and train-full's backward-kernel inputs for the timing
-    phase."""
+    the launches, train-full's backward-kernel inputs for the timing
+    phase and the median of its unprofiled steps after the first, in
+    seconds."""
     import torch
 
     from repro_torch.kernels import ops
@@ -5687,7 +5719,7 @@ def phase_train(errs, tols):
           f"{restart['loss_last']}", flush=True)
     emit("train", launches=launches, seconds=time.perf_counter() - t0)
     _release()
-    return launches, calls
+    return launches, calls, statistics.median(full["step_s"][1:] or full["step_s"])
 
 
 def sdpa_bwd_call(args):
@@ -5889,7 +5921,209 @@ def phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls, fcalls,
     return out
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the production layout and the dry run (CPU work, no card)
+# ---------------------------------------------------------------------------
+
+def _train_full_config():
+    from repro_torch.configs import get_config
+
+    full = get_config(TRAIN_ARCH)
+    return dataclasses.replace(full, n_layers=TRAIN_LAYERS,
+                               block_pattern=full.block_pattern[:TRAIN_LAYERS])
+
+
+def _counted_flops() -> dict:
+    """The FLOPs FlopCounterMode counts of train-full's step and
+    lm-prefill's call, the programs the train and lm phases time, run
+    through the same entry points on meta tensors (the local layers count
+    as their plain version: full S x S scores, masked)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, prefill
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_state, make_train_step
+
+    def zeros(b, s):
+        return torch.zeros((b, s), dtype=torch.int32, device="meta")
+
+    cfg = _train_full_config()
+    lm, state = make_train_state(cfg, torch.Generator(), device="meta")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=1,
+                                            total_steps=100))
+    with FlopCounterMode(display=False) as fc:
+        step(lm, state, {"tokens": zeros(TRAIN_BATCH, TRAIN_SEQ),
+                         "labels": zeros(TRAIN_BATCH, TRAIN_SEQ)})
+    out = {"train_full": fc.get_total_flops()}
+    lm = init_lm(get_config(LM_ARCH), generator=torch.Generator(),
+                 device="meta")
+    with FlopCounterMode(display=False) as fc:
+        prefill(lm, {"tokens": zeros(LM_BATCH, LM_PREFILL)})
+    out["lm_prefill"] = fc.get_total_flops()
+    return out
+
+
+def _train_args_expected(arch: str, shape: str) -> dict:
+    """What a train cell's arguments must hold on rank 0: 12 bytes a
+    parameter shard (float32 parameter, mu, nu), the batch shard and the
+    int32 step counter; and the same with every parameter split 256 ways
+    (12 x param_count() / 256), which the replicated norm scales exceed."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.launch.shardings import (batch_placements, local_shape,
+                                              params_placements)
+    from repro_torch.models import init_lm
+
+    cfg = get_config(arch)
+    with fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        lm = init_lm(cfg, generator=torch.Generator(), device="meta")
+        pl = params_placements(lm, mesh)
+        n_local = sum(math.prod(local_shape(p.shape, pl[n], mesh))
+                      for n, p in lm.named_parameters())
+        specs = input_specs(cfg, shape)
+        bpl = batch_placements(specs, mesh)
+        batch = sum(math.prod(local_shape(x.shape, bpl[k], mesh))
+                    * x.element_size() for k, x in specs.items())
+    return {"exact": 12 * n_local + batch + 4,
+            "even": 12 * cfg.param_count() / 256 + batch + 4,
+            "batch": batch}
+
+
+def dryrun_worker(path: Path) -> int:
+    """The dryrun phase's CPU work, in a process that sees no card: each
+    cell's record, the train cell's expected argument bytes and the
+    counted FLOPs, one JSON line each, to ``path``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)
+    from repro_torch.launch.dryrun import run_cell
+
+    with open(path, "w") as f:
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            cell = run_cell(arch, shape, multi_pod, verbose=False)
+            cell.pop("probes", None)
+            f.write(json.dumps({"cell": cell}) + "\n")
+            f.flush()
+        f.write(json.dumps({"expected": _train_args_expected(
+            "llama3-405b", "train_4k")}) + "\n")
+        f.write(json.dumps({"counted": _counted_flops()}) + "\n")
+    return 0
+
+
+def dryrun_lines() -> list[dict]:
+    """``chip_smoke.py --dryrun-worker`` run to its end in a process of
+    its own with no card visible; its lines (raises if it failed or
+    outran ``DRYRUN_TIMEOUT_S``, and is killed then)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "dryrun.jsonl"
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--dryrun-worker", str(path)], env=env,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError("dryrun: the dry-run process did not end in "
+                               f"{DRYRUN_TIMEOUT_S} s") from None
+        check(proc.returncode == 0, f"dryrun: the dry-run process exited "
+                                    f"{proc.returncode}: {proc.stderr[-3000:]}")
+        return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def phase_dryrun(measured: dict) -> None:
+    """(a) the dry-run cells with their roofline on the H100's constants;
+    (b) the model-FLOP shares of the measured train-full and lm-prefill
+    times (``measured``: seconds), beside the counted FLOPs."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline.analysis import PEAK_FLOPS, analyze, model_flops_for
+
+    t0 = time.perf_counter()
+    lines = dryrun_lines()
+    worker_s = time.perf_counter() - t0
+    expected = next(x["expected"] for x in lines if "expected" in x)
+    counted = next(x["counted"] for x in lines if "counted" in x)
+    for cell in (x["cell"] for x in lines if "cell" in x):
+        name = f"{cell['arch']} {cell['shape']} {cell['mesh']}"
+        if not cell["ok"]:
+            check(cell["arch"] in DRYRUN_UNGATED,
+                  f"dryrun: {name} failed: {cell.get('error')}")
+            emit("dryrun_cell", arch=cell["arch"], shape=cell["shape"],
+                 mesh=cell["mesh"], ok=False, error=cell["error"][:600])
+            print(f"dryrun {name}: not ok (a queue-3 fault): "
+                  f"{cell['error'][:200]}", flush=True)
+            continue
+        roof = analyze(cell, cell["chips"], cell["model_flops"])
+        mem = cell["memory"]
+        row = {"arch": cell["arch"], "shape": cell["shape"],
+               "mesh": cell["mesh"], "ok": True, "chips": cell["chips"],
+               "argument_gb": mem["argument_bytes"] / 1e9,
+               "temp_gb": mem["temp_bytes"] / 1e9,
+               "output_gb": mem["output_bytes"] / 1e9,
+               "t_compute_s": roof.t_compute, "t_memory_s": roof.t_memory,
+               "t_collective_s": roof.t_collective,
+               "bottleneck": roof.bottleneck,
+               "useful_ratio": roof.useful_ratio, "mfu_bound": roof.mfu,
+               "flops_per_device": cell["cost_per_device"]["flops"],
+               "bytes_accessed_per_device":
+                   cell["cost_per_device"]["bytes accessed"],
+               "collective_bytes_per_device":
+                   cell["collective_bytes_per_device"],
+               "collective_counts": cell["collective_counts"],
+               "run_s": cell["run_s"]}
+        if (cell["arch"], cell["shape"]) == ("llama3-405b", "train_4k"):
+            got = mem["argument_bytes"]
+            check(got == expected["exact"],
+                  f"dryrun: {name} argument bytes {got}, expected "
+                  f"{expected['exact']}")
+            gap = got / expected["even"] - 1
+            check(abs(gap) <= 0.005, f"dryrun: {name} argument bytes {got} "
+                                     f"are {gap:.4f} off 12 x N / 256")
+            row.update(argument_bytes_expected=expected,
+                       argument_gap_to_even_split=gap)
+        emit("dryrun_cell", **row)
+        print(f"dryrun {name}: {row['argument_gb']:.2f} GB arguments, "
+              f"{row['temp_gb']:.2f} GB temp a device; compute "
+              f"{roof.t_compute:.4g} s, memory {roof.t_memory:.4g} s, "
+              f"collective {roof.t_collective:.4g} s: {roof.bottleneck}",
+              flush=True)
+    progs = {"train_full": (_train_full_config(), "train", TRAIN_SEQ,
+                            TRAIN_BATCH),
+             "lm_prefill": (get_config(LM_ARCH), "prefill", LM_PREFILL,
+                            LM_BATCH)}
+    for prog, (cfg, kind, seq, batch) in progs.items():
+        mf = model_flops_for(cfg, kind, seq, batch)
+        secs = measured[prog]
+        share = mf / secs / PEAK_FLOPS
+        point, low, high = MFU_PREDICTED[prog]
+        emit("dryrun_mfu", program=prog, arch=cfg.name, layers=cfg.n_layers,
+             tokens=seq * batch, model_flops=mf, step_s=secs,
+             model_flops_per_s=mf / secs, peak_flops=PEAK_FLOPS,
+             mfu=share, predicted=point, predicted_range=[low, high],
+             within_prediction=low <= share <= high,
+             counted_flops=counted[prog], useful_ratio=mf / counted[prog])
+        print(f"mfu {prog}: {mf / 1e12:.2f} TFLOP in {secs:.4f} s = "
+              f"{mf / secs / 1e12:.1f} TFLOP/s, {share:.3f} of "
+              f"{PEAK_FLOPS / 1e12} (predicted {point}, {low}-{high}); "
+              f"counted {counted[prog] / 1e12:.2f} TFLOP, useful_ratio "
+              f"{mf / counted[prog]:.3f}", flush=True)
+    emit("dryrun", worker_s=worker_s)
+
+
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--dryrun-worker"]:
+        return dryrun_worker(Path(argv[1]))
     try:
         import torch
     except ImportError:
@@ -5936,13 +6170,14 @@ def main(argv: list[str]) -> int:
     launches["sharded"] = phase_sharded(errs)
     launches["substrate"] = phase_substrate(cfg_big, errs)
     tols: dict[str, float] = {}        # the bit-exact kernels: 0
-    launches["lm"], acalls = phase_lm(errs, tols)
+    launches["lm"], acalls, prefill_s = phase_lm(errs, tols)
     launches["serve"] = phase_serve(errs)
     launches["moe"] = phase_moe(errs)
     launches["families"], fcalls = phase_families(errs, tols)
-    launches["train"], tcalls = phase_train(errs, tols)
+    launches["train"], tcalls, train_s = phase_train(errs, tols)
     timing = phase_timing(wcalls, rcalls, kcalls, icalls, lcalls, acalls,
                           fcalls, tcalls)
+    phase_dryrun({"train_full": train_s, "lm_prefill": prefill_s})
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

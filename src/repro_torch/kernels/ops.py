@@ -8,6 +8,7 @@ counts (incremented only where a kernel is launched, ``build.launch``).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import (
     apply_kernel,
@@ -26,6 +27,8 @@ from . import (
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     cuda = [t.is_cuda for t in tensors]
+    if any(cuda) and any(isinstance(t, DTensor) for t in tensors):
+        raise ValueError("the kernels take plain tensors, not DTensors")
     if all(cuda):
         return True
     if any(cuda):

@@ -16,14 +16,17 @@ masked path up to ``DIRECT_ATTN_MAX_SEQ`` queries and raises above it
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops
+from . import act_sharding
 from . import config as C
-from .flash import _mask_tile, chunked_attention
+from .flash import _mask_tile, chunked_attention, chunked_heads
 from .layers import apply_rope, dense, init_dense, init_norm, norm
 
 DIRECT_ATTN_MAX_SEQ = 2048  # above this, use the chunked flash path
@@ -37,6 +40,14 @@ def _theta(cfg, kind):
 
 def _attend(cfg, q, k, v, mask):
     """q: (B,S,H,D); k,v: (B,L,Hk,D); mask: (B or 1, S, L) -> (B,S,H*D)."""
+    if isinstance(q, DTensor):
+        return act_sharding.attention(functools.partial(_attend_heads, cfg),
+                                      q, k, v, mask)
+    return _attend_heads(cfg, q, k, v, mask).flatten(2)
+
+
+def _attend_heads(cfg, q, k, v, mask):
+    """``_attend`` before its heads are flattened: (B,S,H,D)."""
     b, s, h, d = q.shape
     hk = k.shape[2]
     g = h // hk
@@ -49,7 +60,7 @@ def _attend(cfg, q, k, v, mask):
     scores = scores + mask[:, None, None, :, :]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgsl,blkd->bskgd", probs, v)
-    return out.reshape(b, s, h * d)
+    return out.reshape(b, s, h, d)
 
 
 class Attention(nn.Module):
@@ -120,8 +131,14 @@ class Attention(nn.Module):
                 raise NotImplementedError(
                     "local attention is ported for causal layers without a "
                     "logit softcap (ROADMAP queue 1, item 15)")
-            out = ops.local_attention(q, k, v, window=cfg.local_window)
-            out = out.reshape(b, s, h * d)
+            if isinstance(q, DTensor):
+                out = act_sharding.local_attention(
+                    functools.partial(ops.local_attention, window=window),
+                    functools.partial(chunked_heads, causal=True, window=window),
+                    q, k, v, positions, positions)
+            else:
+                out = ops.local_attention(q, k, v, window=window)
+                out = out.reshape(b, s, h * d)
         elif s > DIRECT_ATTN_MAX_SEQ:
             if window is not None:
                 raise NotImplementedError(
@@ -133,7 +150,7 @@ class Attention(nn.Module):
         else:
             mask = _mask_tile(positions, k_pos, cfg.causal, window)
             out = _attend(cfg, q, k_all, v_all, mask)
-        out = out @ self.wo.to(x.dtype)
+        out = dense(self.wo, out)
         return (out, (k, v)) if collect_kv else out
 
     def decode(self, cache: dict, x: torch.Tensor, t: int) -> torch.Tensor:
@@ -150,7 +167,7 @@ class Attention(nn.Module):
         window = self.cfg.local_window if self.kind == C.ATTN_LOCAL else None
         mask = _mask_tile(pos, cache["slot_pos"][None, :], True, window)
         out = _attend(self.cfg, q, cache["k"], cache["v"], mask)
-        return out @ self.wo.to(x.dtype)
+        return dense(self.wo, out)
 
 
 def init_kv_cache(cfg, kind, batch, max_len, dtype=torch.bfloat16, *,

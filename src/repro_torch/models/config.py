@@ -93,6 +93,15 @@ class ModelConfig:
     def has_decode(self) -> bool:
         return self.causal
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no *global* full-attention layer (long_500k eligible) or
+        the global layers are a bounded fraction with linear decode."""
+        kinds = set(self.block_pattern)
+        return kinds <= {SSD, RGLRU, ATTN_LOCAL} or (
+            ATTN in kinds and kinds & {SSD, RGLRU, ATTN_LOCAL} != set()
+        )
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""
         e, v = self.d_model, self.padded_vocab
@@ -131,3 +140,16 @@ class ModelConfig:
             rec = 2 * e * w + w * self.conv_width + 2 * w * w + 2 * w + w * e
             return rec + mlp + norms
         raise ValueError(kind)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts) -- the N in
+        MODEL_FLOPS = 6*N_active*D."""
+        if not any(k == MOE for k in self.block_pattern):
+            return self.param_count()
+        e = self.d_model
+        mlp_mult = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+        ff = self.d_ff_expert or self.d_ff
+        per_tok_moe = (self.experts_per_token + self.n_shared_experts) * mlp_mult * e * ff
+        all_moe = self.n_experts * mlp_mult * e * ff + self.n_shared_experts * mlp_mult * e * ff
+        n_moe = sum(1 for k in self.block_pattern if k == MOE)
+        return self.param_count() - n_moe * (all_moe - per_tok_moe - e * self.n_experts)

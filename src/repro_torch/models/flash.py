@@ -11,11 +11,15 @@ type (bfloat16 on the card's bf16 path).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from . import act_sharding
 
 NEG_INF = -1e30
 
@@ -68,6 +72,17 @@ def chunked_attention(
     kv_chunk: int = 1024,
 ) -> torch.Tensor:
     """Returns (B, S, H*D)."""
+    fn = functools.partial(chunked_heads, causal=causal, window=window,
+                           softcap=softcap, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if isinstance(q, DTensor):
+        return act_sharding.attention(fn, q, k, v, q_pos, k_pos)
+    return fn(q, k, v, q_pos, k_pos).flatten(2)
+
+
+def chunked_heads(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                  window: Optional[int] = None, softcap: Optional[float] = None,
+                  q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """``chunked_attention`` before its heads are flattened: (B, S, H, D)."""
     b, s, h, d = q.shape
     lk, hk = k.shape[1], k.shape[2]
     g = h // hk
@@ -98,11 +113,15 @@ def chunked_attention(
     for qi in range(nq):
         qc = q[:, qi * q_chunk:(qi + 1) * q_chunk].reshape(b, q_chunk, hk, g, d)
         qpc = q_pos[:, qi * q_chunk:(qi + 1) * q_chunk]
+        # made like the chunk (B,Hk,G,Cq,D), so that DTensor chunks split
+        # their carry as they are split
+        like = qc.permute(0, 2, 3, 1, 4)
         carry = (
-            torch.full((b, hk, g, q_chunk), NEG_INF, dtype=torch.float32,
-                       device=q.device),
-            torch.zeros((b, hk, g, q_chunk), dtype=torch.float32, device=q.device),
-            torch.zeros((b, hk, g, q_chunk, d), dtype=q.dtype, device=q.device),
+            torch.full_like(like[..., 0], NEG_INF, dtype=torch.float32,
+                            memory_format=torch.contiguous_format),
+            torch.zeros_like(like[..., 0], dtype=torch.float32,
+                             memory_format=torch.contiguous_format),
+            torch.zeros_like(like, memory_format=torch.contiguous_format),
         )
         if banded:
             q_end = (qi + 1) * q_chunk
@@ -116,7 +135,7 @@ def chunked_attention(
             carry = _online_update(carry, sc, v[:, lo:hi])
         _m, lq, accq = carry
         out = accq / torch.clamp(lq, min=1e-30)[..., None].to(accq.dtype)
-        # (B,Hk,G,Cq,D) -> (B,Cq,H*D)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h * d))
+        # (B,Hk,G,Cq,D) -> (B,Cq,H,D)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d))
     # dropping query padding
     return torch.cat(outs, dim=1)[:, :s_orig]

@@ -15,6 +15,9 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from . import act_sharding
 
 Params = Mapping[str, torch.Tensor]
 
@@ -78,6 +81,8 @@ def causal_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def dense(w: torch.Tensor, x: torch.Tensor,
           b: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ W (+ b)``, W: (in, *out), contracting the last axis of x."""
+    if isinstance(w, DTensor) or isinstance(x, DTensor):
+        return act_sharding.dense(w, x, b)
     w = w.to(x.dtype)
     y = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
     if b is not None:
@@ -155,6 +160,8 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
 def embed(table: torch.Tensor, ids: torch.Tensor, scale: bool = False) -> torch.Tensor:
     """Rows of the float32 table, times sqrt(d_model) when ``scale``
     (before any cast to the working type, as the reference does)."""
+    if isinstance(table, DTensor):
+        return act_sharding.embed(table, ids, scale)
     y = table[ids]
     if scale:
         y = y * math.sqrt(table.shape[-1])
@@ -163,4 +170,6 @@ def embed(table: torch.Tensor, ids: torch.Tensor, scale: bool = False) -> torch.
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``x @ table.T`` in x's type: (..., E) -> (..., V)."""
+    if isinstance(x, DTensor):
+        return act_sharding.unembed(table, x)
     return x @ table.to(x.dtype).T

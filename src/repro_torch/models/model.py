@@ -24,9 +24,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..core.layout import resolve_device
+from . import act_sharding
 from .config import ModelConfig
 from .layers import embed, init_norm, norm, unembed
 from .stack import Stack, init_stack_cache
@@ -135,6 +138,8 @@ def loss_fn(lm: LM, batch, *, n_valid=None):
     x, aux = lm.stack.forward_aux(x, positions)
     x = norm(lm.final_norm, x, cfg.norm_kind)
     logits = unembed(lm.embed if cfg.tie_embeddings else lm.head, x)
+    if isinstance(logits, DTensor):
+        logits = act_sharding.reduce_partial(logits)
     logits = logits.to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
@@ -142,8 +147,11 @@ def loss_fn(lm: LM, batch, *, n_valid=None):
     labels = batch["labels"].to(x.device)
     valid = labels != IGNORE
     safe = torch.clamp(labels, min=0).to(torch.int64)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    # log_softmax then the label's entry, as one call: its backward writes
+    # the gradient in place, where gather's would scatter into zeros of the
+    # whole (B, S, V) (of its global shape on DTensor logits)
+    nll = F.cross_entropy(logits.flatten(0, 1), safe.flatten(0, 1),
+                          reduction="none").reshape(safe.shape)
     n = torch.clamp(valid.sum(), min=1) if n_valid is None else n_valid
     loss = torch.where(valid, nll, 0.0).sum() / n
     metrics = {"loss": loss.detach(), "aux_loss": aux.detach(), "tokens": n}
@@ -172,6 +180,8 @@ def greedy_sample(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -math.inf)
+    if isinstance(logits, DTensor):
+        return act_sharding.argmax(logits).to(torch.int32)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 

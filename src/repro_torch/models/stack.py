@@ -14,6 +14,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .act_sharding import hint_decode, hint_residual
 from .blocks import Block, init_block_cache
 
 
@@ -35,8 +36,12 @@ class Stack(nn.Module):
             Block(cfg, kind, gen, device) for kind in cfg.block_pattern)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        for layer in self.layers:
+        p, n_full, _tail = find_period(self.cfg.block_pattern)
+        x = hint_residual(x)
+        for i, layer in enumerate(self.layers):
             x = layer(x, positions)
+            if (i + 1) % p == 0 and i < n_full * p:
+                x = hint_residual(x)
         return x
 
     def forward_aux(self, x: torch.Tensor, positions: torch.Tensor):
@@ -55,17 +60,25 @@ class Stack(nn.Module):
                 a = a + la
             return x, a
 
+        def hinted(x, layers):
+            x, a = group(x, layers)
+            return hint_residual(x), a
+
+        x = hint_residual(x)
         for i in range(n_full):
             layers = self.layers[i * p:(i + 1) * p]
-            x, a = checkpoint(group, x, layers, use_reentrant=False,
+            x, a = checkpoint(hinted, x, layers, use_reentrant=False,
                               preserve_rng_state=False)
             aux = aux + a
         x, a = group(x, self.layers[n_full * p:])
         return x, aux + a
 
     def decode(self, cache: list, x: torch.Tensor, t: int) -> torch.Tensor:
-        for layer, c in zip(self.layers, cache):
+        p, n_full, _tail = find_period(self.cfg.block_pattern)
+        for i, (layer, c) in enumerate(zip(self.layers, cache)):
             x = layer.decode(c, x, t)
+            if (i + 1) % p == 0 and i < n_full * p:
+                x = hint_decode(x)
         return x
 
 

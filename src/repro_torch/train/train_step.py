@@ -13,8 +13,12 @@ reference's float32-parameter step.  Norm scales, the embedding table,
 the router, ``A_log``, ``D``, ``dt_bias`` and ``lam`` are float32 and are
 updated in place.
 
-Not ported: ``grad_shardings`` and ``donate`` tell XLA how to lay out and
-reuse buffers, which eager PyTorch has no use for.  Added: ``group``, a
+``grad_placements`` is the reference's ``grad_shardings`` for a model
+whose parameters are DTensors (``launch.shardings.distribute_lm``): each
+gradient is redistributed to its parameter's placements before it is
+summed and applied, so a partial sum over the data axes lands as a
+reduce-scatter into the parameter's shard.  Not ported: ``donate`` tells
+XLA to reuse buffers; the eager step updates in place.  Added: ``group``, a
 ``torch.distributed`` group for data parallelism; each rank takes its
 share of the batch, the loss is normalised by the group's count of valid
 labels, and the gradients are averaged over the group (in float32)
@@ -26,6 +30,7 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..convert import lm_param_paths
 from ..core.layout import resolve_device
@@ -72,8 +77,18 @@ def _micro(batch: dict, accum: int, device) -> list[dict]:
              for k, v in out.items()} for i in range(accum)]
 
 
+def _to_placements(grads: tuple, names: list[str], grad_placements) -> tuple:
+    """Each DTensor gradient redistributed to ``grad_placements[name]``."""
+    if grad_placements is None:
+        return grads
+    return tuple(g.redistribute(g.device_mesh, grad_placements[n])
+                 if isinstance(g, DTensor) else g
+                 for n, g in zip(names, grads))
+
+
 def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig, *,
-                    accum: int = 1, cast_bf16: bool = False, group=None):
+                    accum: int = 1, cast_bf16: bool = False, group=None,
+                    grad_placements=None):
     """Returns ``step(lm, opt_state, batch) -> (lm, opt_state, metrics)``.
 
     ``batch`` arrays (``tokens``, ``labels``; ``frontend_embeds`` with a
@@ -83,8 +98,10 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     ``accum``, as the reference's scan does; each period group is
     rematerialised in the backward.  ``cast_bf16``: every float32
     parameter is cast to bfloat16 before use (the reference's flag).
-    ``metrics``: ``loss`` (the objective, aux loss included; the group's
-    mean), ``grad_norm`` and ``lr``, tensors on the device."""
+    ``grad_placements`` ({parameter name: DTensor placements}): each
+    gradient of a DTensor parameter is redistributed to them as it is
+    computed.  ``metrics``: ``loss`` (the objective, aux loss included;
+    the group's mean), ``grad_norm`` and ``lr``, tensors on the device."""
 
     def step(lm, opt_state, batch):
         params = dict(lm.named_parameters())
@@ -104,6 +121,7 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             with cast:
                 loss, _m = loss_fn(lm, mb, n_valid=n_valid)
                 g = torch.autograd.grad(loss, [params[n] for n in names])
+            g = _to_placements(g, names, grad_placements)
             loss = loss.detach()
             if accum == 1 and group is None:
                 grads = dict(zip(names, g))

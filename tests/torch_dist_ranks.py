@@ -630,13 +630,88 @@ def group_creduce(rank: int, out: _Out) -> None:
     out["wire_dtype"] = np.asarray(seen[0])
 
 
+DTENSOR_ARCH = "starcoder2-3b"
+DTENSOR_SEED = 6
+DTENSOR_WORLD = 4
+DTENSOR_MESH = (2, 2)           # (data, model)
+
+
+def dtensor_batch(vocab: int, seed: int = 13) -> dict:
+    """4 rows x 16 tokens and their labels, 3 of them IGNORE."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, vocab, size=(4, 16)).astype(np.int32)
+    labels[1, :3] = -1
+    return {"tokens": rng.integers(0, vocab, size=(4, 16)).astype(np.int32),
+            "labels": labels}
+
+
+def group_dtensor(rank: int, out: _Out) -> None:
+    """The reduced starcoder2-3b (float32) on a (data=2, model=2) mesh by
+    the production rules (``launch.shardings``): this rank's shard of
+    every parameter, the forward's logits and one train step's loss with
+    ``grad_placements``, and the parameters after it, gathered.  Run
+    twice: with no activation hint, and (keys under ``hinted/``) with the
+    sequence-parallel residual hint the dry run installs (batch over
+    ``data``, sequence over ``model``)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.shardings import (
+        batch_placements,
+        distribute_lm,
+        distribute_tree,
+        opt_state_placements,
+        placements,
+    )
+    from repro_torch.models import forward, init_lm
+    from repro_torch.models.act_sharding import set_activation_spec
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    cfg = reduced(get_config(DTENSOR_ARCH))
+    mesh = init_device_mesh("cpu", DTENSOR_MESH,
+                            mesh_dim_names=("data", "model"))
+    hint = (mesh, placements((dp_axes(mesh), "model", None), mesh))
+    for prefix, spec in (("", None), ("hinted/", hint)):
+        set_activation_spec(spec)
+        try:
+            lm = init_lm(cfg, device="cpu", generator=torch.Generator(
+                ).manual_seed(DTENSOR_SEED))
+            lm.requires_grad_(True)
+            p_pl = distribute_lm(lm, mesh)
+            if not prefix:
+                for n, p in lm.named_parameters():
+                    out[f"shard/{n}"] = p.to_local().detach().numpy().copy()
+            batch = {k: torch.from_numpy(v)
+                     for k, v in dtensor_batch(cfg.vocab_size).items()}
+            batch = distribute_tree(batch, mesh, batch_placements(batch, mesh))
+            with implicit_replication():
+                logits = forward(lm, {"tokens": batch["tokens"]})
+            out[f"{prefix}logits"] = logits.full_tensor().numpy()
+            state = init_opt_state(dict(lm.named_parameters()))
+            state = distribute_tree(state, mesh,
+                                    opt_state_placements(state, p_pl, mesh))
+            step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                                   grad_placements=p_pl)
+            with implicit_replication():
+                lm, state, m = step(lm, state, batch)
+            out[f"{prefix}loss"] = np.asarray(float(m["loss"].full_tensor()))
+            for n, p in lm.named_parameters():
+                out[f"{prefix}param/{n}"] = p.full_tensor().detach().numpy()
+        finally:
+            set_activation_spec(None)
+
+
 GROUPS = {"modes": group_modes, "tier": group_tier,
           "elastic": group_elastic}
 # ranks a group runs on (WORLD unless named)
-GROUP_WORLD = {"elastic": ELASTIC_WORLD}
+GROUP_WORLD = {"elastic": ELASTIC_WORLD, "dtensor": DTENSOR_WORLD}
 # groups run by other test files than tests/test_torch_distributed.py
 OTHER_GROUPS = {"faults": group_faults, "train": group_train,
-                "creduce": group_creduce}
+                "creduce": group_creduce, "dtensor": group_dtensor}
 
 
 def main(argv) -> int:
