@@ -407,6 +407,8 @@ MOE_ARCH = "qwen3-moe-235b-a22b"   # moe-full: the published widths, bf16
 MOE_LAYERS = 4                 # of 94 (94 are 470 GB of bf16 weights)
 SCOUT_ARCH = "llama4-scout-17b-a16e"
 SCOUT_LAYERS = 2               # of 48
+MOE_EP_REPS = 5                # moe-ep: plain and expert-parallel in turns
+MOE_EP_TOL = 2.0 ** -7         # moe-ep: y's max abs error over its scale
 FAM_BATCH = 2                  # prompts of the families phase
 FAM_PREFILL = 4096             # prefill tokens a prompt (mamba2, recurrentgemma)
 FAM_DECODE = 64                # greedy tokens after it
@@ -439,14 +441,13 @@ BWD_CASES = (("gemma3_s2048", 2, 2048, 16, 8, 256, 1024),
              ("gemma3_s2048_w65", 2, 2048, 16, 8, 256, 65))
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TIMING_REPS = 20
-# the dryrun phase's cells: (arch, shape, multi_pod); all but the MoE cell
-# must be ok
+# the dryrun phase's cells: (arch, shape, multi_pod); each must be ok
 DRYRUN_CELLS = (("llama3-405b", "train_4k", False),
                 ("llama3-405b", "decode_32k", False),
                 ("gemma3-12b", "long_500k", False),
                 ("mamba2-370m", "decode_32k", True),
-                ("qwen3-moe-235b-a22b", "train_4k", False))
-DRYRUN_UNGATED = {"qwen3-moe-235b-a22b"}
+                ("qwen3-moe-235b-a22b", "train_4k", False),
+                ("llama4-scout-17b-a16e", "decode_32k", False))
 DRYRUN_TIMEOUT_S = 300         # the dry-run process's time limit
 # predicted model-FLOP shares of one H100 (point, low, high)
 MFU_PREDICTED = {"train_full": (0.18, 0.15, 0.21),
@@ -4813,6 +4814,101 @@ def _moe_parity() -> dict:
     return {"rtol": 1e-4, "atol": 1e-4, "archs": out}
 
 
+def _moe_ep() -> dict:
+    """(d) moe-ep: the expert-parallel layer (``models/moe_ep.py``, the
+    dry run's MoE layer) on a (1, 1) CUDA mesh at NCCL world 1, against
+    the plain layer on the card: qwen3-moe-235b-a22b's published widths,
+    one layer from moe-full's seed, bf16, on moe-full's batch 1 (2 x 4096
+    tokens embedded and normed as the layer's input).  The routing (each
+    token-choice's expert, bin position and kept flag) and the drop count
+    equal; y within MOE_EP_TOL of its scale (the twin sums a token's k
+    contributions in float32 and rounds once, the plain layer's bmm sums
+    them in its own order and rounds once).  Both timed in turns with
+    CUDA events.  At world 1 the mesh's collectives move nothing: this
+    says the path runs on the card, nothing of its speed across GPUs."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.shardings import distribute_lm, placements
+    from repro_torch.models import init_lm, moe, moe_ep
+    from repro_torch.models.layers import embed, norm
+
+    cfg = _moe_config(MOE_ARCH, 1)
+    lm = init_lm(cfg, generator=torch.Generator(device=DEVICE).manual_seed(1),
+                 device=DEVICE)
+    block = lm.stack.layers[0]
+    b1, _b2 = serve_batches(cfg.vocab_size)
+    with torch.no_grad():
+        x = norm(block.ln2, embed(lm.embed, torch.from_numpy(b1).to(DEVICE),
+                                  scale=cfg.emb_scale).to(torch.bfloat16),
+                 cfg.norm_kind)
+    routes: dict = {}
+
+    def spying(name, mod):
+        orig = mod.route
+
+        def spy(*args, **kw):
+            routes[name] = orig(*args, **kw)
+            return routes[name]
+        return orig, spy
+
+    names = ("router", "wi", "wg", "wo")
+    _sharded_group()
+    try:
+        mesh = init_device_mesh(torch.device(DEVICE).type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        backend = str(dist.get_backend())
+        distribute_lm(lm, mesh)
+        xd = distribute_tensor(x, mesh, placements((("data",), "model", None),
+                                                   mesh))
+        local = {n: {"w": block.moe[n]["w"].to_local()} for n in names}
+        runs = {"plain": lambda: moe.moe_forward(local, cfg, x),
+                "ep": lambda: moe.moe_forward(block.moe, cfg, xd)}
+        out, ms = {}, {k: [] for k in runs}
+        for _rep in range(MOE_EP_REPS):
+            for name, fn in runs.items():
+                mod = moe if name == "plain" else moe_ep
+                orig, spy = spying(name, mod)
+                mod.route = spy
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                try:
+                    with torch.no_grad():
+                        start.record()
+                        out[name] = fn()
+                        end.record()
+                finally:
+                    mod.route = orig
+                torch.cuda.synchronize()
+                ms[name].append(start.elapsed_time(end))
+    finally:
+        dist.destroy_process_group()
+    (y, stats), (yd, dstats) = out["plain"], out["ep"]
+    yd = yd.to_local()
+    same = {k: torch.equal(a, b) for k, a, b in zip(
+        ("idx_k", "pos", "kept"), routes["plain"][2:], routes["ep"][2:])}
+    dropped = (int(stats["dropped"]), int(dstats["dropped"].to_local()))
+    err = float((yd.float() - y.float()).abs().max())
+    scale = float(y.float().abs().max())
+    aux = (float(stats["aux_loss"]), float(dstats["aux_loss"].to_local()))
+    check(all(same.values()) and dropped[0] == dropped[1],
+          f"moe-ep: routing {same}, dropped {dropped}")
+    check(bool(torch.isfinite(yd).all()) and err <= MOE_EP_TOL * scale,
+          f"moe-ep: y off the plain layer's by {err} at a scale of {scale}")
+    check(abs(aux[0] - aux[1]) <= 1e-6 * max(1.0, abs(aux[0])),
+          f"moe-ep: aux_loss {aux}")
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    return {"arch": cfg.name, "layers": 1,
+            "tokens": int(x.shape[0] * x.shape[1]), "mesh": [1, 1],
+            "backend": backend, "world": 1, "routing_equal": same,
+            "dropped": dropped[0],
+            "token_choices": int(routes["plain"][4].numel()),
+            "y_max_abs_err": err, "y_scale": scale, "tolerance": MOE_EP_TOL,
+            "aux_loss": aux, "ms": ms, "median_ms": med}
+
+
 def _release():
     """Collect reference cycles and return the cache's blocks, so that a
     freed model's memory goes before the next is built."""
@@ -4827,7 +4923,8 @@ def _release():
 def phase_moe(errs):
     """MoE stacks through the prefix-cache engine: (a) moe-full, whose
     launches are the phase's; (b) moe-scout and (c) moe-parity, their
-    launches counted apart."""
+    launches counted apart; (d) moe-ep, the expert-parallel layer, which
+    launches no kernel of the table."""
     import torch
 
     from repro_torch.kernels import ops
@@ -4844,9 +4941,18 @@ def phase_moe(errs):
     parity = _moe_parity()
     torch.cuda.synchronize()
     apart = ops.launches()
+    _release()
+    ep = _moe_ep()
     emit("moe_full", **full)
     emit("moe_scout", **scout)
     emit("moe_parity", **parity, launches_scout_and_parity=apart)
+    emit("moe_ep", **ep)
+    print(f"moe-ep (one layer, NCCL world 1, {nvidia_smi()}): plain "
+          f"{ep['median_ms']['plain']:.3f} ms, expert-parallel "
+          f"{ep['median_ms']['ep']:.3f} ms (medians of {MOE_EP_REPS}); "
+          f"routing equal, {ep['dropped']} of {ep['token_choices']} "
+          f"token-choices dropped; y max abs err {ep['y_max_abs_err']} at a "
+          f"scale of {ep['y_scale']}", flush=True)
     for name, t in full["times"].items():
         print(f"moe {name}: generate {t['generate_s']} s, prefill "
               f"{t['prefill_s']} s, decode {t['decode_s']} s "
@@ -6056,14 +6162,7 @@ def phase_dryrun(measured: dict) -> None:
     counted = next(x["counted"] for x in lines if "counted" in x)
     for cell in (x["cell"] for x in lines if "cell" in x):
         name = f"{cell['arch']} {cell['shape']} {cell['mesh']}"
-        if not cell["ok"]:
-            check(cell["arch"] in DRYRUN_UNGATED,
-                  f"dryrun: {name} failed: {cell.get('error')}")
-            emit("dryrun_cell", arch=cell["arch"], shape=cell["shape"],
-                 mesh=cell["mesh"], ok=False, error=cell["error"][:600])
-            print(f"dryrun {name}: not ok (a queue-3 fault): "
-                  f"{cell['error'][:200]}", flush=True)
-            continue
+        check(cell["ok"], f"dryrun: {name} failed: {cell.get('error')}")
         roof = analyze(cell, cell["chips"], cell["model_flops"])
         mem = cell["memory"]
         row = {"arch": cell["arch"], "shape": cell["shape"],

@@ -1,11 +1,12 @@
 """Grouped-query attention with RoPE, local windows and QK-norm, and a
 ring-buffer KV cache for decode: the port of ``repro/models/attention.py``.
 
-Every ``attn_local`` layer's full-sequence attention is the local-attention
-kernel (``kernels/ops.local_attention``: the hand-written CUDA kernel on
-the card, its plain version on the CPU).  ``attn`` layers attend directly
-up to ``DIRECT_ATTN_MAX_SEQ`` positions and through ``chunked_attention``
-above, in plain torch, as in the reference.  Decode attends over the ring
+A causal ``attn_local`` layer without a logit softcap attends through
+the local-attention kernel (``kernels/ops.local_attention``: the
+hand-written CUDA kernel on the card, its plain version on the CPU).
+Every other layer attends directly up to ``DIRECT_ATTN_MAX_SEQ``
+positions and through ``chunked_attention`` above (banded for a local
+layer), in plain torch, as in the reference.  Decode attends over the ring
 buffer in plain torch; the cache is updated in place.
 
 A prompt prefix whose K/V the prefix cache already holds (``kv_prefix``)
@@ -126,11 +127,10 @@ class Attention(nn.Module):
             k_all = torch.cat([pk.to(k.dtype), k], dim=1)
             v_all = torch.cat([pv.to(v.dtype), v], dim=1)
             k_pos = torch.cat([p_pos.to(positions.dtype), positions], dim=1)
-        if self.kind == C.ATTN_LOCAL and kv_prefix is None:
-            if not cfg.causal or cfg.logit_softcap:
-                raise NotImplementedError(
-                    "local attention is ported for causal layers without a "
-                    "logit softcap (ROADMAP queue 1, item 15)")
+        # the kernel takes causal local layers without a softcap; any other
+        # local layer goes the reference's way, masked or chunked by length
+        if (self.kind == C.ATTN_LOCAL and kv_prefix is None and cfg.causal
+                and not cfg.logit_softcap):
             if isinstance(q, DTensor):
                 out = act_sharding.local_attention(
                     functools.partial(ops.local_attention, window=window),
@@ -140,13 +140,14 @@ class Attention(nn.Module):
                 out = ops.local_attention(q, k, v, window=window)
                 out = out.reshape(b, s, h * d)
         elif s > DIRECT_ATTN_MAX_SEQ:
-            if window is not None:
+            if window is not None and kv_prefix is not None:
                 raise NotImplementedError(
                     "a local layer with a KV prefix above DIRECT_ATTN_MAX_SEQ "
                     "queries: the reference's banded branch misses prefix "
                     "keys there (F11 in ROADMAP.md)")
             out = chunked_attention(q, k_all, v_all, positions, k_pos,
-                                    causal=cfg.causal, softcap=cfg.logit_softcap)
+                                    causal=cfg.causal, window=window,
+                                    softcap=cfg.logit_softcap)
         else:
             mask = _mask_tile(positions, k_pos, cfg.causal, window)
             out = _attend(cfg, q, k_all, v_all, mask)

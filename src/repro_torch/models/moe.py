@@ -11,7 +11,9 @@ which gives the same ranks.
 
 The expert products are three batched matmuls over every expert's
 weights, as the reference computes them outside any Pallas kernel: a
-decode step reads all of them.
+decode step reads all of them.  On DTensor shards of a mesh the layer is
+``moe_ep.moe_forward``, which shares ``route`` and ``experts`` with this
+one.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..core.routing import stable_rank_by_group
 from .layers import ParamTree, init_dense, init_mlp, mlp, weight
@@ -55,39 +58,79 @@ def _pick_groups(t: int, want: int) -> int:
     return max(g, 1)
 
 
+def _capacity(cfg, sg: int) -> int:
+    """Slots of each (group, expert) bin for groups of ``sg`` tokens."""
+    k, nx = cfg.experts_per_token, cfg.n_experts
+    return max(8, int(math.ceil(sg * k / nx * cfg.expert_capacity_factor)))
+
+
+def route(router_w: torch.Tensor, cfg, xt: torch.Tensor, cap: int):
+    """The routing of tokens in groups, xt (g, sg, E): ``(gate_all (g, sg,
+    X) float32, gate_k (g, sg, k) renormalised, idx_k (g, sg, k), pos (g,
+    sg*k) int32, kept (g, sg*k))``.  Experts by ``lax.top_k``'s order
+    (the largest gate first, on ties the lower expert); ``pos`` is each
+    token-choice's rank in its (group, expert) bin, stable in token-major
+    then choice order, and ``kept`` is ``pos < cap``."""
+    g, sg, _e = xt.shape
+    k, nx = cfg.experts_per_token, cfg.n_experts
+    logits = torch.einsum("gse,ex->gsx", xt.to(torch.float32),
+                          router_w.to(torch.float32))
+    gate_all = torch.softmax(logits, dim=-1)
+    gate_s, idx_s = torch.sort(gate_all, dim=-1, descending=True, stable=True)
+    gate_k, idx_k = gate_s[..., :k], idx_s[..., :k]               # (g, sg, k)
+    gate_k = gate_k / torch.clamp(gate_k.sum(-1, keepdim=True), min=1e-9)
+    # positions within each (group, expert) bin from one sort
+    dest = idx_k.reshape(g, sg * k)
+    group = torch.arange(g, device=xt.device)[:, None]
+    pos = stable_rank_by_group((group * nx + dest).reshape(-1),
+                               n_groups=g * nx).reshape(g, sg * k)
+    return gate_all, gate_k, idx_k, pos, pos < cap
+
+
+def experts(cfg, buf: torch.Tensor, wi, wg, wo) -> torch.Tensor:
+    """The expert FFN on the capacity slots, buf (g, X', cap, E) against
+    weights of X' experts -> (g, X', cap, E), by ``cfg.mlp_kind``."""
+    dt = buf.dtype
+    hi = torch.einsum("gxce,xef->gxcf", buf, wi.to(dt))
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        hg = torch.einsum("gxce,xef->gxcf", buf, wg.to(dt))
+        hg = (F.silu(hg) if cfg.mlp_kind == "swiglu"
+              else F.gelu(hg, approximate="tanh"))
+        hi = hg * hi
+    else:
+        hi = F.gelu(hi, approximate="tanh")
+    return torch.einsum("gxcf,xfe->gxce", hi, wo.to(dt))
+
+
 def moe_forward(params, cfg, x: torch.Tensor, *, n_groups: int = 32):
     """x: (B, S, E) -> ``(y (B, S, E), {"aux_loss", "dropped"})``.
     ``params`` is the module ``init_moe`` builds or a dict of the same
     layout.  Tokens dropped past capacity contribute 0 (the residual
-    passes them through); the stats stay on the device."""
+    passes them through); the stats stay on the device.  A DTensor ``x``
+    goes to the expert-parallel twin (``moe_ep.moe_forward``)."""
+    if isinstance(x, DTensor):
+        from .moe_ep import moe_forward as moe_forward_ep
+
+        return moe_forward_ep(params, cfg, x, n_groups=n_groups)
     b, s, e = x.shape
     t = b * s
     k = cfg.experts_per_token
     nx = cfg.n_experts
     g = _pick_groups(t, n_groups)
     sg = t // g
-    cap = max(8, int(math.ceil(sg * k / nx * cfg.expert_capacity_factor)))
+    cap = _capacity(cfg, sg)
     dev = x.device
 
     xt = x.reshape(g, sg, e)
-    logits = torch.einsum("gse,ex->gsx", xt.to(torch.float32),
-                          params["router"]["w"].to(torch.float32))
-    gate_all = torch.softmax(logits, dim=-1)
-    # lax.top_k's order: the largest first, on ties the lower expert
-    gate_s, idx_s = torch.sort(gate_all, dim=-1, descending=True, stable=True)
-    gate_k, idx_k = gate_s[..., :k], idx_s[..., :k]               # (g, sg, k)
-    gate_k = gate_k / torch.clamp(gate_k.sum(-1, keepdim=True), min=1e-9)
+    gate_all, gate_k, idx_k, pos, kept = route(params["router"]["w"], cfg,
+                                               xt, cap)
 
     # load-balance aux loss (switch-style)
     density = F.one_hot(idx_k[..., 0], nx).to(torch.float32).mean(dim=(0, 1))
     aux = nx * torch.sum(density * gate_all.mean(dim=(0, 1)))
 
-    # positions within each (group, expert) bin from one sort
     dest = idx_k.reshape(g, sg * k)
     group = torch.arange(g, device=dev)[:, None]
-    pos = stable_rank_by_group((group * nx + dest).reshape(-1),
-                               n_groups=g * nx).reshape(g, sg * k)
-    kept = pos < cap
     slot = dest * cap + torch.clamp(pos, max=cap - 1)             # (g, sg*k)
     slot = torch.where(kept, slot, nx * cap)                      # the dump row
 
@@ -97,17 +140,8 @@ def moe_forward(params, cfg, x: torch.Tensor, *, n_groups: int = 32):
     buf[group, slot] = xk
     buf = buf[:, :nx * cap].reshape(g, nx, cap, e)
 
-    wi = params["wi"]["w"].to(x.dtype)
-    wo = params["wo"]["w"].to(x.dtype)
-    hi = torch.einsum("gxce,xef->gxcf", buf, wi)
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        hg = torch.einsum("gxce,xef->gxcf", buf, params["wg"]["w"].to(x.dtype))
-        hg = (F.silu(hg) if cfg.mlp_kind == "swiglu"
-              else F.gelu(hg, approximate="tanh"))
-        hi = hg * hi
-    else:
-        hi = F.gelu(hi, approximate="tanh")
-    out_buf = torch.einsum("gxcf,xfe->gxce", hi, wo).reshape(g, nx * cap, e)
+    out_buf = experts(cfg, buf, params["wi"]["w"], params["wg"]["w"],
+                      params["wo"]["w"]).reshape(g, nx * cap, e)
 
     # combine: each token's k expert outputs, weighted in the compute dtype
     gathered = out_buf[group, torch.clamp(slot, max=nx * cap - 1)]

@@ -8,6 +8,7 @@ where JAX is not installed:
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 from repro_torch.launch.mesh import fake_world
 

@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 import repro.core.async_sim as J
 from repro.core import DHTConfig as JConfig

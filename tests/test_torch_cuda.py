@@ -8,6 +8,7 @@ launch counts.  Marked ``cuda``; each skips where there is no NVIDIA GPU
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 from repro_torch.convert import l1_to_numpy, state_to_numpy
 from repro_torch.core import (

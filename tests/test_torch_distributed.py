@@ -38,6 +38,7 @@ import pytest
 
 import repro.core as J
 import torch_dist_ranks as R
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 TESTS = os.path.join(ROOT, "tests")

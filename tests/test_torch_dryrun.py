@@ -4,8 +4,10 @@ parameter counts (``configs``, ``models/config.py``); every parameter's,
 optimizer moment's, batch array's and decode-cache leaf's shard shape by
 ``launch/shardings.py`` against the reference's ``fix_spec(param_spec)``
 rules on both production meshes and both profiles; the roofline's
-formulas; ``collective_bytes_of``; a dry-run cell in a fake world of 512
-ranks; and the (2, 2)-sharded forward and train step on 4 gloo ranks.
+formulas; ``collective_bytes_of``; dry-run cells in fake worlds of 512
+and 256 ranks; the (2, 2)-sharded forward and train step on 4 gloo
+ranks; and there the expert-parallel MoE layer (``models/moe_ep.py``)
+against the single-process port and ``repro.models.moe``.
 
 The reference's rules build ``NamedSharding``s, which need a JAX mesh of
 256 or 512 devices; here its ``NamedSharding`` is swapped for one that
@@ -30,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 from jax.sharding import PartitionSpec as P
 
 import repro.configs as jconfigs
@@ -602,3 +605,196 @@ def test_sharded_shards_hold_reference_elements(dtensor_ranks, ref_specs):
                 c = x.shape[d] // n
                 x = np.take(x, np.arange(idx * c, (idx + 1) * c), axis=d)
             np.testing.assert_array_equal(got[f"shard/{name}"], x, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE layer (models/moe_ep.py)
+# ---------------------------------------------------------------------------
+
+def _moe_case(arch: str, case: str):
+    """(cfg, jcfg, tree, x) of a MoE case of the ``dtensor`` group."""
+    import torch_dist_ranks as R
+    from repro.models.config import ModelConfig as JConfig
+
+    cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_config(arch),
+                                               n_layers=1),
+                              expert_capacity_factor=R.MOE_CASES[case])
+    tree, x = R.moe_layer_arrays(cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                                 bool(cfg.n_shared_experts), ties=case == "drop")
+    return cfg, JConfig(**dataclasses.asdict(cfg)), tree, x
+
+
+def _ref_routing(tree, jcfg, x, n_groups: int = 32):
+    """The reference's routing lines of ``repro.models.moe.moe_forward``
+    (its ``lax.top_k`` and its vmapped ``stable_rank_by_group``): the
+    top-k experts (g, sg, k), bin positions and kept mask (g, sg*k)."""
+    from repro.core.routing import stable_rank_by_group
+    from repro.models import moe as jmoe
+
+    b, s, e = x.shape
+    k, nx = jcfg.experts_per_token, jcfg.n_experts
+    g = jmoe._pick_groups(b * s, n_groups)
+    sg = b * s // g
+    cap = max(8, int(math.ceil(sg * k / nx * jcfg.expert_capacity_factor)))
+    logits = jnp.einsum("gse,ex->gsx", jnp.asarray(x).reshape(g, sg, e),
+                        jnp.asarray(tree["router"]["w"]))
+    gate_all = jax.nn.softmax(logits, axis=-1)
+    _gate_k, idx_k = jax.lax.top_k(gate_all, k)
+    pos = jax.vmap(lambda d: stable_rank_by_group(d, n_groups=nx))(
+        idx_k.reshape(g, sg * k))
+    return (np.asarray(idx_k), np.asarray(pos), np.asarray(pos < cap),
+            np.asarray(gate_all))
+
+
+def _port_moe_params(tree):
+    out = {n: {"w": torch.from_numpy(tree[n]["w"])}
+           for n in ("router", "wi", "wg", "wo")}
+    if "shared" in tree:
+        out["shared"] = {n: torch.from_numpy(w["w"])
+                         for n, w in tree["shared"].items()}
+    return out
+
+
+@pytest.mark.parametrize("case", ["nodrop", "drop"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"])
+def test_sharded_moe_layer_matches_single_process_and_reference(
+        dtensor_ranks, arch, case):
+    """The expert-parallel layer on the (data=2, model=2) mesh, 2 experts
+    a model rank, its input split over batch and sequence (``seq``: every
+    group of two sequences spans both model ranks) or replicated over
+    ``model`` (``rep``), against the single-process port and
+    ``repro.models.moe.moe_forward`` on the same numpy-seeded weights and
+    input.  Each rank's routing of its data shard's groups (the top-k
+    experts, the bin positions and the kept mask) equals both bit for
+    bit, in the drop case (capacity 8, experts 1 and 2 tied for every
+    token) too, and so does the global drop count; ``y`` within 1e-5
+    absolute (float32; a token's k contributions are summed per model
+    rank, then across ranks) and ``aux_loss`` within 1e-6, in the
+    input's placements.  The only all-gathers over ``model`` are of the
+    layer's input (and, for the shared expert, of its own weights): no
+    routed expert's weight is."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    cfg, jcfg, tree, x = _moe_case(arch, case)
+    ref_y, ref_stats = jmoe.moe_forward(jax.tree.map(jnp.asarray, tree), jcfg,
+                                        jnp.asarray(x))
+    ref_idx, ref_pos, ref_kept, gate_all = _ref_routing(tree, jcfg, x)
+    y, stats = tmoe.moe_forward(_port_moe_params(tree), cfg, torch.from_numpy(x))
+    g = ref_idx.shape[0]
+    cap = tmoe._capacity(cfg, x.shape[0] * x.shape[1] // g)
+    port = tmoe.route(torch.from_numpy(tree["router"]["w"]), cfg,
+                      torch.from_numpy(x).reshape(g, -1, cfg.d_model), cap)
+    np.testing.assert_array_equal(port[2].numpy(), ref_idx)
+    np.testing.assert_array_equal(port[3].numpy(), ref_pos)
+    np.testing.assert_array_equal(port[4].numpy(), ref_kept)
+    dropped = int(ref_stats["dropped"])
+    assert int(stats["dropped"]) == dropped == int((~ref_kept).sum())
+    assert (dropped > 0) == (case == "drop")
+    if case == "drop":             # the tie is real: equal gates, 1 first
+        assert np.array_equal(gate_all[..., 1], gate_all[..., 2])
+    expert_sizes = {n * tree["wi"]["w"][0].size for n in (cfg.n_experts // 2,
+                                                          cfg.n_experts)}
+    for r, got in enumerate(dtensor_ranks):
+        lo, hi = (r // 2) * g // 2, (r // 2 + 1) * g // 2    # data shard r // 2
+        for layout, pl in (("seq", "(Shard(dim=0), Shard(dim=1))"),
+                           ("rep", "(Shard(dim=0), Replicate())")):
+            key = f"moe/{arch}/{case}/{layout}/"
+            np.testing.assert_array_equal(got[key + "route/idx_k"], ref_idx[lo:hi])
+            np.testing.assert_array_equal(got[key + "route/pos"], ref_pos[lo:hi])
+            np.testing.assert_array_equal(got[key + "route/kept"], ref_kept[lo:hi])
+            assert int(got[key + "dropped"]) == dropped
+            np.testing.assert_allclose(got[key + "y"], y.numpy(), atol=1e-5, rtol=0)
+            np.testing.assert_allclose(got[key + "y"], np.asarray(ref_y),
+                                       atol=1e-5, rtol=0)
+            np.testing.assert_allclose(got[key + "aux"], float(stats["aux_loss"]),
+                                       atol=1e-6, rtol=0)
+            np.testing.assert_allclose(got[key + "aux"],
+                                       float(ref_stats["aux_loss"]),
+                                       atol=1e-6, rtol=0)
+            assert str(got[key + "placements"]) == pl
+            gathers = set(got[key + "model_gathers"].tolist())
+            assert not gathers & expert_sizes, (key, gathers)
+            if layout == "seq":
+                assert x[: x.shape[0] // 2].size in gathers
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"])
+def test_sharded_moe_train_step_matches_single_process(dtensor_ranks, arch):
+    """One train step of the reduced MoE LM (2 layers) under the dry run's
+    sequence-parallel residual hint on the (2, 2) mesh: the loss (the aux
+    loss in it) and every parameter after the step within 1e-5 of the
+    single-process step's, on every rank (AdamW's eps at 1e-6, as
+    ``torch_dist_ranks.MOE_TRAIN_OPT`` says why).  The batch's 30 groups
+    of 12 tokens include one across each sequence's split between the
+    model ranks."""
+    import torch_dist_ranks as R
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    lm = init_lm(cfg, generator=torch.Generator().manual_seed(R.MOE_SEED),
+                 device="cpu")
+    lm.requires_grad_(True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in R.moe_train_batch(cfg.vocab_size).items()}
+    state = init_opt_state(dict(lm.named_parameters()))
+    lm, state, m = make_train_step(cfg, AdamWConfig(**R.MOE_TRAIN_OPT))(
+        lm, state, batch)
+    key = f"moe_train/{arch}/"
+    for got in dtensor_ranks:
+        assert abs(float(got[key + "loss"]) - float(m["loss"])) <= 1e-5
+        for n, p in lm.named_parameters():
+            np.testing.assert_allclose(got[f"{key}param/{n}"],
+                                       p.detach().numpy(), atol=1e-5, rtol=0,
+                                       err_msg=n)
+
+
+def test_moe_layer_refuses_layouts():
+    """A layout the expert-parallel layer does not take raises
+    ``ValueError`` naming it: groups that would span data-parallel
+    shards, a batch that does not split over them, and expert weights
+    split over their experts on different mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.moe_ep import moe_forward
+
+    cfg = tconfigs.reduced(tconfigs.get_config("qwen3-moe-235b-a22b"), n_layers=1)
+    with fake_world(4):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        lm = init_lm(cfg, generator=torch.Generator(), device="meta")
+        from repro_torch.launch.shardings import distribute_lm
+
+        distribute_lm(lm, mesh)
+        moe = lm.stack.layers[0].moe
+
+        def x(b, s):
+            return distribute_tensor(torch.empty((b, s, cfg.d_model), device="meta"),
+                                     mesh, [Shard(0), Shard(1)])
+
+        with pytest.raises(ValueError, match="span data-parallel shards"):
+            moe_forward(moe, cfg, x(2, 8), n_groups=1)
+        with pytest.raises(ValueError, match="batch of 3"):
+            moe_forward(moe, cfg, x(3, 8))
+        params = {n: {"w": moe[n]["w"]} for n in ("router", "wi", "wg", "wo")}
+        params["wo"] = {"w": params["wo"]["w"].redistribute(
+            mesh, [Shard(0), Replicate()])}
+        with pytest.raises(ValueError, match="same mesh dims"):
+            moe_forward(params, cfg, x(2, 8))
+
+
+def test_run_cell_llama4_scout_decode(ref_specs):
+    """A MoE cell of the dry run in a fake world of 256: llama4-scout
+    decode_32k is ok, its arguments' bytes on rank 0 equal the
+    reference's per-leaf shard bytes, and its record has the MoE layers'
+    collectives."""
+    cell = dryrun.run_cell("llama4-scout-17b-a16e", "decode_32k",
+                           multi_pod=False, verbose=False)
+    assert cell["ok"], cell.get("error")
+    assert cell["chips"] == 256
+    assert cell["memory"]["argument_bytes"] == _ref_decode_argument_bytes(
+        "llama4-scout-17b-a16e", "decode_32k", False)
+    assert cell["cost_per_device"]["flops"] > 0
+    assert cell["collective_bytes_per_device"]["all_reduce"] > 0

@@ -7,6 +7,7 @@ import types
 
 import repro.core as jcore
 import repro_torch.core as tcore
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 # modules of repro.core with a port file under repro_torch/core/
 PORTED = ("neighbors", "hashing", "layout", "dht", "surrogate", "interp",

@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 import repro.models as jm
 from repro.configs.common import reduced as j_reduced
@@ -177,6 +178,30 @@ def test_attention_matches_reference(setup, layer):
     params = jax.tree.map(jnp.asarray, _layer_tree(tree, cfg, layer)["attn"])
     ref = jattn.attention(params, jcfg, kind, jnp.asarray(x), jnp.asarray(pos))
     port = lm.stack.layers[layer].attn(_t(x), _t(pos))
+    _close(port, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("softcap,causal,s", [
+    (30.0, True, 48),                                   # masked
+    (30.0, True, tattn.DIRECT_ATTN_MAX_SEQ + 8),        # chunked, banded
+    (None, False, 48),                                  # not causal
+])
+def test_local_softcap_or_bidirectional_matches_reference(setup, softcap,
+                                                          causal, s):
+    """A local layer with a logit softcap, or not causal, goes the
+    reference's way (masked up to DIRECT_ATTN_MAX_SEQ queries, banded
+    chunks above) instead of the kernel; held against
+    ``repro.models.attention`` on the same weights (rtol/atol 1e-5)."""
+    cfg, _jcfg, tree, _jp, _lm = setup
+    cfg = dataclasses.replace(cfg, logit_softcap=softcap, causal=causal)
+    jcfg = JConfig(**dataclasses.asdict(cfg))
+    lm = lm_params_from_numpy(cfg, tree, device=CPU)
+    x = np.random.default_rng(s).standard_normal((1, s, cfg.d_model)).astype(np.float32)
+    pos = np.arange(s, dtype=np.int32)[None]
+    params = jax.tree.map(jnp.asarray, _layer_tree(tree, cfg, 0)["attn"])
+    ref = jattn.attention(params, jcfg, cfg.block_pattern[0], jnp.asarray(x),
+                          jnp.asarray(pos))
+    port = lm.stack.layers[0].attn(_t(x), _t(pos))
     _close(port, ref, rtol=1e-5, atol=1e-5)
 
 

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 from _hypothesis_compat import given, settings, st
 
 import repro.core as J

@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 from repro.core import routing as jr
 from repro_torch.core import routing as tr

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 from repro.core import DHTConfig as JConfig
 from repro.core.server_kv import server_create as j_create

@@ -17,6 +17,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads in an xdist worker)
 
 import repro.models as jm
 from repro import checkpoint as jckpt

@@ -652,7 +652,8 @@ def group_dtensor(rank: int, out: _Out) -> None:
     ``grad_placements``, and the parameters after it, gathered.  Run
     twice: with no activation hint, and (keys under ``hinted/``) with the
     sequence-parallel residual hint the dry run installs (batch over
-    ``data``, sequence over ``model``)."""
+    ``data``, sequence over ``model``).  Then the MoE layer's cases
+    (``moe/``) and the MoE train steps (``moe_train/``)."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor.experimental import implicit_replication
@@ -703,6 +704,185 @@ def group_dtensor(rank: int, out: _Out) -> None:
                 out[f"{prefix}param/{n}"] = p.full_tensor().detach().numpy()
         finally:
             set_activation_spec(None)
+    _moe_layer_cases(mesh, out)
+    _moe_train_steps(mesh, out)
+
+
+# the dtensor group's MoE part: reduced qwen3-moe (4 experts, top-2) and
+# llama4-scout (top-1 and a shared expert), 2 experts a model rank
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+# capacity factors: no drops at 4.0; at 0.25 (capacity 8 of a bin's ~8-16
+# choices) drops, with experts 1 and 2 tied for every token
+MOE_CASES = {"nodrop": 4.0, "drop": 0.25}
+# 32 groups of 32 tokens, two whole sequences each: every group spans both
+# model ranks under the sequence split
+MOE_BATCH = (64, 16)
+# the train step's: 30 groups of 12 tokens, the one at 84..95 of each
+# sequence across the split at 90
+MOE_TRAIN_BATCH = (2, 180)
+MOE_SEED = 8
+# the MoE train steps' AdamW: TRAIN_OPT with eps 1e-6.  The first update is
+# lr * g / (|g| + eps), so a gradient below eps turns float32 rounding into
+# a move of up to lr: at eps 1e-8 one attn.wo gradient of 6.7e-9 left its
+# parameter 1.25e-5 from the single-process step's.  At 1e-6 a rounding of
+# the gradients moves no parameter by more than ~1e-9.
+MOE_TRAIN_OPT = {**TRAIN_OPT, "eps": 1e-6}
+
+
+def moe_layer_arrays(e: int, f: int, nx: int, shared: bool, ties: bool,
+                     seed: int = 21) -> tuple[dict, np.ndarray]:
+    """The reference's MoE tree (float32; ``init_moe``'s shapes, and its
+    scales but the router's) and an input (MOE_BATCH + (e,)), from a
+    numpy seed; with ``ties`` the router's columns 1 and 2 are equal, so
+    experts 1 and 2 tie for every token."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, fan_in, scale=None):
+        std = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+        return {"w": (rng.standard_normal(shape) * std).astype(np.float32)}
+
+    # the router at std 1, not init_moe's 0.02: the gates spread, so no
+    # top-k is near-tied but the ties made on purpose
+    tree = {"router": w(e, nx, fan_in=e, scale=1.0),
+            "wi": w(nx, e, f, fan_in=e), "wg": w(nx, e, f, fan_in=e),
+            "wo": w(nx, f, e, fan_in=f)}
+    if ties:
+        tree["router"]["w"][:, 2] = tree["router"]["w"][:, 1]
+    if shared:
+        tree["shared"] = {"wi": w(e, f, fan_in=e), "wg": w(e, f, fan_in=e),
+                          "wo": w(f, e, fan_in=f)}
+    x = rng.standard_normal(MOE_BATCH + (e,)).astype(np.float32)
+    return tree, x
+
+
+def moe_train_batch(vocab: int, seed: int = 17) -> dict:
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, vocab, size=MOE_TRAIN_BATCH).astype(np.int32)
+    labels[1, :5] = -1
+    return {"tokens": rng.integers(0, vocab, size=MOE_TRAIN_BATCH).astype(np.int32),
+            "labels": labels}
+
+
+def _moe_layer_cases(mesh, out: _Out) -> None:
+    """Each arch and case, the layer alone on the residual's two layouts
+    (``seq``: batch over ``data``, sequence over ``model``; ``rep``: batch
+    over ``data``, replicated over ``model``, as a decode step's): the
+    output and stats, gathered; what ``moe.route`` gave this rank's groups
+    (``route/``: the top-k experts, bin positions and kept mask); and the
+    element counts of the forward's all-gathers over ``model``."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.shardings import distribute_lm
+    from repro_torch.models import init_lm
+    from repro_torch.models import moe_ep
+
+    class Gathers(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = super().__torch_dispatch__(func, types, args, kwargs)
+            if res is not NotImplemented and "all_gather" in str(func):
+                self.seen.append((args[2], res.numel()))
+            return res
+
+    model_group = mesh.get_group("model").group_name
+    route = moe_ep.route
+    for arch in MOE_ARCHS:
+        base = reduced(get_config(arch), n_layers=1)
+        for case, capacity in MOE_CASES.items():
+            cfg = dataclasses.replace(base, expert_capacity_factor=capacity)
+            tree, x = moe_layer_arrays(cfg.d_model, cfg.d_ff_expert,
+                                       cfg.n_experts, bool(cfg.n_shared_experts),
+                                       ties=case == "drop")
+            lm = init_lm(cfg, device="cpu", generator=torch.Generator())
+            moe = lm.stack.layers[0].moe
+            for name in ("router", "wi", "wg", "wo"):
+                moe[name]["w"].data.copy_(torch.from_numpy(tree[name]["w"]))
+            if "shared" in tree:
+                for name, w in tree["shared"].items():
+                    moe["shared"][name].data.copy_(torch.from_numpy(w["w"]))
+            distribute_lm(lm, mesh)
+            for layout, pl in (("seq", [Shard(0), Shard(1)]),
+                               ("rep", [Shard(0), Replicate()])):
+                key = f"moe/{arch}/{case}/{layout}/"
+                xd = distribute_tensor(torch.from_numpy(x), mesh, pl)
+                seen = []
+
+                def spy(*a, **kw):
+                    res = route(*a, **kw)
+                    seen.append(res)
+                    return res
+
+                moe_ep.route = spy
+                try:
+                    with Gathers() as comm:
+                        y, stats = moe_ep.moe_forward(moe, cfg, xd)
+                finally:
+                    moe_ep.route = route
+                _gate_all, _gate_k, idx_k, pos, kept = seen[0]
+                out.put(key + "route", {"idx_k": idx_k, "pos": pos,
+                                        "kept": kept})
+                out.put(key + "y", y.full_tensor())
+                out.put(key + "aux", stats["aux_loss"].full_tensor())
+                out.put(key + "dropped", stats["dropped"].full_tensor())
+                out[key + "placements"] = np.asarray(str(y.placements))
+                out[key + "model_gathers"] = np.asarray(
+                    [n for g, n in comm.seen if g == model_group], np.int64)
+
+
+def _moe_train_steps(mesh, out: _Out) -> None:
+    """One train step of each reduced MoE LM (2 layers) under the
+    sequence-parallel residual hint: its loss (the aux loss in it) and
+    every parameter after it, gathered."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.shardings import (
+        batch_placements,
+        distribute_lm,
+        distribute_tree,
+        opt_state_placements,
+        placements,
+    )
+    from repro_torch.models import init_lm
+    from repro_torch.models.act_sharding import set_activation_spec
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    set_activation_spec((mesh, placements((dp_axes(mesh), "model", None),
+                                          mesh)))
+    try:
+        for arch in MOE_ARCHS:
+            cfg = reduced(get_config(arch))
+            lm = init_lm(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(MOE_SEED))
+            lm.requires_grad_(True)
+            p_pl = distribute_lm(lm, mesh)
+            batch = {k: torch.from_numpy(v)
+                     for k, v in moe_train_batch(cfg.vocab_size).items()}
+            batch = distribute_tree(batch, mesh, batch_placements(batch, mesh))
+            state = init_opt_state(dict(lm.named_parameters()))
+            state = distribute_tree(state, mesh,
+                                    opt_state_placements(state, p_pl, mesh))
+            step = make_train_step(cfg, AdamWConfig(**MOE_TRAIN_OPT),
+                                   grad_placements=p_pl)
+            with implicit_replication():
+                lm, state, m = step(lm, state, batch)
+            key = f"moe_train/{arch}/"
+            out.put(key + "loss", m["loss"].full_tensor())
+            for n, p in lm.named_parameters():
+                out[f"{key}param/{n}"] = p.full_tensor().detach().numpy()
+    finally:
+        set_activation_spec(None)
 
 
 GROUPS = {"modes": group_modes, "tier": group_tier,
