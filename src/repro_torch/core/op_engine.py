@@ -287,7 +287,8 @@ def _apply_writes(state: DHTState, abs_base, keys, vals, valid):
     code = torch.zeros(abs_base.shape, dtype=torch.int32,
                        device=abs_base.device)
     passes = 0
-    while passes < state.cfg.n_probe and bool(active.any()):
+    while passes < state.cfg.n_probe and obs_trace.host_read(
+            "write_flag", bool, active.any()):
         kind, retry = _write_pass(state, abs_base, keys, vals, active)
         code = torch.where(active, kind, code)
         active = retry
@@ -324,9 +325,10 @@ def _locked_write_rounds(state: DHTState, abs_base, keys, vals, valid,
 
         agreed = per_shard.max().reshape(1)
         dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=group)
-        n_rounds = int(agreed.item())
+        n_rounds = obs_trace.host_read("lock_rounds", int, agreed)
     else:
-        per_shard = per_shard.tolist()
+        per_shard = obs_trace.host_read("lock_rounds", torch.Tensor.tolist,
+                                        per_shard)
         n_rounds = max(per_shard)
     code = torch.zeros_like(rank)
     tokens = 0
@@ -444,8 +446,9 @@ def _shard_apply(state: DHTState, base, keys, vals, op, valid, kinds,
     if do_write:
         wmask = m_write | (m_migrate & ~found)
         wvals = vals.reshape(c, -1).contiguous()
-        wcode, rounds, tok_w = _shard_write(state, abs_base, keys, wvals,
-                                            wmask, group)
+        with obs_trace.device_span("write"):
+            wcode, rounds, tok_w = _shard_write(state, abs_base, keys,
+                                                wvals, wmask, group)
         tokens += tok_w
         code = torch.where(wmask, wcode,
                            torch.where(m_migrate & found, W_SKIP, 0))
@@ -604,7 +607,9 @@ class InFlightRound:
     has no process group: ``mix`` counts its requests per kind (0-d
     tensors), forwarded rows included; ``source`` names its trace event;
     ``marks`` are its phase marks; ``lanes`` holds its scalar stat lanes
-    and mix counts on their way to the host (``obs.trace._HostLanes``).
+    and mix counts on their way to the host (``obs.trace._HostLanes``);
+    ``spans`` its device spans and timed host reads
+    (``obs.trace.RoundSpans``: on the card, or while a profiler collects).
     """
 
     state: DHTState
@@ -626,6 +631,7 @@ class InFlightRound:
     source: str = ""
     marks: list = dataclasses.field(default_factory=list)
     lanes: Any = None
+    spans: Any = None
 
 
 def dht_issue(state: DHTState, ops: OpBatch, *,
@@ -660,7 +666,12 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     The issue half then packs the round's scalar lanes and op counts into
     one tensor and copies it to pinned host memory without waiting, so
     the commit half reads them after the round's event with no host sync
-    of its own.
+    of its own.  On the card the round also carries device spans: a
+    timing event at each phase mark and around the write schedule, read
+    at commit into the lanes ``device_us.<span>``, and every host read of
+    a device value below is timed (``obs.trace.host_read``); while a
+    ``torch.profiler`` collects, the phases are its ranges
+    ``engine.<phase>``.
 
     ``axis_name``: a ``torch.distributed`` process group of
     ``cfg.n_shards`` ranks; ``state`` is this rank's one shard
@@ -695,6 +706,23 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     _check_supported(state, kinds, ops, prev, placement, pending, axis_name)
     group = _rank_group(state, axis_name)
     rec = obs_metrics.enabled() and group is None
+    spans = obs_trace.begin_round(ops.keys.device) if rec else None
+    try:
+        return _issue(state, ops, kinds, capacity=capacity, prev=prev,
+                      group=group, hashes=hashes, placement=placement,
+                      l1_meta=l1_meta, elide_self=elide_self,
+                      pending=pending, t_start=t_start, rec=rec,
+                      spans=spans)
+    finally:
+        if spans is not None:
+            spans.close()
+
+
+def _issue(state: DHTState, ops: OpBatch, kinds: tuple, *, capacity, prev,
+           group, hashes, placement, l1_meta, elide_self, pending,
+           t_start, rec, spans) -> InFlightRound:
+    """The issue half of :func:`dht_issue`, whose caller closes the
+    round's spans however it ends."""
     cfg = state.cfg
     do_write = ("write" in kinds) or ("migrate" in kinds)
     if do_write and ops.vals is None:
@@ -763,10 +791,14 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         # mark, so the spans measure device time, not issue time
         obs_trace.fence(binned.pos, binned.kept, payloads)
     t_dispatch = time.perf_counter()
+    if spans is not None:
+        spans.phase("dispatch")
     inc = routing.dispatch(binned, payloads, group)
     if rec:
         obs_trace.fence(inc)
     t_apply = time.perf_counter()
+    if spans is not None:
+        spans.phase("apply")
 
     it = iter(inc)
     b_in, k_in = next(it), next(it)
@@ -792,6 +824,8 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
     if rec:
         obs_trace.fence(val, found, code)
     t_collect = time.perf_counter()
+    if spans is not None:
+        spans.phase("collect")
     local = None
     if group is not None:
         val, found, code = val[0], found[0], code[0]
@@ -885,8 +919,9 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
                  ("apply", t_apply), ("collect", t_collect)]
     event = None
     if val_out.is_cuda:
-        event = torch.cuda.Event()
-        event.record()
+        # the round's own event ends its last device span
+        event = torch.cuda.Event(enable_timing=spans is not None)
+        event.record(None if spans is None else spans.stream)
     forwards = conflict is not None
     return InFlightRound(
         state=state, vals=val_out, found=found_out, code=code_out,
@@ -895,14 +930,17 @@ def dht_issue(state: DHTState, ops: OpBatch, *,
         pending=pending if forwards else None, conflict=conflict,
         keys=ops.keys if forwards else None, prev=prev,
         source="engine." + "+".join(kinds), marks=marks,
-        lanes=lanes)
+        lanes=lanes, spans=spans)
 
 
 def dht_commit(rnd: InFlightRound):
     """Wait for an issued round's results: the commit half.
 
     Waits on the round's own event, so work queued after the round
-    (later rounds, the caller's compute) keeps running.  Resolves
+    (later rounds, the caller's compute) keeps running; in a round on
+    the card that records itself the wait is timed (site ``commit``) and
+    the round's device spans are read after it, with no sync of their
+    own.  Resolves
     pending-write forwards: conflicted rows get the published value and
     ``found=True``, bit for bit what a read after the write round would
     have returned; a conflicted key never published raises.  Fills
@@ -926,8 +964,12 @@ def dht_commit(rnd: InFlightRound):
         vals = torch.where(rnd.conflict[:, None], fvals, vals)
         found = found | rnd.conflict
     t_commit = time.perf_counter()
+    spans = rnd.spans
+    if spans is not None:
+        spans.commit()
     if rnd.event is not None:
-        rnd.event.synchronize()
+        obs_trace.host_read("commit", torch.cuda.Event.synchronize,
+                            rnd.event, spans)
     now = time.perf_counter()
     dur = max(now - rnd.t_start, 0.0)
     hidden = max(t_commit - rnd.t_issued, 0.0)
@@ -944,12 +986,16 @@ def dht_commit(rnd: InFlightRound):
         stats.update(rnd.telemetry)
         if lanes.get(_FWD):
             stats["forwarded"] = lanes[_FWD]
+        if spans is not None:
+            stats.update(spans.lanes(rnd.event))
         obs_trace.record_round(
             rnd.source, stats,
             ops={k[len(_MIX):]: v for k, v in lanes.items()
                  if k.startswith(_MIX)},
             t_start=rnd.t_start, phase_marks=rnd.marks + [("commit",
                                                            t_commit)])
+    if spans is not None:
+        spans.close()
     return rnd.state, rnd.prev, vals, found, rnd.code, rnd.estats
 
 

@@ -35,6 +35,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from .layout import MASK32
 
 
@@ -180,7 +181,9 @@ def plan_capacity(dest: torch.Tensor, n_dest: int, *, n_src: int = 1,
     counts = _histogram((d + off * width).reshape(-1),
                         n_src * width).reshape(n_src, width)
     if group is None:
-        max_load = int(counts[:, :n_dest].max()) if d.numel() else 0
+        max_load = (obs_trace.host_read("capacity", int,
+                                        counts[:, :n_dest].max())
+                    if d.numel() else 0)
         limit = d.shape[1]
     else:
         import torch.distributed as dist
@@ -189,7 +192,8 @@ def plan_capacity(dest: torch.Tensor, n_dest: int, *, n_src: int = 1,
                               torch.full((), d.shape[1], dtype=torch.int64,
                                          device=d.device)])
         dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=group)
-        max_load, limit = agreed.tolist()
+        max_load, limit = obs_trace.host_read(
+            "capacity", torch.Tensor.tolist, agreed)
     return capacity_bucket(max(max_load, 1), floor=floor, limit=limit)
 
 

@@ -30,14 +30,30 @@ event with no sync of its own.  Integer lanes come back as ``int``,
 float lanes as the ``float`` of their float32 value, as the reference's
 ``_scalarize`` gives them.
 
-Phase spans and ``OBS_FENCE=1``: CUDA launches are asynchronous, so by
-default a phase span measures the host time to *issue* that phase's
-work, not the card's time to run it; the unissued remainder piles into
-whichever phase waits for a value (usually ``commit``).  Setting
-``OBS_FENCE=1`` in the environment (or :func:`set_fence`) makes the
-engine call ``torch.cuda.synchronize`` on the device of each phase's
-products before taking the next mark, so spans measure device time, at
-the cost of serializing the pipeline, which perturbs the very timing
+Phase spans and ``OBS_FENCE=1``: CUDA launches are asynchronous, so a
+phase span measures the host time to *issue* that phase's work, not the
+card's time to run it; the unissued remainder piles into whichever phase
+waits for a value (usually ``commit``).  The card's side comes from
+device spans instead (:class:`RoundSpans`): in a self-recording engine
+round on the card each phase mark, and the ``write`` schedule inside
+``apply``, records a pooled timing CUDA event (through the CUDA driver,
+which costs less host time than ``torch.cuda.Event``), and the commit
+reads the elapsed times after the wait it already makes, so the round
+gains lanes ``device_us.<span>`` (histograms
+``engine.device_us.<span>``) and no sync.  A device span is the stream's
+time from one mark to the next: the phase's kernels and any gap in which
+the card waited for the host to launch them.  Every host read of a
+device value in such a round goes through :func:`host_read`, which times
+it into ``engine.host_syncs`` and ``engine.sync_wait_us.<site>``; the
+issue half's reads also sum into the lane ``issue_wait_us``.  While a
+``torch.profiler`` is collecting, the phases, the ``write`` span and the
+sync sites are also profiler ranges (``engine.<phase>``,
+``engine.sync.<site>``), so the program's spans sit in the profiler's
+trace on the kernels' clock. ``OBS_FENCE=1`` in the environment (or
+:func:`set_fence`) still makes the engine call
+``torch.cuda.synchronize`` on the device of each phase's products before
+taking the next mark, so the host spans themselves measure device time,
+at the cost of serializing the pipeline, which perturbs the very timing
 being measured.  The default is therefore off.  On the CPU the fence
 does nothing.
 
@@ -57,10 +73,16 @@ from typing import Sequence
 
 from . import metrics
 
+# the reference's names; the engine's device spans and timed host reads
+# (RoundSpans, begin_round, device_span, host_read, DEVICE_SPANS) are the
+# port's own, used by core/op_engine.py and core/routing.py
 __all__ = ["RoundEvent", "TraceRecorder", "get_tracer", "record_round",
            "record_event", "PHASES", "fence_enabled", "set_fence", "fence"]
 
 PHASES = ("bin", "dispatch", "apply", "collect", "commit")
+# the device spans of an engine round on the card: its four issue phases
+# and the write schedule inside ``apply``
+DEVICE_SPANS = ("bin", "dispatch", "apply", "write", "collect")
 
 _FENCE = os.environ.get("OBS_FENCE", "0") in ("1", "true", "yes")
 
@@ -343,6 +365,12 @@ def record_round(source: str, stats: dict, *, ops: dict | None = None,
     if "hidden_us" in scal:
         reg.observe("engine.hidden_us", scal["hidden_us"],
                     edges=metrics.LATENCY_EDGES_US)
+    # device spans of a round on the card (RoundSpans.lanes)
+    for span in DEVICE_SPANS:
+        if "device_us." + span in scal:
+            reg.observe("engine.device_us." + span,
+                        scal["device_us." + span],
+                        edges=metrics.LATENCY_EDGES_US)
     if t_start is not None or dur > 0.0:
         reg.observe("engine.round_latency_us", dur * 1e6,
                     edges=metrics.LATENCY_EDGES_US)
@@ -379,3 +407,233 @@ def record_event(source: str, stats: dict | None = None, *,
     _TRACER.record(RoundEvent(
         source=source, ts=ts, dur=max(now - ts, 0.0), spans={},
         ops=dict(ops or {}), stats=_scalarize(stats or {})))
+
+
+# ---------------------------------------------------------------------------
+# device spans, host reads and profiler ranges of an engine round
+# ---------------------------------------------------------------------------
+
+_CURRENT: "RoundSpans | None" = None   # the round whose issue half runs
+_EVENTS: dict = {}                     # device index -> free timing events
+_POOL_MAX = 64
+_DRIVER = None
+
+
+def _driver():
+    """``cuEventRecord``, ``cuEventElapsedTime`` and the float the latter
+    writes, bound with ctypes at first use.  A record or an elapsed read
+    through them skips what ``torch.cuda.Event`` adds around the same
+    call (setting the device; querying both events before an elapsed
+    read).  A call that fails (a nonzero ``CUresult``) is made again
+    through ``torch.cuda.Event``."""
+    global _DRIVER
+    if _DRIVER is None:
+        import ctypes
+
+        lib = ctypes.CDLL("libcuda.so.1")
+        P = ctypes.c_void_p
+        ms = ctypes.c_float()
+        lib.cuEventRecord.argtypes = (P, P)
+        lib.cuEventElapsedTime.argtypes = (ctypes.POINTER(ctypes.c_float),
+                                           P, P)
+        lib.cuEventRecord.restype = ctypes.c_int
+        lib.cuEventElapsedTime.restype = ctypes.c_int
+        _DRIVER = (lib.cuEventRecord, lib.cuEventElapsedTime, ms,
+                   ctypes.pointer(ms))
+    return _DRIVER
+
+
+def _profiler():
+    """torch's profiler module: its ``_is_profiler_enabled`` flag says
+    whether a ``torch.profiler`` is collecting."""
+    import torch.autograd.profiler as prof
+
+    return prof
+
+
+def _open_range(name: str):
+    """Open a profiler range (``record_function``) named ``name``."""
+    r = _profiler().record_function(name)
+    r.__enter__()
+    return r
+
+
+class RoundSpans:
+    """The device side of one self-recording engine round.
+
+    On the card (``card``) each :meth:`phase` mark and each end of a
+    :func:`device_span` records a timing CUDA event on the stream that
+    was current when the round began (``stream``, which the round's own
+    event is recorded on too), taken from a per-device pool so that a
+    round makes no ``cudaEventCreate``.  Each timed host read of the
+    round (:func:`host_read`) is kept as ``(site, us)``; :meth:`lanes`
+    reads the elapsed times once the commit has waited on the round's
+    own event, which every mark precedes on the stream, and flushes the
+    reads into the registry.  While a ``torch.profiler`` is collecting,
+    each phase is a profiler range ``engine.<phase>``, on the CPU too."""
+
+    __slots__ = ("card", "prof", "stream", "raw", "pool", "marks",
+                 "children", "waits", "_open")
+
+    def __init__(self, device, prof):
+        self.card, self.prof = device.type == "cuda", prof
+        self.stream = self.raw = self.pool = None
+        if self.card:
+            import torch
+
+            self.stream = torch.cuda.current_stream(device)
+            self.raw = self.stream.cuda_stream
+            self.pool = _EVENTS.setdefault(self.stream.device_index, [])
+        self.marks: list = []        # (phase, event) in order
+        self.children: list = []     # (span, start event, end event)
+        self.waits: list = []        # (site, us) of the timed host reads
+        self._open = None
+
+    def _event(self):
+        """A timing event, recorded now: ``(torch event, handle)``."""
+        if self.pool:
+            ev = self.pool.pop()
+            if not _driver()[0](ev[1], self.raw):
+                return ev
+            ev = ev[0]
+        else:
+            import torch
+
+            ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev, ev.cuda_event
+
+    def _close(self) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+    def phase(self, name: str) -> None:
+        """End the running phase and start ``name``."""
+        self._close()
+        if self.prof._is_profiler_enabled:
+            self._open = _open_range("engine." + name)
+        if self.card:
+            self.marks.append((name, self._event()))
+
+    def close(self) -> None:
+        """Close the open range (at the end of each half), and stop being
+        the round that :func:`host_read` and :func:`device_span`
+        charge."""
+        global _CURRENT
+        self._close()
+        if _CURRENT is self:
+            _CURRENT = None
+
+    def commit(self) -> None:
+        """Open the ``engine.commit`` range (closed by :meth:`close`)."""
+        self._close()
+        if self.prof._is_profiler_enabled:
+            self._open = _open_range("engine.commit")
+
+    def read(self, site: str, read, value):
+        """``read(value)`` timed as a host sync of the round at ``site``
+        (see :func:`host_read`)."""
+        rng = (_open_range("engine.sync." + site)
+               if self.prof._is_profiler_enabled else None)
+        t = time.perf_counter()
+        out = read(value)
+        self.waits.append((site, (time.perf_counter() - t) * 1e6))
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        return out
+
+    def lanes(self, end) -> dict:
+        """The round's device-span lanes, each phase ending at the next
+        mark and the last at ``end`` (the round's own event, already
+        waited on), and ``issue_wait_us``, the sum of the issue half's
+        timed reads; the timed reads go into ``engine.host_syncs`` and
+        ``engine.sync_wait_us.<site>``, the events back to the pool.
+        Empty off the card."""
+        if not self.card:
+            return {}
+        _, elapsed, ms, ptr = _driver()
+
+        def us(a, b):
+            if elapsed(ptr, a[1], b[1]):
+                return a[0].elapsed_time(b[0]) * 1e3
+            return ms.value * 1e3
+
+        marks = [ev for _, ev in self.marks]
+        ends = marks[1:] + [(end, end.cuda_event)]
+        out = {"device_us." + name: us(start, stop)
+               for (name, start), stop in zip(self.marks, ends)}
+        for name, start, stop in self.children:
+            out["device_us." + name] = us(start, stop)
+            marks += (start, stop)
+        out["issue_wait_us"] = sum(w for s, w in self.waits
+                                   if s != "commit")
+        reg = metrics.get_registry()
+        reg.inc("engine.host_syncs", len(self.waits))
+        for site, wait in self.waits:
+            reg.observe("engine.sync_wait_us." + site, wait,
+                        edges=metrics.LATENCY_EDGES_US)
+        self.pool.extend(marks[:_POOL_MAX - len(self.pool)])
+        self.marks, self.children, self.waits = [], [], []
+        return out
+
+
+def begin_round(device) -> RoundSpans | None:
+    """The :class:`RoundSpans` of a self-recording round on ``device``
+    whose issue half starts now, its ``bin`` phase begun; None where it
+    would record nothing (a round off the card with no profiler
+    collecting)."""
+    global _CURRENT
+    if _CURRENT is not None:
+        _CURRENT.close()
+    prof = _profiler()
+    if device.type != "cuda" and not prof._is_profiler_enabled:
+        return None
+    rs = _CURRENT = RoundSpans(device, prof)
+    rs.phase("bin")
+    return rs
+
+
+class device_span:
+    """``with device_span("write"): ...`` — a span inside the running
+    phase of the current round: two timing events on the card, a
+    profiler range ``engine.<name>`` while a profiler collects.  Outside
+    a round it does nothing."""
+
+    __slots__ = ("name", "rs", "start", "rng")
+
+    def __init__(self, name: str):
+        self.name, self.rs = name, _CURRENT
+
+    def __enter__(self):
+        rs = self.rs
+        if rs is not None:
+            self.rng = (_open_range("engine." + self.name)
+                        if rs.prof._is_profiler_enabled else None)
+            self.start = rs._event() if rs.card else None
+        return self
+
+    def __exit__(self, *exc):
+        rs = self.rs
+        if rs is not None:
+            if rs.card:
+                rs.children.append((self.name, self.start, rs._event()))
+            if self.rng is not None:
+                self.rng.__exit__(None, None, None)
+        return False
+
+
+def host_read(site: str, read, value, spans: RoundSpans | None = None):
+    """``read(value)``: a host read of a device value in the engine round
+    (the capacity plan's largest bin, a write pass's flag, the locked
+    schedules' round count, the commit's wait on the round's event).  In
+    a self-recording round on the card (``spans``, else the round whose
+    issue half runs) the read is timed, and at commit counted in
+    ``engine.host_syncs`` and observed into
+    ``engine.sync_wait_us.<site>``; a profiler range
+    ``engine.sync.<site>`` while a profiler collects.  Anywhere else it
+    is the plain read."""
+    rs = _CURRENT if spans is None else spans
+    if rs is None or not rs.card:
+        return read(value)
+    return rs.read(site, read, value)

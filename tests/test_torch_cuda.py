@@ -1030,7 +1030,8 @@ def test_sharded_nccl_world_one_matches_virtual(gen):
 def test_recorded_rounds_on_card_match_cpu(gen):
     """The engine's self-record on the card: the same write, read and
     95/5 rounds at B = 2^12 on the card and on the CPU leave equal
-    counters and equal events but the host-clock lanes; the card's
+    counters and equal events but the host-clock lanes and what only
+    the card records (device spans, timed host reads); the card's
     lanes came through the pinned copy made at issue, and a commit of
     the recorded read waits for its round's event only."""
     from repro_torch import obs
@@ -1052,14 +1053,63 @@ def test_recorded_rounds_on_card_match_cpu(gen):
                 assert rnd.lanes.packs[0][1].is_pinned()
             dht_read_commit(rnd)
             dht_execute(st, mixed_ops(o, k, v), kinds=("read", "write"))
-            got[device] = (reg.snapshot()["counters"], [
+            # the card's own: its device spans, the timed host reads
+            got[device] = ({k: v for k, v in
+                            reg.snapshot()["counters"].items()
+                            if k != "engine.host_syncs"}, [
                 (e.source, e.ops, {s: x for s, x in e.stats.items()
                                    if s not in ("issue_us", "hidden_us",
                                                 "commit_wait_us",
-                                                "overlap_frac")})
+                                                "overlap_frac",
+                                                "issue_wait_us")
+                                   and not s.startswith("device_us.")})
                 for e in obs.get_tracer().events()])
         finally:
             obs.metrics.set_registry(prev)
             obs.get_tracer().clear()
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][0]["engine.rounds"] == 3
+
+
+def test_device_spans_of_a_round_on_card(gen):
+    """A 95/5 round of 2^16 rows on the card records its five device
+    spans (the write schedule's inside ``apply``), no more device time
+    than the round's wall time, and one timed host read at each sync:
+    the capacity plan, a write flag before each pass and after the last,
+    the commit's wait."""
+    from repro_torch import obs
+
+    cfg = DHTConfig(n_shards=8, buckets_per_shard=1 << 14)
+    n = 1 << 16
+    keys, vals = _words(gen, n, 20), _words(gen, n, 26)
+    op = (torch.rand(n, generator=gen) < 0.05).to(torch.int32).cuda()
+    st = dht_create(cfg)
+    st, _ = dht_write(st, keys, vals)
+    torch.cuda.synchronize()
+    reg = obs.metrics.MetricRegistry()
+    prev = obs.metrics.set_registry(reg)
+    obs.get_tracer().clear()
+    try:
+        es = dht_execute(st, mixed_ops(op, keys, vals),
+                         kinds=("read", "write"))[-1]
+        (ev,) = obs.get_tracer().events()
+    finally:
+        obs.metrics.set_registry(prev)
+        obs.get_tracer().clear()
+    dev = {s: ev.stats["device_us." + s] for s in obs.trace.DEVICE_SPANS}
+    phases = ("bin", "dispatch", "apply", "collect")
+    assert all(dev[s] > 0 for s in phases) and dev["write"] >= 0
+    assert dev["write"] <= dev["apply"]
+    assert sum(dev[s] for s in phases) <= ev.dur * 1e6
+    passes = es["rounds"]
+    assert passes >= 1
+    assert reg.counter("engine.host_syncs") == 1 + (1 + passes) + 1
+    hists = reg.snapshot()["histograms"]
+    for s in obs.trace.DEVICE_SPANS:
+        assert hists["engine.device_us." + s]["count"] == 1
+    counts = {site: hists["engine.sync_wait_us." + site]["count"]
+              for site in ("capacity", "write_flag", "commit")}
+    assert counts == {"capacity": 1, "write_flag": 1 + passes, "commit": 1}
+    assert ev.stats["issue_wait_us"] == pytest.approx(
+        hists["engine.sync_wait_us.capacity"]["sum"]
+        + hists["engine.sync_wait_us.write_flag"]["sum"])

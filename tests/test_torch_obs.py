@@ -516,3 +516,131 @@ def test_record_round_reads_tensor_lanes_like_reference():
             obs.get_tracer().clear()
     assert snaps[1] == snaps[0]
     assert events[1] == events[0]
+
+
+# ---------------------------------------------------------------------------
+# device spans, timed host reads and profiler ranges
+# ---------------------------------------------------------------------------
+
+def test_round_opens_phase_ranges_under_profiler():
+    """Under a CPU ``torch.profiler`` a write round's phases, its write
+    schedule and its commit are profiler ranges, in the round's order;
+    the round records what it records without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    st, keys, vals = _small()
+    reg = tmetrics.MetricRegistry()
+    prev = tmetrics.set_registry(reg)
+    tobs.get_tracer().clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            T.dht_write(st, keys, vals)
+        (ev,) = tobs.get_tracer().events()
+    finally:
+        tmetrics.set_registry(prev)
+        tobs.get_tracer().clear()
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.name.startswith("engine.")]
+    assert names == ["engine.bin", "engine.dispatch", "engine.apply",
+                     "engine.write", "engine.collect", "engine.commit"]
+    assert list(ev.spans) == list(ttrace.PHASES)
+    assert not any(k.startswith("device_us.") or k == "issue_wait_us"
+                   for k in ev.stats)
+    assert "engine.host_syncs" not in reg.snapshot()["counters"]
+    assert ttrace._CURRENT is None
+
+
+def test_round_opens_no_range_without_profiler(monkeypatch):
+    """Without a profiler no range is opened (the entries are counted);
+    the same round under one opens its six."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opened = []
+    real = ttrace._open_range
+    monkeypatch.setattr(ttrace, "_open_range",
+                        lambda name: opened.append(name) or real(name))
+    st, keys, vals = _small()
+    T.dht_write(st, keys, vals)
+    T.dht_read(st, keys)
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        T.dht_write(st, keys, vals)
+    assert len(opened) == 6
+
+
+@pytest.mark.parametrize("spans", [ttrace.DEVICE_SPANS, ("bin", "apply")])
+def test_record_round_device_lanes_fill_named_histograms(spans):
+    """``record_round`` given ``device_us.*`` and ``issue_wait_us`` lanes
+    as host numbers observes each ``device_us`` lane into its
+    ``engine.device_us.<span>`` histogram and makes no other histogram;
+    the event keeps every lane."""
+    lanes = {f"device_us.{s}": 10.0 * (i + 1) for i, s in enumerate(spans)}
+    lanes["issue_wait_us"] = 7.5
+    reg = tmetrics.MetricRegistry()
+    prev = tmetrics.set_registry(reg)
+    tobs.get_tracer().clear()
+    try:
+        tobs.record_round("engine.read", lanes)
+        (ev,) = tobs.get_tracer().events()
+    finally:
+        tmetrics.set_registry(prev)
+        tobs.get_tracer().clear()
+    hists = reg.snapshot()["histograms"]
+    assert set(hists) == {f"engine.device_us.{s}" for s in spans}
+    for s in spans:
+        h = hists[f"engine.device_us.{s}"]
+        assert h["count"] == 1 and h["sum"] == lanes[f"device_us.{s}"]
+        assert h["edges"] == list(tmetrics.LATENCY_EDGES_US)
+    assert ev.stats == lanes
+
+
+def test_host_read_off_the_card_is_the_plain_read():
+    """The sync helper records nothing for a CPU value, in a round or
+    outside one, and returns the plain read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reg = tmetrics.MetricRegistry()
+    prev = tmetrics.set_registry(reg)
+    try:
+        x = torch.tensor([3, 9, 4])
+        assert ttrace.host_read("capacity", int, x.max()) == 9
+        assert ttrace.host_read("lock_rounds", torch.Tensor.tolist,
+                                x) == [3, 9, 4]
+        cpu = torch.device("cpu")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            rs = ttrace.begin_round(cpu)
+            assert rs is not None and not rs.card
+            assert ttrace.host_read("write_flag", bool, x.any()) is True
+            assert ttrace.host_read("commit", int, x[0], rs) == 3
+            rs.close()
+        assert rs.lanes(None) == {} and rs.waits == []
+        assert ttrace.begin_round(cpu) is None
+    finally:
+        tmetrics.set_registry(prev)
+    assert reg.snapshot() == {"counters": {}, "gauges": {},
+                              "histograms": {}}
+    assert not any(e.name.startswith("engine.sync.")
+                   for e in prof.events())
+    assert ttrace._CURRENT is None
+
+
+def test_raising_issue_half_closes_its_round(monkeypatch):
+    """An issue half that raises after its round's spans began leaves no
+    round behind for later host reads to be charged to, and closes its
+    open profiler range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import routing
+
+    def broken(*a, **k):
+        raise RuntimeError("dispatch failed")
+
+    st, keys, vals = _small()
+    monkeypatch.setattr(routing, "dispatch", broken)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with pytest.raises(RuntimeError, match="dispatch failed"):
+            T.dht_write(st, keys, vals)
+        assert ttrace._CURRENT is None
+    names = [e.name for e in prof.events() if e.name.startswith("engine.")]
+    assert names == ["engine.bin", "engine.dispatch"]
